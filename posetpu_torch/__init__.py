@@ -1,0 +1,16 @@
+"""posetpu_torch — PyTorch/CUDA port of :mod:`posetpu` for NVIDIA Hopper.
+
+The JAX package ``posetpu`` is the reference; this package is its
+counterpart, module for module (``posetpu/aug/warp.py`` ->
+``posetpu_torch/aug/warp.py`` and so on).  It imports torch and numpy only,
+never JAX or anything under ``posetpu``.
+
+Entry points take an explicit ``device`` that defaults to ``"cuda"`` and
+raise when CUDA is absent, unless the caller asks for ``"cpu"``.  On a CUDA
+tensor every kernel wrapper launches its hand-written kernel (built from
+the sources in this package at first use); on a CPU tensor it runs the
+kernel's plain PyTorch version.
+
+Ported so far: the serving path (:class:`posetpu_torch.infer.PosePredictor`)
+and the validation step (:func:`posetpu_torch.train.step.make_eval_step`).
+"""

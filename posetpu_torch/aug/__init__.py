@@ -1,0 +1,42 @@
+"""Augmentation ops: geometry, warp, color, targets, and the batch pipeline."""
+
+from posetpu_torch.aug.affine import (
+    compose_affine,
+    invert_affine,
+    make_transform,
+    transform_points,
+    transform_points_int_float,
+)
+from posetpu_torch.aug.color import color_jitter, color_normalize
+from posetpu_torch.aug.heatmap import (
+    rasterize_gaussians,
+    rasterize_gaussians_plain,
+    window_inside,
+)
+from posetpu_torch.aug.pipeline import (
+    FLIP_PAIRS,
+    AugParams,
+    augment_batch,
+    flip_permutation,
+    neutral_params,
+)
+from posetpu_torch.aug.warp import affine_warp
+
+__all__ = [
+    "compose_affine",
+    "invert_affine",
+    "make_transform",
+    "transform_points",
+    "transform_points_int_float",
+    "color_jitter",
+    "color_normalize",
+    "rasterize_gaussians",
+    "rasterize_gaussians_plain",
+    "window_inside",
+    "FLIP_PAIRS",
+    "AugParams",
+    "augment_batch",
+    "flip_permutation",
+    "neutral_params",
+    "affine_warp",
+]

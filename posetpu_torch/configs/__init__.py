@@ -1,0 +1,17 @@
+"""Configuration dataclasses and named configs."""
+
+from posetpu_torch.configs.config import (
+    NAMED_CONFIGS,
+    AugConfig,
+    ExperimentConfig,
+    ModelConfig,
+    named_config,
+)
+
+__all__ = [
+    "NAMED_CONFIGS",
+    "AugConfig",
+    "ExperimentConfig",
+    "ModelConfig",
+    "named_config",
+]

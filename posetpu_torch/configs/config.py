@@ -1,0 +1,60 @@
+"""Model and augmentation configuration, and the named configs the port
+serves so far — the port's own copy of ``posetpu/configs/config.py``
+(``ModelConfig``, ``AugConfig`` and the ``hg2_mpii_mini``/``hg8_mpii``
+entries of ``named_config``).
+
+Only the fields this slice reads are here.  Knobs that selected between TPU
+code paths are gone: the port has one warp path (``warp_table`` had no
+other meaning), and the target rasterizer is chosen by the device of its
+inputs (``raster_backend``).  The network has one residual block per level
+(``blocks`` is always 1).  The sampler fields, the batch size, ``remat``,
+``scan_stacks`` and the optimizer, agent and run settings come with the
+training slice that reads them.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass
+class ModelConfig:
+    stacks: int = 8  # reference --stacks
+    classes: int = 16  # reference --num-classes
+    feats: int = 128  # reference --features
+    depth: int = 4
+    bf16: bool = True
+
+
+@dataclass
+class AugConfig:
+    inp_res: Tuple[int, int] = (256, 256)
+    out_res: Tuple[int, int] = (64, 64)
+    sigma: float = 1.0  # reference --sigma
+    dataset: str = "mpii"
+
+
+@dataclass
+class ExperimentConfig:
+    name: str = "hg2_mpii_mini"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    aug: AugConfig = field(default_factory=AugConfig)
+
+
+NAMED_CONFIGS = {
+    # 2-stack hourglass, MPII mini-split
+    "hg2_mpii_mini": ExperimentConfig("hg2_mpii_mini", model=ModelConfig(stacks=2)),
+    # 8-stack hourglass, MPII full (Newell et al.'s published network)
+    "hg8_mpii": ExperimentConfig("hg8_mpii", model=ModelConfig(stacks=8)),
+}
+
+
+def named_config(name) -> ExperimentConfig:
+    if name not in NAMED_CONFIGS:
+        raise KeyError(
+            f"unknown config {name!r}; available: {sorted(NAMED_CONFIGS)}"
+        )
+    # deep copy: callers adjust leaves freely without touching the registry
+    return copy.deepcopy(NAMED_CONFIGS[name])

@@ -1,0 +1,181 @@
+"""Inference / serving API — counterpart of ``posetpu/infer.py``.
+
+One forward per batch: neutral crop warp -> mean subtraction -> hourglass
+-> argmax decode with the quarter-pixel offset -> inverse affine.  Inputs
+follow the loader's batch contract: uint8 images zero-padded to a common
+shape plus each sample's true (w, h), center and scale, so a serving front
+end only decodes JPEGs.
+
+Usage:
+    from posetpu_torch.configs import named_config
+    from posetpu_torch.infer import PosePredictor
+    p = PosePredictor.from_config(named_config("hg8_mpii"), state_dict)
+    out = p(images_u8, valid_wh, centers, scales)
+    out["pred"]   # (B, K, 2) keypoints in source-image coords (1-indexed)
+    out["conf"]   # (B, K) peak heatmap activation per joint
+
+Loading the JAX package's orbax checkpoints waits for the checkpoint
+slice; :func:`posetpu_torch.ckpt.from_flax_variables` turns restored flax
+variables into the ``state_dict`` taken here.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+import torch
+
+from posetpu_torch.aug.affine import make_transform
+from posetpu_torch.aug.color import color_normalize
+from posetpu_torch.aug.warp import affine_warp
+from posetpu_torch.eval.decode import final_preds, get_preds, quarter_offset
+from posetpu_torch.models import hg
+from posetpu_torch.utils.device import resolve_device
+
+# The reference normalizes by the dataset mean; MPII's is the default when
+# serving without the training dataset on disk.
+MPII_MEAN = (0.4404, 0.4440, 0.4327)
+
+
+class PosePredictor:
+    """Fixed-shape pose inference on one device.
+
+    On CUDA, inputs are staged through pinned host memory and copied
+    without blocking; results come back the same way, so the host only
+    waits where it reads a result.
+    """
+
+    def __init__(
+        self,
+        model,
+        *,
+        mean=MPII_MEAN,
+        std=None,
+        inp_res=(256, 256),
+        out_res=(64, 64),
+        device="cuda",
+    ):
+        """``mean``/``std`` must match what training normalized with
+        (MPII_MEAN for MPII-trained weights)."""
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.mean = tuple(mean)
+        self.std = std
+        self.inp_res = tuple(inp_res)
+        self.out_res = tuple(out_res)
+        # normalization constants live on the device: a host copy made
+        # inside the forward would sync the stream and stall the batches
+        # in flight
+        self._mean_t = torch.tensor(self.mean, device=self.device)
+        self._std_t = None if std is None else torch.tensor(std, device=self.device)
+
+    @classmethod
+    def from_config(cls, cfg, state_dict, *, mean=MPII_MEAN, device="cuda"):
+        """Build from an ExperimentConfig and a state dict of
+        :class:`posetpu_torch.models.HourglassNet`."""
+        model = hg(
+            num_stacks=cfg.model.stacks,
+            num_classes=cfg.model.classes,
+            num_feats=cfg.model.feats,
+            depth=cfg.model.depth,
+            dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32,
+        )
+        model.load_state_dict(state_dict)
+        return cls(
+            model,
+            mean=mean,
+            inp_res=tuple(cfg.aug.inp_res),
+            out_res=tuple(cfg.aug.out_res),
+            device=device,
+        )
+
+    def _forward(self, images, valid_wh, center, scale):
+        B = images.shape[0]
+        t = make_transform(
+            center, scale, self.inp_res,
+            torch.zeros((B,), dtype=torch.float32, device=self.device),
+        )
+        crop = affine_warp(images, t, self.inp_res, valid_wh=valid_wh)
+        crop = color_normalize(crop, self._mean_t, self._std_t)
+        scores = self.model(crop)[-1].float()
+        pred = final_preds(scores, center, scale, self.out_res)
+        conf = torch.amax(scores.reshape(B, scores.shape[1], -1), dim=-1)
+        # heatmap-space coords too (visualization / custom post-processing)
+        hm = quarter_offset(get_preds(scores), scores)
+        return {"pred": pred, "conf": conf, "heatmap_coords": hm}
+
+    def _to_device(self, arr, dtype=None):
+        t = torch.as_tensor(np.asarray(arr), dtype=dtype)
+        if self.device.type == "cuda":
+            # a fresh pinned copy per batch: the caching host allocator does
+            # not hand the block out again until the copy has completed
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _launch(self, images, valid_wh, center, scale):
+        """Enqueue one batch; returns its pending result."""
+        with torch.no_grad():
+            out = self._forward(
+                self._to_device(images),
+                self._to_device(valid_wh, torch.int32),
+                self._to_device(center, torch.float32),
+                self._to_device(scale, torch.float32),
+            )
+        if self.device.type != "cuda":
+            return out, None
+        host = {
+            k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                v, non_blocking=True
+            )
+            for k, v in out.items()
+        }
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _fetch(pending):
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+
+    def __call__(self, images, valid_wh, center, scale):
+        """images (B, Hp, Wp, 3) uint8 zero-padded; valid_wh (B, 2) int;
+        center (B, 2); scale (B,).  Returns numpy arrays."""
+        return self._fetch(self._launch(images, valid_wh, center, scale))
+
+    def predict_iter(self, batches, depth=2):
+        """Pipelined prediction: keep up to ``depth`` batches in flight
+        before waiting for the oldest, so the host's staging and enqueueing
+        of later batches overlaps the device's work on earlier ones.  Same
+        numerics and order as per-batch calls; ``depth=0`` is sequential.
+
+        ``batches`` yields ``(images, valid_wh, center, scale)`` tuples with
+        the ``__call__`` contract; yields the ``__call__`` result dicts."""
+        inflight = deque()
+        for images, valid_wh, center, scale in batches:
+            inflight.append(self._launch(images, valid_wh, center, scale))
+            if len(inflight) > depth:
+                yield self._fetch(inflight.popleft())
+        while inflight:
+            yield self._fetch(inflight.popleft())
+
+    def predict_single(self, image, center, scale):
+        """One image (H, W, 3) uint8 -> (K, 2) keypoints and (K,)
+        confidences.  Pads to the image's shape rounded up to a multiple of
+        64."""
+        image = np.asarray(image)
+        H, W = image.shape[:2]
+        Hp = -(-H // 64) * 64
+        Wp = -(-W // 64) * 64
+        padded = np.zeros((1, Hp, Wp, 3), image.dtype)
+        padded[0, :H, :W] = image
+        out = self(
+            padded,
+            np.array([[W, H]], np.int32),
+            np.asarray([center], np.float32),
+            np.asarray([scale], np.float32),
+        )
+        return out["pred"][0], out["conf"][0]

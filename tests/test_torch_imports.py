@@ -1,0 +1,100 @@
+"""posetpu_torch stands alone: it imports neither JAX nor the JAX package,
+and its entry points refuse to run on a machine without CUDA unless asked
+for the CPU."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import posetpu_torch
+from posetpu_torch.models import hg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "posetpu")
+
+
+def _port_modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(posetpu_torch.__path__, "posetpu_torch.")
+    )
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _port_modules()
+    assert "posetpu_torch.infer" in mods and "posetpu_torch.aug.cuda_kernels" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def _python_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "posetpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = _python_files()
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    from posetpu_torch.aug import augment_batch, flip_permutation, neutral_params
+    from posetpu_torch.configs import named_config
+    from posetpu_torch.infer import MPII_MEAN, PosePredictor
+    from posetpu_torch.train.step import make_eval_step
+    from posetpu_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = hg(num_stacks=1, num_feats=8, num_classes=4, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PosePredictor(model)
+    cfg = named_config("hg2_mpii_mini")
+    cfg.model.feats = 8
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PosePredictor.from_config(cfg, hg(num_stacks=2, num_feats=8).state_dict())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_eval_step(model, cfg.aug, MPII_MEAN)
+    assert next(model.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        neutral_params(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flip_permutation(16, "mpii")
+    B, K = 2, 16
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        augment_batch(
+            np.zeros((B, 8, 8, 3), np.uint8), np.full((B, 2), 8, np.int32),
+            np.full((B, 2), 4.0, np.float32), np.ones((B,), np.float32),
+            np.zeros((B, K, 2), np.float32), np.ones((B, K), np.float32),
+            neutral_params(B, "cpu"),
+        )
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
