@@ -9,8 +9,10 @@ Phases, each printing one JSON line:
 
   device     the card's name and its nvidia-smi name/power-limit line
   build      every kernel source of the port compiled with nvcc (all at once)
-  kernels    each kernel against its plain PyTorch version on the card, and
-             both timed with CUDA events
+  kernels    each kernel against its plain PyTorch version on the card
+             (exactly, for the rasterizer, on random and edge points), and
+             both timed with CUDA events beside the card's write floor at
+             the main path's shape and at one beyond the L2
   serve      PosePredictor at the full hg8_mpii width (seeded random
              weights, bf16): predict_iter(depth=2) over 4 batches of 32
   validate   make_eval_step at the same width over 4 batches of 32, its
@@ -60,9 +62,15 @@ CANVAS = (384, 384)  # padded host canvas (H, W); true sizes vary per sample
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# float operations per rasterized element: 2 sub, 2 mul, add, neg, div,
-# exp, 2 abs, 2 compare, 2 mask multiplies, 1 keep multiply
+# float operations per pixel inside a kept joint's window: 2 sub, 2 mul,
+# add, neg, div, exp, 2 abs, 2 compare, 2 mask multiplies, 1 keep multiply;
+# every other pixel is a stored zero
 RASTER_OPS_PER_ELEMENT = 15
+# the rasterizer's timed shapes (B, K, H, W): the main path's, then one whose
+# 134 MB of output is beyond the 50 MB L2
+RASTER_SHAPES = ((BATCH, 16, 64, 64), (512, 16, 64, 64))
+# CPU exp against the card's expf, for the targets of the parity phase; the
+# kernel itself is held to its plain version on the card exactly
 RASTER_TOL = 1e-6
 PARITY_ATOL, PARITY_RTOL = 2e-4, 1e-3
 
@@ -150,37 +158,87 @@ def _raster_inputs(B, K, seed):
     return torch.from_numpy(pts).cuda(), torch.from_numpy(vis).cuda()
 
 
-def phase_kernels():
-    """The rasterizer against its plain version, then both timed at the
-    validation step's shape (32, 16, 64, 64)."""
-    res = (64, 64)
-    max_err = 0.0
-    cases = []
-    for sigma in (1.0, 2.0):
-        for B, K in ((BATCH, 16), (3, 5)):  # 3*5 rows: not a block multiple
-            pts, vis = _raster_inputs(B, K, SEED + B)
-            before = cuda_kernels.LAUNCHES["rasterize_gaussians"]
-            t_k, v_k = rasterize_gaussians(pts, vis, res, sigma)
-            t_p, v_p = rasterize_gaussians_plain(pts, vis, res, sigma)
-            torch.cuda.synchronize()
-            check(cuda_kernels.LAUNCHES["rasterize_gaussians"] == before + 1,
-                  "the rasterizer wrapper did not launch its kernel")
-            err = (t_k - t_p).abs().max().item()
-            check(err <= RASTER_TOL, f"rasterizer sigma={sigma} {(B, K)}: err {err}")
-            check(torch.equal(v_k, v_p), f"rasterizer vis_out sigma={sigma} {(B, K)}")
-            if B == BATCH:
-                check(t_k.max().item() == 1.0, "no visible peak was drawn")
-            max_err = max(max_err, err)
-            cases.append({"sigma": sigma, "B": B, "K": K, "max_abs_err": err})
+def _edge_inputs(res, frac):
+    """(1, n, 2) points on, one pixel beyond, a few pixels beyond and far
+    beyond each edge of an H x W map, then two rows of the TPU kernel's
+    -1e6 padding (vis 0, as it padded them, and vis 1); (1, n) vis."""
+    H, W = res
 
-    B, K = BATCH, 16
-    pts, vis = _raster_inputs(B, K, SEED)
-    ms = cuda_ms(lambda: rasterize_gaussians(pts, vis, res, 1.0))
-    plain_ms = cuda_ms(lambda: rasterize_gaussians_plain(pts, vis, res, 1.0))
-    rows, elems = B * K, B * K * res[0] * res[1]
-    nbytes = rows * (2 * 4 + 4) + elems * 4 + rows * 4  # in once, out once
-    ops = elems * RASTER_OPS_PER_ELEMENT
+    def axis(n):
+        return [0.0, n - 1.0, *(-float(d) for d in range(1, 9)),
+                *(n - 1.0 + d for d in range(1, 9)), -100.0, n + 99.0]
+
+    xs, ys = axis(W), axis(H)
+    pts = ([(x, float(H // 2)) for x in xs] + [(float(W // 2), y) for y in ys]
+           + list(zip(xs, ys)))
+    pts = np.array(pts, np.float32) + (np.float32(0.5) if frac else 0)
+    pts = np.concatenate([pts, np.full((2, 2), -1e6, np.float32)])
+    vis = np.ones(len(pts), np.float32)
+    vis[-2] = 0.0
+    return (torch.from_numpy(pts[None]).cuda(), torch.from_numpy(vis[None]).cuda())
+
+
+def _raster_bound(B, K, H, W, in_window):
+    """Least time for the rasterizer's work: each input read once, each
+    output written once, against the float operations of the pixels inside
+    a kept joint's window (the only ones it computes)."""
+    rows, elems = B * K, B * K * H * W
+    nbytes = rows * (2 * 4 + 4) + elems * 4 + rows * 4
+    ops = in_window * RASTER_OPS_PER_ELEMENT
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return nbytes, ops, max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                                 else "operations")
+
+
+def phase_kernels():
+    """The rasterizer against its plain version, exactly, on random points
+    at two widths and on edge points at three map sizes (odd, 16-byte rows
+    and the main path's 64x64), for sigma 1, 1.5 and 2.  Then the kernel,
+    the plain version and the card's write floor (``zero_`` of an output of
+    the same size) timed at each of RASTER_SHAPES."""
+    cases, max_err = [], 0.0
+
+    def compare(what, pts, vis, res, sigma):
+        nonlocal max_err
+        before = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        t_k, v_k = rasterize_gaussians(pts, vis, res, sigma)
+        t_p, v_p = rasterize_gaussians_plain(pts, vis, res, sigma)
+        torch.cuda.synchronize()
+        check(cuda_kernels.LAUNCHES["rasterize_gaussians"] == before + 1,
+              "the rasterizer wrapper did not launch its kernel")
+        err = (t_k - t_p).abs().max().item()
+        label = f"rasterizer {what} {tuple(pts.shape[:2])} {res} sigma={sigma}"
+        check(torch.equal(t_k, t_p), f"{label}: max abs err {err}")
+        check(torch.equal(v_k, v_p), f"{label}: vis_out")
+        check(t_k.max().item() > 0.5, f"{label}: no visible peak was drawn")
+        max_err = max(max_err, err)
+        cases.append({"points": what, "B": pts.shape[0], "K": pts.shape[1],
+                      "res": list(res), "sigma": sigma, "max_abs_err": err})
+
+    for sigma in (1.0, 1.5, 2.0):
+        for B, K in ((BATCH, 16), (3, 5)):  # 3*5 rows: not a block multiple
+            compare("random", *_raster_inputs(B, K, SEED + B), (64, 64), sigma)
+        for res in ((17, 13), (64, 48), (64, 64)):
+            for frac in (False, True):
+                compare("edges+0.5" if frac else "edges",
+                        *_edge_inputs(res, frac), res, sigma)
+
+    shapes = []
+    for B, K, H, W in RASTER_SHAPES:
+        res = (H, W)
+        pts, vis = _raster_inputs(B, K, SEED)
+        in_window = int((rasterize_gaussians_plain(pts, vis, res, 1.0)[0] != 0).sum())
+        ms = cuda_ms(lambda: rasterize_gaussians(pts, vis, res, 1.0))
+        plain_ms = cuda_ms(lambda: rasterize_gaussians_plain(pts, vis, res, 1.0))
+        buf = torch.empty((B, K, H, W), dtype=torch.float32, device="cuda")
+        floor_ms = cuda_ms(buf.zero_)
+        del buf
+        nbytes, ops, bound_ms, bound_by = _raster_bound(B, K, H, W, in_window)
+        shapes.append({"shape": [B, K, H, W], "sigma": 1.0, "ms": ms,
+                       "plain_ms": plain_ms, "write_floor_ms": floor_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes": nbytes, "operations": ops})
+    main = shapes[0]
     summary = {
         "name": "rasterize_gaussians",
         "route": "cuda",
@@ -188,14 +246,18 @@ def phase_kernels():
         "replaces": "posetpu/aug/pallas_kernels.py:65",
         "launches": None,  # filled from the validate phase
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,  # no single PyTorch call computes this function
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        # no single PyTorch call computes this function; the write floor
+        # is a yardstick of the card, not of the function
+        "library_ms": None,
+        "write_floor_ms": main["write_floor_ms"],
+        "shapes": shapes,
     }
-    emit("kernels", cases=cases, timed_shape=[B, K, *res], bytes=nbytes,
-         operations=ops, **{k: summary[k] for k in ("ms", "plain_ms", "bound_ms")})
+    emit("kernels", cases=len(cases), max_abs_err=max_err,
+         cases_detail=cases, shapes=shapes)
     return summary
 
 

@@ -10,6 +10,7 @@ raises if the launch was refused, and adds one to its count in
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -32,7 +33,9 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
+@functools.cache
 def _rasterize_fn():
+    """The launch function, looked up and typed once per process."""
     fn = cuda_build.load_library(RASTERIZE_SOURCE).rasterize_gaussians_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_float

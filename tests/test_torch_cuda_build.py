@@ -2,6 +2,7 @@
 source text, every source is compiled once, and a failed or impossible
 build raises (nothing falls back to a plain version)."""
 
+import ctypes
 import os
 import stat
 
@@ -84,3 +85,32 @@ def test_every_kernel_source_ships_with_the_package():
     assert cuda_kernels.SOURCES
     for src in cuda_kernels.SOURCES:
         assert os.path.isfile(src) and src.endswith(".cu")
+
+
+def test_launch_function_is_looked_up_and_typed_once(monkeypatch):
+    """The ctypes launch function is fetched and given its argtypes once per
+    process, not on every launch."""
+    loads = []
+
+    class Lib:
+        def __init__(self):
+            self.rasterize_gaussians_launch = type("Fn", (), {})()
+
+    def load(source):
+        loads.append(source)
+        return Lib()
+
+    monkeypatch.setattr(cuda_build, "load_library", load)
+    cuda_kernels._rasterize_fn.cache_clear()
+    try:
+        fn = cuda_kernels._rasterize_fn()
+        assert cuda_kernels._rasterize_fn() is fn
+    finally:
+        cuda_kernels._rasterize_fn.cache_clear()
+    assert loads == [cuda_kernels.RASTERIZE_SOURCE]
+    # pointers and the stream as c_void_p (a c_int would cut them)
+    assert fn.argtypes == (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+        + [ctypes.c_void_p]
+    )
+    assert fn.restype is ctypes.c_int

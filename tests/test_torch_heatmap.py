@@ -24,6 +24,27 @@ def _inputs(seed, B, K, frac=False):
     return pts, vis
 
 
+def _edge_inputs(res, frac):
+    """(1, n, 2) points on, one pixel beyond, a few pixels beyond and far
+    beyond each edge of an H x W map, then two rows of the TPU kernel's
+    -1e6 padding (``pallas_kernels.py:78``; vis 0 as it padded them, and
+    vis 1); (1, n) vis.  ``frac`` moves every point by +0.5."""
+    H, W = res
+
+    def axis(n):
+        return [0.0, n - 1.0, *(-float(d) for d in range(1, 9)),
+                *(n - 1.0 + d for d in range(1, 9)), -100.0, n + 99.0]
+
+    xs, ys = axis(W), axis(H)
+    pts = ([(x, float(H // 2)) for x in xs] + [(float(W // 2), y) for y in ys]
+           + list(zip(xs, ys)))
+    pts = np.array(pts, np.float32) + (np.float32(0.5) if frac else 0)
+    pts = np.concatenate([pts, np.full((2, 2), -1e6, np.float32)])
+    vis = np.ones(len(pts), np.float32)
+    vis[-2] = 0.0
+    return pts[None], vis[None]
+
+
 def _xla(pts, vis, res, sigma):
     from posetpu.aug.heatmap import rasterize_gaussians
 
@@ -60,6 +81,31 @@ def test_plain_matches_xla_non_integer_window(sigma):
     np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
 
 
+@pytest.mark.parametrize("frac", [False, True])
+@pytest.mark.parametrize("sigma", [1.0, 1.5, 2.0])
+def test_plain_matches_xla_and_pallas_at_edges(sigma, frac):
+    """An odd (17, 13) map with points on, just beyond and far beyond each
+    edge, and -1e6 padding rows: every branch the CUDA kernel has.  The
+    Pallas kernel takes integer points only (it does not truncate for its
+    visibility rule), so it sees the integer case."""
+    from posetpu.aug.pallas_kernels import rasterize_gaussians_pallas
+
+    res = (17, 13)
+    pts, vis = _edge_inputs(res, frac)
+    t, v = port.rasterize_gaussians(torch.from_numpy(pts), torch.from_numpy(vis),
+                                    res, sigma)
+    refs = {"xla": _xla(pts, vis, res, sigma)}
+    if not frac:
+        refs["pallas"] = rasterize_gaussians_pallas(pts, vis, res, sigma,
+                                                    interpret=True)
+    assert 0 < v.sum() < v.numel()  # some rows kept, some dropped
+    for name, (rt, rv) in refs.items():
+        rt = np.asarray(rt)
+        np.testing.assert_array_equal(t.numpy() != 0, rt != 0, err_msg=name)
+        np.testing.assert_allclose(t.numpy(), rt, atol=1e-6, err_msg=name)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(rv), err_msg=name)
+
+
 def test_cpu_dispatch_never_builds_the_kernel(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("CPU tensors must not reach the CUDA kernel")
@@ -94,7 +140,7 @@ def _kernel_vs_plain(pts, vis, res, sigma, device):
     tp, vp = port.rasterize_gaussians_plain(pts_d, vis_d, res, sigma)
     torch.cuda.synchronize()
     assert cuda_kernels.LAUNCHES["rasterize_gaussians"] == before + 1
-    np.testing.assert_allclose(t.cpu().numpy(), tp.cpu().numpy(), atol=1e-6)
+    np.testing.assert_array_equal(t.cpu().numpy(), tp.cpu().numpy())
     np.testing.assert_array_equal(v.cpu().numpy(), vp.cpu().numpy())
 
 
@@ -109,9 +155,19 @@ def test_cuda_kernel_matches_plain(cuda, sigma, shape, frac):
 
 @pytest.mark.cuda
 def test_cuda_kernel_rows_beyond_one_grid(cuda):
-    """More rows than a grid's y extent (65535): the row loop covers them."""
+    """More rows than a grid's y extent (65535): rows lie on blockIdx.x."""
     pts, vis = _inputs(5, 70_001, 1)
     _kernel_vs_plain(np.clip(pts, -2, 9), vis, (8, 8), 1.0, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [False, True])
+@pytest.mark.parametrize("sigma", [1.0, 1.5, 2.0])
+@pytest.mark.parametrize("res", [(17, 13), (64, 48), (64, 64)])
+def test_cuda_kernel_matches_plain_at_edges(cuda, res, sigma, frac):
+    """The odd map takes the kernel's scalar stores, the others its 16-byte
+    stores; edge and -1e6 points cross every window test."""
+    _kernel_vs_plain(*_edge_inputs(res, frac), res, sigma, cuda)
 
 
 @pytest.mark.cuda
