@@ -23,11 +23,19 @@ Phases, each printing one JSON line:
   parity     a small f32 network (TF32 off): the card's validation step
              against the port's CPU path on the same inputs and weights
              (loss, scores, targets, PCK counts and decoded predictions)
+  train      make_train_step at the full hg8_mpii width (seeded weights,
+             bf16, color jitter): one warm-up step, then 4 timed steps of
+             batch 32; the launch counts are reset just before and read
+             just after; loss, PCK, peak memory
+  train_profile  one full-width train step under torch.profiler
+  train_parity   hg2_mpii_mini at feats 8, f32, TF32 off: three train
+             steps, each taken on the card and on the CPU from the CPU's
+             state (draws, loss, gradients, update, BatchNorm statistics)
 
-Then the kernel summary line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
-final line); without CUDA it exits non-zero at once.  Nothing falls back to
-the CPU or to a plain version.
+Then the kernel summary line (launches from validate, and by path), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any failure
+raises (non-zero exit, no final line); without CUDA it exits non-zero at
+once.  Nothing falls back to the CPU or to a plain version.
 """
 
 from __future__ import annotations
@@ -44,12 +52,18 @@ import time
 import numpy as np
 import torch
 
-from posetpu_torch.aug import augment_batch, cuda_kernels, neutral_params
+from posetpu_torch.aug import (
+    augment_batch,
+    cuda_kernels,
+    neutral_params,
+    sample_aug_params_ps,
+)
 from posetpu_torch.aug.heatmap import rasterize_gaussians, rasterize_gaussians_plain
 from posetpu_torch.configs import named_config
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.models import hg
-from posetpu_torch.train.step import make_eval_step
+from posetpu_torch.train.state import TrainState, make_optimizer
+from posetpu_torch.train.step import make_eval_step, make_train_step
 from posetpu_torch.utils import cuda_build
 
 SEED = 0
@@ -74,6 +88,34 @@ RASTER_SHAPES = ((BATCH, 16, 64, 64), (512, 16, 64, 64))
 RASTER_TOL = 1e-6
 PARITY_ATOL, PARITY_RTOL = 2e-4, 1e-3
 
+# train_parity: each step starts on both devices from the same state (the
+# CPU's), so each comparison is of one step.  Derivations (they follow
+# tests/test_torch_train_step.py, with cuDNN's rounding in place of flax's):
+# - the loss of a step from one state: PARITY_ATOL + PARITY_RTOL * loss, the
+#   tolerance of the f32 forward above;
+# - gradients: the two f32 forwards round differently by about 1e-5
+#   relative; a value before a ReLU that close to 0 lands on opposite sides
+#   of the kink, and its whole gradient moves to or from every layer below
+#   (5.1e-4 read between the CPU port and the JAX package);
+TRAIN_GRAD_ATOL = 4e-3
+# - an update: RMSprop moves p by u = -lr*g/sqrt(d*nu + (1-d)*g^2 + eps),
+#   whose derivative in g is at most lr/sqrt(d*nu + eps) (lr/sqrt(eps) =
+#   2.5 from zero moments), and |u| <= lr/sqrt(1-d) = 10*lr on each side, so
+#   |dp| <= min(lr*TRAIN_GRAD_ATOL/sqrt(d*nu + eps), 2*10*lr) + 2 ulps of |p|;
+# - the card's update against the port's CPU optimizer applied to the
+#   card's own gradients from the same moments: the same float32 operations
+#   but rsqrt (CUDA's rsqrtf is within 2 ulps of the true value, the CPU's
+#   1/sqrt within 1.5: at most 4 apart), the two products after it (one ulp
+#   each), and the sum into p, which rounds each side by half an ulp of its
+#   result: |dp| <= 6 ulps of |u| + 2 ulps of |p| (half of which is taken
+#   where two updates round p + u to neighbouring floats);
+# - BatchNorm statistics after a step from one state: 0.1 times the gap of
+#   the batch statistics, themselves f32 forward values (as PARITY_ATOL):
+TRAIN_STATS_ATOL, TRAIN_STATS_RTOL = 5e-4, 1e-3
+TRAIN_PARITY_STEPS = 3
+MPII_TRAIN_SAMPLES = 22246  # the hourglass MPII train split: steps per epoch
+OPT_CFG = named_config("hg2_mpii_mini").optim  # the parity phase's optimizer
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # kernel-name patterns that sort the profile's device time into kinds; the
@@ -86,6 +128,7 @@ PROFILE_KINDS = (
     ("upsample / pool", ("upsample", "pool")),
     ("gather / index (warp, decode)", ("index", "gather")),
     ("reductions", ("reduce",)),
+    ("optimizer and BN-statistics update (_foreach)", ("multi_tensor_apply",)),
     ("dtype casts", ("_copy_kernel",)),
 )
 
@@ -368,26 +411,24 @@ def phase_validate(cfg, predictor):
     return launches
 
 
-def phase_profile(cfg, predictor, top=8):
-    """Where one full-width validation step spends the card's time:
-    kernel time by name from torch.profiler, and the idle share of the
-    step's wall time."""
+def _profile_step(run, top=8):
+    """One call of ``run()`` (already warm) under torch.profiler: device
+    time by kernel and kind, the framework ops that launched it, and the
+    idle share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eval_step = make_eval_step(predictor.model, cfg.aug, MPII_MEAN, device="cuda")
-    batch = _eval_batch(np.random.RandomState(SEED + 4), BATCH, CANVAS,
-                        cfg.model.classes)
-    eval_step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eval_step(batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # record_function ranges (torch.optim's "Optimizer.step#...") also
+        # land on the device timeline; they are spans over kernels, not work
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     check(busy_ms > 0, "the profiler saw no device time")
@@ -404,11 +445,20 @@ def phase_profile(cfg, predictor, top=8):
          if e.key.startswith("aten::") and e.self_device_time_total > 0),
         key=lambda t: -t[1],
     )[:top]
-    emit("profile", step="validate", wall_ms=wall_ms, device_busy_ms=busy_ms,
-         idle_share=max(0.0, 1.0 - busy_ms / wall_ms), kernels=len(by_name),
-         by_kind_ms=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-         top_kernels=[{"name": n[:90], "ms": ms} for n, ms in ranked],
-         top_ops=[{"op": k, "ms": ms, "calls": c} for k, ms, c in ops])
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=max(0.0, 1.0 - busy_ms / wall_ms), kernels=len(by_name),
+                by_kind_ms=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                top_kernels=[{"name": n[:90], "ms": ms} for n, ms in ranked],
+                top_ops=[{"op": k, "ms": ms, "calls": c} for k, ms, c in ops])
+
+
+def phase_profile(cfg, predictor):
+    """Where one full-width validation step spends the card's time."""
+    eval_step = make_eval_step(predictor.model, cfg.aug, MPII_MEAN, device="cuda")
+    batch = _eval_batch(np.random.RandomState(SEED + 4), BATCH, CANVAS,
+                        cfg.model.classes)
+    eval_step(batch)
+    emit("profile", step="validate", **_profile_step(lambda: eval_step(batch)))
 
 
 def phase_parity():
@@ -469,6 +519,195 @@ def phase_parity():
          target_max_abs_err=target_err, pck_cnt=int(mc["pck_cnt"].sum()))
 
 
+def _train_batch(rng, B, canvas, K, first_index):
+    """An in-memory training batch: the eval batch's fields (no mask or
+    offset) and the samples' global dataset indices, which key the draws."""
+    b = _eval_batch(rng, B, canvas, K)
+    del b["mask"], b["offset"]
+    b["index"] = np.arange(first_index, first_index + B, dtype=np.int32)
+    return b
+
+
+def phase_train(cfg):
+    """make_train_step at the full hg8_mpii width, bf16, batch 32, color
+    jitter on, seeded weights: one warm-up step, then NUM_BATCHES timed
+    steps ending in a synchronize.  The launch counts are reset just before
+    the timed steps and read just after."""
+    torch.manual_seed(SEED + 5)
+    model = hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+               num_feats=cfg.model.feats, depth=cfg.model.depth).cuda()
+    check(cfg.aug.color_jitter, "the train phase runs with color jitter")
+    opt = make_optimizer(model.parameters(), cfg.optim,
+                         steps_per_epoch=MPII_TRAIN_SAMPLES // BATCH)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, device="cuda")
+    rng = np.random.RandomState(SEED + 6)
+    batches = [_train_batch(rng, BATCH, CANVAS, cfg.model.classes, i * BATCH)
+               for i in range(1 + NUM_BATCHES)]
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {k: v.clone() for k, v in model.state_dict().items()
+              if k.endswith(("running_mean", "running_var"))}
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
+    torch.cuda.synchronize()
+
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(state, b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(launches["rasterize_gaussians"] == NUM_BATCHES,
+          f"rasterizer launches in training: {launches}")
+    losses = [m["loss"].item() for m in metrics]
+    accs = [m["acc"].item() for m in metrics]
+    for loss, acc in zip(losses, accs):
+        check(math.isfinite(loss), f"train loss {loss}")
+        check(-1.0 <= acc <= 1.0, f"train acc {acc}")
+    check(state.step == 1 + NUM_BATCHES, f"state.step {state.step}")
+    check(opt.count == 1 + NUM_BATCHES, f"optimizer count {opt.count}")
+    moved = {n: not torch.equal(p.detach(), params0[n])
+             for n, p in model.named_parameters()}
+    still = [n for n, m in moved.items() if not m and n.endswith("weight")]
+    check(not still, f"weights that did not move: {still[:5]}")
+    stats = model.state_dict()
+    still = [k for k, v in stats0.items() if torch.equal(stats[k], v)]
+    check(not still, f"BatchNorm statistics that did not move: {still[:5]}")
+    emit("train", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
+         batch=BATCH, steps=NUM_BATCHES, canvas=list(CANVAS), dtype="bfloat16",
+         seconds=seconds, img_per_s=BATCH * NUM_BATCHES / seconds,
+         loss=losses, acc=accs, step=state.step,
+         params_moved=sum(moved.values()), params=len(moved),
+         bn_stats_moved=len(stats0), max_memory_allocated=peak,
+         launches=launches)
+    return launches, state, step, batches[-1]
+
+
+def phase_train_profile(state, step, batch):
+    """Where one full-width train step spends the card's time."""
+    emit("train_profile", step="train", **_profile_step(lambda: step(state, batch)))
+
+
+def _carry_to(state, dev, step_no):
+    """A copy of ``state`` (model, optimizer moments and count) on ``dev``."""
+    model = copy.deepcopy(state.model).to(dev)
+    opt = make_optimizer(model.parameters(), OPT_CFG)
+    named = dict(state.model.named_parameters())
+    opt.load_carried(model, {
+        "count": state.optimizer.count,
+        "nu": {n: state.optimizer.state[p].get("nu", torch.zeros_like(p))
+               for n, p in named.items()},
+    })
+    return TrainState(model, opt, step_no)
+
+
+def phase_train_parity():
+    """hg2_mpii_mini at feats 8, 64² input, f32, TF32 off: three train
+    steps on the CPU; before each, the CPU's state is carried to the card
+    and the card takes the same step from it.  The draws must agree (flips
+    equal, scale and rotation to one float32 ulp), then the loss, the
+    gradients, the update (against the bound of one RMSprop step, and
+    against the CPU optimizer applied to the card's own gradients) and the
+    BatchNorm statistics, each within the tolerances derived above; after
+    the last step, the card's parameters and statistics against the CPU's."""
+    cfg = named_config("hg2_mpii_mini")
+    cfg.model.feats = 8
+    cfg.model.bf16 = False
+    cfg.aug.inp_res = (64, 64)
+    cfg.aug.out_res = (16, 16)
+    K, B = cfg.model.classes, 8
+    lr, d, eps = OPT_CFG.lr, OPT_CFG.rms_decay, OPT_CFG.rms_eps
+    ulp = 2.0**-23
+    rng = np.random.RandomState(SEED + 8)
+    batches = [_train_batch(rng, B, (96, 128), K, 1000 + t * B)
+               for t in range(TRAIN_PARITY_STEPS)]
+
+    draws_err = 0.0
+    for t, b in enumerate(batches):
+        idx = torch.from_numpy(b["index"])
+        kw = dict(scale_factor=cfg.aug.scale_factor, rot_factor=cfg.aug.rot_factor,
+                  rot_prob=cfg.aug.rot_prob, flip_prob=cfg.aug.flip_prob,
+                  scale_mode=cfg.aug.scale_mode)
+        pc = sample_aug_params_ps(SEED, t, idx, **kw)
+        pg = sample_aug_params_ps(SEED, t, idx.cuda(), **kw)
+        check(torch.equal(pg.flip.cpu(), pc.flip), f"step {t}: flips differ")
+        for name in ("scale_factor", "rot"):
+            a, w = getattr(pg, name).cpu().numpy(), getattr(pc, name).numpy()
+            err = np.abs(a - w)
+            check((err <= np.spacing(np.abs(w))).all(), f"step {t}: {name} by {err.max()}")
+            draws_err = max(draws_err, float(err.max()))
+
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        torch.manual_seed(SEED + 7)
+        model = hg(num_stacks=cfg.model.stacks, num_classes=K,
+                   num_feats=cfg.model.feats, dtype=torch.float32)
+        cpu = TrainState(model, make_optimizer(model.parameters(), OPT_CFG))
+        cpu_step = make_train_step(model, cpu.optimizer, cfg.aug, MPII_MEAN,
+                                   seed=SEED, device="cpu")
+        worst = {"loss": 0.0, "grad": 0.0, "update_vs_bound": 0.0,
+                 "update_vs_cpu_optimizer": 0.0, "stats": 0.0}
+        losses = {"cpu": [], "cuda": []}
+        for t, b in enumerate(batches):
+            card = _carry_to(cpu, "cuda", t)
+            ref = _carry_to(cpu, "cpu", t)  # the CPU optimizer, for the card's gradients
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            nu_before = {n: cpu.optimizer.state[p].get("nu", torch.zeros_like(p)).clone()
+                         for n, p in model.named_parameters()}
+            card_step = make_train_step(card.model, card.optimizer, cfg.aug, MPII_MEAN,
+                                        seed=SEED, device="cuda")
+            mg = card_step(card, b)
+            mc = cpu_step(cpu, b)
+            torch.cuda.synchronize()
+            lc, lg = mc["loss"].item(), mg["loss"].item()
+            losses["cpu"].append(lc)
+            losses["cuda"].append(lg)
+            check(abs(lc - lg) <= PARITY_ATOL + PARITY_RTOL * abs(lc),
+                  f"step {t}: loss cpu {lc} vs cuda {lg}")
+            worst["loss"] = max(worst["loss"], abs(lc - lg))
+            g_card = {n: p.grad.cpu() for n, p in card.model.named_parameters()}
+            after = {n: p.detach().cpu() for n, p in card.model.named_parameters()}
+            ref_params = dict(ref.model.named_parameters())
+            for n, p in ref_params.items():
+                p.grad = g_card[n]
+            ref.optimizer.step()
+            for n, p in model.named_parameters():
+                gap = (g_card[n] - p.grad).abs().max().item()
+                check(gap <= TRAIN_GRAD_ATOL, f"step {t}: grad {n} by {gap}")
+                worst["grad"] = max(worst["grad"], gap)
+                tol = torch.clamp(lr * TRAIN_GRAD_ATOL / torch.sqrt(d * nu_before[n] + eps),
+                                  max=2 * lr / math.sqrt(1 - d)) + 2 * ulp * p.detach().abs()
+                ratio = ((after[n] - p.detach()).abs() / tol).max().item()
+                check(ratio <= 1.0, f"step {t}: update of {n} at {ratio} of its bound")
+                worst["update_vs_bound"] = max(worst["update_vs_bound"], ratio)
+                want = ref_params[n].detach()
+                u = (want - before[n]).abs()
+                tol = 6 * ulp * u + 2 * ulp * want.abs()
+                ratio = ((after[n] - want).abs() / tol.clamp_min(1e-30)).max().item()
+                check(ratio <= 1.0, f"step {t}: card update of {n} vs the CPU "
+                                    f"optimizer at {ratio} of its bound")
+                worst["update_vs_cpu_optimizer"] = max(worst["update_vs_cpu_optimizer"], ratio)
+            sd_c, sd_g = model.state_dict(), card.model.state_dict()
+            for k in sd_c:
+                if k.endswith(("running_mean", "running_var")):
+                    w, g = sd_c[k], sd_g[k].cpu()
+                    check(torch.allclose(g, w, atol=TRAIN_STATS_ATOL, rtol=TRAIN_STATS_RTOL),
+                          f"step {t}: {k} by {(g - w).abs().max().item()}")
+                    worst["stats"] = max(worst["stats"], (g - w).abs().max().item())
+        check(cpu.step == card.step == TRAIN_PARITY_STEPS, "step counts")
+        check(cpu.optimizer.count == card.optimizer.count == TRAIN_PARITY_STEPS,
+              "optimizer counts")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    emit("train_parity", steps=TRAIN_PARITY_STEPS, batch=B, loss_cpu=losses["cpu"],
+         loss_cuda=losses["cuda"], draws_max_abs_err=draws_err,
+         **{f"max_{k}": v for k, v in worst.items()})
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -478,8 +717,14 @@ def main():
     launches = phase_validate(cfg, predictor)
     phase_profile(cfg, predictor)
     phase_parity()
+    train_launches, state, step, batch = phase_train(cfg)
+    phase_train_profile(state, step, batch)
+    del state, step
+    phase_train_parity()
 
     raster["launches"] = launches["rasterize_gaussians"]
+    raster["launches_by_path"] = {"validate": launches["rasterize_gaussians"],
+                                  "train": train_launches["rasterize_gaussians"]}
     print(json.dumps({"kernels": [raster]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Augmentation ops: geometry, warp, color, targets, and the batch pipeline."""
+"""Augmentation ops: geometry, warp, color, targets, the keyed samplers and
+the batch pipeline."""
 
 from posetpu_torch.aug.affine import (
     compose_affine,
@@ -7,7 +8,11 @@ from posetpu_torch.aug.affine import (
     transform_points,
     transform_points_int_float,
 )
-from posetpu_torch.aug.color import color_jitter, color_normalize
+from posetpu_torch.aug.color import (
+    color_jitter,
+    color_normalize,
+    sample_jitter_scales,
+)
 from posetpu_torch.aug.heatmap import (
     rasterize_gaussians,
     rasterize_gaussians_plain,
@@ -19,6 +24,7 @@ from posetpu_torch.aug.pipeline import (
     augment_batch,
     flip_permutation,
     neutral_params,
+    sample_aug_params_ps,
 )
 from posetpu_torch.aug.warp import affine_warp
 
@@ -30,6 +36,7 @@ __all__ = [
     "transform_points_int_float",
     "color_jitter",
     "color_normalize",
+    "sample_jitter_scales",
     "rasterize_gaussians",
     "rasterize_gaussians_plain",
     "window_inside",
@@ -38,5 +45,6 @@ __all__ = [
     "augment_batch",
     "flip_permutation",
     "neutral_params",
+    "sample_aug_params_ps",
     "affine_warp",
 ]

@@ -4,8 +4,10 @@ keypoint transform -> Gaussian targets.
 
 The flip is a coordinate mirror composed into the affine (no array
 reversal): flipping a padded image and cropping it equals cropping the
-original through the mirrored affine.  The samplers of random parameters
-wait for the training slice; parameters are passed in.
+original through the mirrored affine.  :func:`sample_aug_params_ps` draws
+the training parameters from keys of (seed, step, global sample index)
+(:mod:`posetpu_torch.aug.keyed`); tests may pass in the reference's draws
+instead.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ from posetpu_torch.aug.affine import (
 )
 from posetpu_torch.aug.color import color_jitter, color_normalize
 from posetpu_torch.aug.heatmap import rasterize_gaussians
+from posetpu_torch.aug.keyed import (
+    STREAM_AUG,
+    bits_to_normal64,
+    bits_to_uniform,
+    keyed_bits,
+)
 from posetpu_torch.aug.warp import affine_warp
 from posetpu_torch.utils.device import resolve_device
 
@@ -52,6 +60,44 @@ def flip_permutation(num_joints, dataset="mpii", device="cuda"):
     for a, b in FLIP_PAIRS[dataset]:
         perm[a], perm[b] = perm[b], perm[a]
     return torch.tensor(perm, dtype=torch.long, device=resolve_device(device))
+
+
+def sample_aug_params_ps(
+    seed,
+    step,
+    index,
+    scale_factor=0.25,
+    rot_factor=30.0,
+    rot_prob=0.6,
+    flip_prob=0.5,
+    scale_mode="exp",
+):
+    """The reference's random augmentation distribution, one draw per
+    global sample ``index`` (B,) at training ``step``, on ``index``'s
+    device (counterpart of the JAX package's ``sample_aug_params_ps``).
+
+    scale_mode "exp": s *= 2^clip(N(0,1)*sf, -2sf, 2sf)  (hourglass lineage)
+    scale_mode "linear": s *= clip(N(0,1)*sf + 1, 1-sf, 1+sf)
+    rot: clip(N(0,1)*rf, -2rf, 2rf), zeroed with prob (1 - rot_prob).
+    flip with prob flip_prob.
+    """
+    if scale_mode not in ("exp", "linear"):
+        raise ValueError(f"unknown scale_mode {scale_mode!r}")
+    bits = keyed_bits(seed, step, index, STREAM_AUG, 6)
+    ns = bits_to_normal64(bits[:, 0], bits[:, 1])
+    nr = bits_to_normal64(bits[:, 2], bits[:, 3])
+    sf, rf = float(scale_factor), float(rot_factor)
+    if scale_mode == "exp":
+        scale = torch.exp2(torch.clamp(ns * sf, -2 * sf, 2 * sf))
+    else:
+        scale = torch.clamp(ns * sf + 1.0, 1.0 - sf, 1.0 + sf)
+    rot = torch.clamp(nr * rf, -2 * rf, 2 * rf)
+    rot = torch.where(bits_to_uniform(bits[:, 4]) <= rot_prob, rot, 0.0)
+    return AugParams(
+        scale_factor=scale.to(_F32),
+        rot=rot.to(_F32),
+        flip=bits_to_uniform(bits[:, 5]) < flip_prob,
+    )
 
 
 def neutral_params(batch, device="cuda"):

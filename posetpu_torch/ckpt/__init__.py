@@ -1,5 +1,5 @@
 """Checkpoint carry from the JAX package."""
 
-from posetpu_torch.ckpt.transplant import from_flax_variables
+from posetpu_torch.ckpt.transplant import from_flax_variables, from_optax_state
 
-__all__ = ["from_flax_variables"]
+__all__ = ["from_flax_variables", "from_optax_state"]

@@ -1,5 +1,6 @@
 """Weight carry: the JAX package's flax hourglass variables -> a state dict
-of :class:`posetpu_torch.models.HourglassNet`.
+of :class:`posetpu_torch.models.HourglassNet`, and its optax RMSprop state
+-> the port's optimizer state (:func:`from_optax_state`).
 
 The port's own copy of the mapping in ``posetpu/ckpt/transplant.py``:
 flax module paths map onto the port's module names (those of
@@ -81,27 +82,74 @@ def _convert_leaf(leaf, arr):
     return leaf, arr  # bias
 
 
+def _carry_tree(tree, mmap):
+    """One flax-shaped tree (params, batch_stats, or an optimizer moment
+    shaped like params) -> {port name: float32 CPU tensor}."""
+    out = {}
+    for path, arr in _flatten(tree).items():
+        mod, _, leaf = path.rpartition("/")
+        # Bottleneck children sit one level below the mapped module
+        if mod in mmap:
+            tname = mmap[mod]
+        else:
+            parent, _, child = mod.rpartition("/")
+            if parent not in mmap or child not in _BOTTLENECK:
+                raise KeyError(f"unmapped flax module path: {mod}")
+            tname = f"{mmap[parent]}.{_BOTTLENECK[child]}"
+        tleaf, tarr = _convert_leaf(leaf, arr)
+        out[f"{tname}.{tleaf}"] = torch.from_numpy(
+            np.array(tarr, dtype=np.float32, order="C")
+        )
+    return out
+
+
 def from_flax_variables(
     params, batch_stats=None, *, num_stacks, num_blocks=1, depth=4
 ):
     """Flax HourglassNet ``params`` (and ``batch_stats``) -> a state dict of
     float32 CPU tensors for ``HourglassNet.load_state_dict``."""
     mmap = _module_map(num_stacks, num_blocks, depth)
-    out = {}
-    trees = [params] + ([batch_stats] if batch_stats is not None else [])
-    for tree in trees:
-        for path, arr in _flatten(tree).items():
-            mod, _, leaf = path.rpartition("/")
-            # Bottleneck children sit one level below the mapped module
-            if mod in mmap:
-                tname = mmap[mod]
-            else:
-                parent, _, child = mod.rpartition("/")
-                if parent not in mmap or child not in _BOTTLENECK:
-                    raise KeyError(f"unmapped flax module path: {mod}")
-                tname = f"{mmap[parent]}.{_BOTTLENECK[child]}"
-            tleaf, tarr = _convert_leaf(leaf, arr)
-            out[f"{tname}.{tleaf}"] = torch.from_numpy(
-                np.array(tarr, dtype=np.float32, order="C")
-            )
+    out = _carry_tree(params, mmap)
+    if batch_stats is not None:
+        out.update(_carry_tree(batch_stats, mmap))
     return out
+
+
+def _optax_fields(state, found):
+    """Collect the ``nu``, ``trace`` and ``count`` fields of optax's state
+    namedtuples, walking the nested tuples of a ``chain``."""
+    fields = getattr(state, "_fields", None)
+    if fields is not None:
+        for name in ("nu", "trace", "count"):
+            if name in fields:
+                if name in found:
+                    raise ValueError(f"optimizer state holds two {name!r} fields")
+                found[name] = getattr(state, name)
+        return found
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            _optax_fields(s, found)
+    return found
+
+
+def from_optax_state(opt_state, *, num_stacks, num_blocks=1, depth=4):
+    """The JAX package's optimizer state (optax ``rmsprop``, optionally
+    chained behind ``add_decayed_weights``) -> ``{"count": int, "nu":
+    {name: tensor}, "trace": {name: tensor} or None}`` by the port's
+    parameter names, for :meth:`OptaxRMSprop.load_carried
+    <posetpu_torch.train.state.OptaxRMSprop.load_carried>`.
+
+    ``nu`` and ``trace`` map like ``params`` (conv kernels HWIO -> OIHW);
+    ``count`` is the schedule's update count.  Reads the state's
+    namedtuples by their field names and needs no JAX.
+    """
+    found = _optax_fields(opt_state, {})
+    if "nu" not in found or "count" not in found:
+        raise ValueError("not an rmsprop state: no nu or no update count")
+    mmap = _module_map(num_stacks, num_blocks, depth)
+    trace = found.get("trace")
+    return {
+        "count": int(np.asarray(found["count"])),
+        "nu": _carry_tree(found["nu"], mmap),
+        "trace": None if trace is None else _carry_tree(trace, mmap),
+    }

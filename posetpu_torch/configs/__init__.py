@@ -5,6 +5,7 @@ from posetpu_torch.configs.config import (
     AugConfig,
     ExperimentConfig,
     ModelConfig,
+    OptimConfig,
     named_config,
 )
 
@@ -13,5 +14,6 @@ __all__ = [
     "AugConfig",
     "ExperimentConfig",
     "ModelConfig",
+    "OptimConfig",
     "named_config",
 ]

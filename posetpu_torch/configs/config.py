@@ -1,22 +1,23 @@
-"""Model and augmentation configuration, and the named configs the port
-serves so far — the port's own copy of ``posetpu/configs/config.py``
-(``ModelConfig``, ``AugConfig`` and the ``hg2_mpii_mini``/``hg8_mpii``
-entries of ``named_config``).
+"""Model, augmentation and optimizer configuration, and the named configs
+the port runs so far — the port's own copy of
+``posetpu/configs/config.py`` (``ModelConfig``, ``AugConfig``,
+``OptimConfig`` and the ``hg2_mpii_mini``/``hg8_mpii`` entries of
+``named_config``).
 
-Only the fields this slice reads are here.  Knobs that selected between TPU
-code paths are gone: the port has one warp path (``warp_table`` had no
-other meaning), and the target rasterizer is chosen by the device of its
-inputs (``raster_backend``).  The network has one residual block per level
-(``blocks`` is always 1).  The sampler fields, the batch size, ``remat``,
-``scan_stacks`` and the optimizer, agent and run settings come with the
-training slice that reads them.
+Only the fields the ported slices read are here.  Knobs that selected
+between TPU code paths are gone: the port has one warp path (``warp_table``
+had no other meaning), and the target rasterizer is chosen by the device of
+its inputs (``raster_backend``).  The network has one residual block per
+level (``blocks`` is always 1).  ``epochs``, the batch size, ``remat``,
+``scan_stacks`` and the agent and run settings come with the slices that
+read them.
 """
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Sequence, Tuple
 
 
 @dataclass
@@ -33,7 +34,24 @@ class AugConfig:
     inp_res: Tuple[int, int] = (256, 256)
     out_res: Tuple[int, int] = (64, 64)
     sigma: float = 1.0  # reference --sigma
+    scale_factor: float = 0.25  # reference --scale-factor
+    rot_factor: float = 30.0  # reference --rot-factor
+    rot_prob: float = 0.6
+    flip_prob: float = 0.5
+    scale_mode: str = "exp"  # "exp" (hourglass lineage) or "linear"
+    color_jitter: bool = True
     dataset: str = "mpii"
+
+
+@dataclass
+class OptimConfig:
+    lr: float = 2.5e-4  # reference --lr (RMSprop)
+    schedule: Sequence[int] = (60, 90)  # reference --schedule (epoch lr drops)
+    gamma: float = 0.1  # reference --gamma
+    rms_decay: float = 0.99  # torch RMSprop alpha
+    rms_eps: float = 1e-8
+    momentum: float = 0.0
+    weight_decay: float = 0.0
 
 
 @dataclass
@@ -41,11 +59,17 @@ class ExperimentConfig:
     name: str = "hg2_mpii_mini"
     model: ModelConfig = field(default_factory=ModelConfig)
     aug: AugConfig = field(default_factory=AugConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    seed: int = 0
 
 
 NAMED_CONFIGS = {
     # 2-stack hourglass, MPII mini-split
-    "hg2_mpii_mini": ExperimentConfig("hg2_mpii_mini", model=ModelConfig(stacks=2)),
+    "hg2_mpii_mini": ExperimentConfig(
+        "hg2_mpii_mini",
+        model=ModelConfig(stacks=2),
+        optim=OptimConfig(schedule=(6, 8)),
+    ),
     # 8-stack hourglass, MPII full (Newell et al.'s published network)
     "hg8_mpii": ExperimentConfig("hg8_mpii", model=ModelConfig(stacks=8)),
 }

@@ -11,6 +11,10 @@ With ``dtype=torch.bfloat16`` the forward runs under bf16 autocast with
 float32 parameters and BatchNorm statistics, as the reference computes in
 bf16 over f32 params; the ``score`` head stays float32 either way.
 BatchNorm: eps 1e-5; flax ``momentum=0.9`` is torch ``momentum=0.1``.
+
+In train mode the running variances follow flax, which averages in the
+*biased* batch variance where torch takes the unbiased one
+(:meth:`HourglassNet.forward`).  Eval mode is torch's BatchNorm as it is.
 """
 
 from __future__ import annotations
@@ -18,6 +22,20 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d that records, in train mode, how many values
+    each channel's batch statistics were taken over (B*H*W of its last
+    input), for :meth:`HourglassNet.forward`'s running-variance
+    correction.  Parameters, buffers and state-dict names are torch's."""
+
+    batch_count = None
+
+    def forward(self, x):
+        if self.training:
+            self.batch_count = x.numel() // x.shape[1]
+        return super().forward(x)
 
 
 class Bottleneck(nn.Module):
@@ -28,11 +46,11 @@ class Bottleneck(nn.Module):
     def __init__(self, cin, planes):
         super().__init__()
         cout = 2 * planes
-        self.bn1 = nn.BatchNorm2d(cin)
+        self.bn1 = BatchNorm2d(cin)
         self.conv1 = nn.Conv2d(cin, planes, 1)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
-        self.bn3 = nn.BatchNorm2d(planes)
+        self.bn3 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, cout, 1)
         self.proj = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
@@ -96,7 +114,7 @@ class HourglassNet(nn.Module):
         ch = 2 * num_feats
         self.stem = nn.Sequential(
             nn.Conv2d(3, 64, 7, 2, 3),
-            nn.BatchNorm2d(64),
+            BatchNorm2d(64),
             nn.ReLU(inplace=True),
             Bottleneck(64, 64),
             nn.MaxPool2d(2),
@@ -112,7 +130,7 @@ class HourglassNet(nn.Module):
         self.fc = nn.ModuleList(
             [
                 nn.Sequential(
-                    nn.Conv2d(ch, ch, 1), nn.BatchNorm2d(ch), nn.ReLU(inplace=True)
+                    nn.Conv2d(ch, ch, 1), BatchNorm2d(ch), nn.ReLU(inplace=True)
                 )
                 for _ in range(num_stacks)
             ]
@@ -127,10 +145,39 @@ class HourglassNet(nn.Module):
         self.score_ = nn.ModuleList(
             [nn.Conv2d(num_classes, ch, 1) for _ in range(num_stacks - 1)]
         )
+        # a plain list: the modules are registered above already
+        self._norms = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
 
     def forward(self, x):
         """x (B, H, W, 3) NHWC float -> list of ``num_stacks`` (B, K, H/4,
-        W/4) float32 heatmaps."""
+        W/4) float32 heatmaps.
+
+        In train mode each BatchNorm's running variance ends as flax's
+        ``m*rv + (1-m)*var_biased`` (m = 0.9), without a second pass over
+        the activations.  torch leaves ``rv_t = m*rv + (1-m)*var*n/(n-1)``
+        with n = B*H*W values per channel, so ``rv_t*(1-1/n) + m*rv/n`` is
+        flax's value: one copy of each C-sized ``rv`` before the forward
+        and three ``_foreach`` calls over all BatchNorms after it.
+        """
+        if not self.training:
+            return self._forward(x)
+        # ``.data``: autograd saved the buffers with the forward (a
+        # train-mode backward reads the saved batch statistics, never
+        # these), and an update it tracked would fail that check
+        running = [bn.running_var.data for bn in self._norms]
+        with torch.no_grad():
+            kept = torch._foreach_mul(
+                running, [1.0 - bn.momentum for bn in self._norms]
+            )
+        outs = self._forward(x)
+        with torch.no_grad():
+            counts = [bn.batch_count for bn in self._norms]
+            torch._foreach_mul_(running, [1.0 - 1.0 / n for n in counts])
+            torch._foreach_mul_(kept, [1.0 / n for n in counts])
+            torch._foreach_add_(running, kept)
+        return outs
+
+    def _forward(self, x):
         x = x.permute(0, 3, 1, 2)
         dev = x.device.type
         with torch.autocast(
@@ -140,8 +187,10 @@ class HourglassNet(nn.Module):
             outs = []
             for i, hg in enumerate(self.hgs):
                 y = self.fc[i](self.res[i](hg(x)))
+                # in the parameters' own type: float32, or float64 for a
+                # model taken to .double() as a reference
                 with torch.autocast(dev, enabled=False):
-                    s = self.score[i](y.float())
+                    s = self.score[i](y.to(self.score[i].weight.dtype))
                 outs.append(s)
                 if i < len(self.hgs) - 1:
                     x = x + self.fc_[i](y) + self.score_[i](s)

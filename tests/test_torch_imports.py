@@ -29,6 +29,8 @@ def _port_modules():
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert "posetpu_torch.infer" in mods and "posetpu_torch.aug.cuda_kernels" in mods
+    assert {"posetpu_torch.aug.keyed", "posetpu_torch.train.state",
+            "posetpu_torch.train.step"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -69,7 +71,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from posetpu_torch.aug import augment_batch, flip_permutation, neutral_params
     from posetpu_torch.configs import named_config
     from posetpu_torch.infer import MPII_MEAN, PosePredictor
-    from posetpu_torch.train.step import make_eval_step
+    from posetpu_torch.train.state import make_optimizer
+    from posetpu_torch.train.step import make_eval_step, make_train_step
     from posetpu_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,6 +85,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
         PosePredictor.from_config(cfg, hg(num_stacks=2, num_feats=8).state_dict())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_eval_step(model, cfg.aug, MPII_MEAN)
+    opt = make_optimizer(model.parameters(), cfg.optim)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(model, opt, cfg.aug, MPII_MEAN)
     assert next(model.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         neutral_params(2)
