@@ -31,6 +31,18 @@ Phases, each printing one JSON line:
   train_parity   hg2_mpii_mini at feats 8, f32, TF32 off: three train
              steps, each taken on the card and on the CPU from the CPU's
              state (draws, loss, gradients, update, BatchNorm statistics)
+  joint      make_joint_step with the adversarial agent at full width,
+             bf16, batch 32, color jitter: hg8_mpii_asr (one warm-up, 4
+             timed steps), then hg8_lsp_aho (tree occlusion over 22 nodes,
+             14 joints; one warm-up, 2 timed steps); img/s, peak memory,
+             the five metrics, the rasterizer's launches, the agent moved
+  joint_profile  one full-width hg8_mpii_asr joint step under torch.profiler
+  joint_parity   hg2 at feats 8, agent widths (8, 16), f32, TF32 off: no
+             occlusion, tree, parts, flat, and tree with update_every=2
+             and pose_ref_weight=0.25, two joint steps each, each taken on
+             the card and on the CPU from the CPU's state (draws equal,
+             metrics, both updates and statistics within derived bounds,
+             the agent unchanged on its non-update step)
 
 Then the kernel summary line (launches from validate, and by path), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -40,6 +52,7 @@ once.  Nothing falls back to the CPU or to a plain version.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -52,6 +65,7 @@ import time
 import numpy as np
 import torch
 
+import posetpu_torch.train.adversarial as adversarial
 from posetpu_torch.aug import (
     augment_batch,
     cuda_kernels,
@@ -62,6 +76,11 @@ from posetpu_torch.aug.heatmap import rasterize_gaussians, rasterize_gaussians_p
 from posetpu_torch.configs import named_config
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.models import hg
+from posetpu_torch.train.adversarial import (
+    JointState,
+    agent_from_config,
+    make_joint_step,
+)
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train.step import make_eval_step, make_train_step
 from posetpu_torch.utils import cuda_build
@@ -80,9 +99,11 @@ F32_OPS_PER_S = 67e12
 # add, neg, div, exp, 2 abs, 2 compare, 2 mask multiplies, 1 keep multiply;
 # every other pixel is a stored zero
 RASTER_OPS_PER_ELEMENT = 15
-# the rasterizer's timed shapes (B, K, H, W): the main path's, then one whose
-# 134 MB of output is beyond the 50 MB L2
-RASTER_SHAPES = ((BATCH, 16, 64, 64), (512, 16, 64, 64))
+# the rasterizer's timed shapes (B, K, H, W): the main path's, one whose
+# 134 MB of output is beyond the 50 MB L2, and the joint step's pair of
+# crops (adversarial + reference) for MPII's 16 joints and LSP's 14
+RASTER_SHAPES = ((BATCH, 16, 64, 64), (512, 16, 64, 64), (2 * BATCH, 16, 64, 64),
+                 (2 * BATCH, 14, 64, 64))
 # CPU exp against the card's expf, for the targets of the parity phase; the
 # kernel itself is held to its plain version on the card exactly
 RASTER_TOL = 1e-6
@@ -115,6 +136,33 @@ TRAIN_STATS_ATOL, TRAIN_STATS_RTOL = 5e-4, 1e-3
 TRAIN_PARITY_STEPS = 3
 MPII_TRAIN_SAMPLES = 22246  # the hourglass MPII train split: steps per epoch
 OPT_CFG = named_config("hg2_mpii_mini").optim  # the parity phase's optimizer
+
+# joint: timed steps of hg8_mpii_asr and of hg8_lsp_aho, after one warm-up
+JOINT_STEPS = {"hg8_mpii_asr": NUM_BATCHES, "hg8_lsp_aho": 2}
+# rasterizer launches of one joint step: the neutral crop's targets
+# (computed with the crop, read by nothing) and the 2B targets of the
+# adversarial and reference crops, rasterized in one launch
+JOINT_RASTER_LAUNCHES = 2
+# joint_parity: (name, agent config fields, make_joint_step options) at
+# occlusion levels (1, 2) over 64² crops: 6 grid nodes, 9 body-part nodes
+JOINT_PARITY_CASES = (
+    ("none", {}, {}),
+    ("tree", dict(occ_nodes=6, occ_mode="tree"), {}),
+    ("parts", dict(occ_nodes=9, occ_mode="parts"), {}),
+    ("flat", dict(occ_nodes=6, occ_mode="flat"), {}),
+    ("tree_every2_mixed", dict(occ_nodes=6, occ_mode="tree"),
+     dict(update_every=2, pose_ref_weight=0.25)),
+)
+JOINT_PARITY_STEPS = 2
+# joint_parity's gradients: the adversarial crops reach off the canvas
+# (scale bins to 2^0.4, rotations to 30 degrees) and under occluders, and
+# across such a constant region a ReLU kink or a BatchNorm rounding flips
+# for the whole region at once, where TRAIN_GRAD_ATOL's derivation counts
+# single values.  The card (H100 80GB HBM3, 700 W) and the CPU read 4.8e-3
+# apart on gradients up to 0.15 without occlusion; the JAX package's own
+# float32 gradient lies 3.9e-3 from its float64 one in such a batch
+# (tests/torch_joint_harness.py).  Twice the larger reading:
+JOINT_GRAD_ATOL = 1e-2
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -259,7 +307,8 @@ def phase_kernels():
                       "res": list(res), "sigma": sigma, "max_abs_err": err})
 
     for sigma in (1.0, 1.5, 2.0):
-        for B, K in ((BATCH, 16), (3, 5)):  # 3*5 rows: not a block multiple
+        # 3*5 rows: not a block multiple; 2*BATCH: the joint step's pairs
+        for B, K in ((BATCH, 16), (3, 5), (2 * BATCH, 16), (2 * BATCH, 14)):
             compare("random", *_raster_inputs(B, K, SEED + B), (64, 64), sigma)
         for res in ((17, 13), (64, 48), (64, 64)):
             for frac in (False, True):
@@ -603,6 +652,43 @@ def _carry_to(state, dev, step_no):
     return TrainState(model, opt, step_no)
 
 
+def _check_card_update(label, cpu_model, card_model, ref, before, nu_before, worst,
+                       grad_want=None, grad_atol=TRAIN_GRAD_ATOL):
+    """One step's gradients and update on the card against the CPU's, from
+    one state (tolerances derived at TRAIN_GRAD_ATOL): the gradients within
+    ``grad_atol`` of ``grad_want`` (default: the CPU's own); the update
+    within the bound of one RMSprop step of that gap; the update against
+    ``ref`` (a copy of the CPU state from before the step) stepped by the
+    CPU optimizer on the card's own gradients.  ``before`` and
+    ``nu_before`` are the CPU parameters and moments before the step."""
+    lr, d, eps = OPT_CFG.lr, OPT_CFG.rms_decay, OPT_CFG.rms_eps
+    ulp = 2.0**-23
+    g_card = {n: p.grad.cpu() for n, p in card_model.named_parameters()}
+    after = {n: p.detach().cpu() for n, p in card_model.named_parameters()}
+    ref_params = dict(ref.model.named_parameters())
+    for n, p in ref_params.items():
+        p.grad = g_card[n]
+    ref.optimizer.step()
+    if grad_want is None:
+        grad_want = {n: p.grad for n, p in cpu_model.named_parameters()}
+    for n, p in cpu_model.named_parameters():
+        gap = (g_card[n] - grad_want[n]).abs().max().item()
+        check(gap <= grad_atol, f"{label}: grad {n} by {gap}")
+        worst["grad"] = max(worst["grad"], gap)
+        tol = torch.clamp(lr * grad_atol / torch.sqrt(d * nu_before[n] + eps),
+                          max=2 * lr / math.sqrt(1 - d)) + 2 * ulp * p.detach().abs()
+        ratio = ((after[n] - p.detach()).abs() / tol).max().item()
+        check(ratio <= 1.0, f"{label}: update of {n} at {ratio} of its bound")
+        worst["update_vs_bound"] = max(worst["update_vs_bound"], ratio)
+        want = ref_params[n].detach()
+        u = (want - before[n]).abs()
+        tol = 6 * ulp * u + 2 * ulp * want.abs()
+        ratio = ((after[n] - want).abs() / tol.clamp_min(1e-30)).max().item()
+        check(ratio <= 1.0, f"{label}: card update of {n} vs the CPU "
+                            f"optimizer at {ratio} of its bound")
+        worst["update_vs_cpu_optimizer"] = max(worst["update_vs_cpu_optimizer"], ratio)
+
+
 def phase_train_parity():
     """hg2_mpii_mini at feats 8, 64² input, f32, TF32 off: three train
     steps on the CPU; before each, the CPU's state is carried to the card
@@ -618,8 +704,6 @@ def phase_train_parity():
     cfg.aug.inp_res = (64, 64)
     cfg.aug.out_res = (16, 16)
     K, B = cfg.model.classes, 8
-    lr, d, eps = OPT_CFG.lr, OPT_CFG.rms_decay, OPT_CFG.rms_eps
-    ulp = 2.0**-23
     rng = np.random.RandomState(SEED + 8)
     batches = [_train_batch(rng, B, (96, 128), K, 1000 + t * B)
                for t in range(TRAIN_PARITY_STEPS)]
@@ -669,28 +753,8 @@ def phase_train_parity():
             check(abs(lc - lg) <= PARITY_ATOL + PARITY_RTOL * abs(lc),
                   f"step {t}: loss cpu {lc} vs cuda {lg}")
             worst["loss"] = max(worst["loss"], abs(lc - lg))
-            g_card = {n: p.grad.cpu() for n, p in card.model.named_parameters()}
-            after = {n: p.detach().cpu() for n, p in card.model.named_parameters()}
-            ref_params = dict(ref.model.named_parameters())
-            for n, p in ref_params.items():
-                p.grad = g_card[n]
-            ref.optimizer.step()
-            for n, p in model.named_parameters():
-                gap = (g_card[n] - p.grad).abs().max().item()
-                check(gap <= TRAIN_GRAD_ATOL, f"step {t}: grad {n} by {gap}")
-                worst["grad"] = max(worst["grad"], gap)
-                tol = torch.clamp(lr * TRAIN_GRAD_ATOL / torch.sqrt(d * nu_before[n] + eps),
-                                  max=2 * lr / math.sqrt(1 - d)) + 2 * ulp * p.detach().abs()
-                ratio = ((after[n] - p.detach()).abs() / tol).max().item()
-                check(ratio <= 1.0, f"step {t}: update of {n} at {ratio} of its bound")
-                worst["update_vs_bound"] = max(worst["update_vs_bound"], ratio)
-                want = ref_params[n].detach()
-                u = (want - before[n]).abs()
-                tol = 6 * ulp * u + 2 * ulp * want.abs()
-                ratio = ((after[n] - want).abs() / tol.clamp_min(1e-30)).max().item()
-                check(ratio <= 1.0, f"step {t}: card update of {n} vs the CPU "
-                                    f"optimizer at {ratio} of its bound")
-                worst["update_vs_cpu_optimizer"] = max(worst["update_vs_cpu_optimizer"], ratio)
+            _check_card_update(f"step {t}", model, card.model, ref, before, nu_before,
+                               worst)
             sd_c, sd_g = model.state_dict(), card.model.state_dict()
             for k in sd_c:
                 if k.endswith(("running_mean", "running_var")):
@@ -708,6 +772,308 @@ def phase_train_parity():
          **{f"max_{k}": v for k, v in worst.items()})
 
 
+def _joint_state(cfg, dev, seed, widths=(32, 64, 128, 256),
+                 steps_per_epoch=MPII_TRAIN_SAMPLES // BATCH, **step_kw):
+    """Seeded pose network and agent of ``cfg`` on ``dev``, their
+    optimizers, and the options of ``make_joint_step`` for them."""
+    torch.manual_seed(seed)
+    pose = hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+              num_feats=cfg.model.feats, depth=cfg.model.depth,
+              dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32).to(dev)
+    pose_opt = make_optimizer(pose.parameters(), cfg.optim,
+                              steps_per_epoch=steps_per_epoch)
+    agent, agent_opt, kw = agent_from_config(cfg, steps_per_epoch=steps_per_epoch,
+                                             widths=widths, device=dev)
+    kw.update(step_kw)
+    return JointState(TrainState(pose, pose_opt), TrainState(agent, agent_opt)), kw
+
+
+def _joint_step_for(state, cfg, dev, kw):
+    return make_joint_step(state.pose.model, state.agent.model, state.pose.optimizer,
+                           state.agent.optimizer, cfg.aug, MPII_MEAN, seed=SEED,
+                           device=dev, **kw)
+
+
+def phase_joint(cfg):
+    """make_joint_step at full width (8 stacks, 128 features, 256² input;
+    the agent's widths (32, 64, 128, 256) at input_downscale 2), bf16,
+    batch 32, color jitter on, seeded weights: one warm-up step, then
+    JOINT_STEPS timed steps ending in a synchronize.  The launch counts are
+    reset just before the timed steps and read just after."""
+    steps = JOINT_STEPS[cfg.name]
+    check(cfg.aug.color_jitter and cfg.model.bf16, "the joint phase runs bf16 with jitter")
+    state, kw = _joint_state(cfg, "cuda", SEED + 10)
+    step = _joint_step_for(state, cfg, "cuda", kw)
+    agent = state.agent.model
+    rng = np.random.RandomState(SEED + 11)
+    batches = [_train_batch(rng, BATCH, CANVAS, cfg.model.classes, i * BATCH)
+               for i in range(1 + steps)]
+    agent0 = {n: p.detach().clone() for n, p in agent.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
+    torch.cuda.synchronize()
+
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(state, b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(launches["rasterize_gaussians"] == JOINT_RASTER_LAUNCHES * steps,
+          f"rasterizer launches in the joint steps: {launches}")
+    values = {k: [m[k].item() for m in metrics] for k in metrics[0]}
+    for k, vs in values.items():
+        check(all(math.isfinite(v) for v in vs), f"joint {k} {vs}")
+    check(all(-1.0 <= a <= 1.0 for a in values["acc"]), f"joint acc {values['acc']}")
+    check(state.step == state.pose.step == 1 + steps, f"joint step {state.step}")
+    check(state.agent.step == state.agent.optimizer.count == 1 + steps,
+          f"agent step {state.agent.step}, count {state.agent.optimizer.count}")
+    # a one-cell head (the tree's 1x1 level) has log-prob 0 whatever its
+    # logit, so its gradient is exactly 0 and it never moves
+    fixed = {f"{n}.{w}" for n, mod in agent.named_modules()
+             if isinstance(mod, torch.nn.Linear) and mod.out_features == 1
+             for w in ("weight", "bias")}
+    moved = {n: not torch.equal(p.detach(), agent0[n]) for n, p in agent.named_parameters()
+             if n not in fixed}
+    check(all(moved.values()), f"agent parameters that did not move: "
+                               f"{[n for n, m in moved.items() if not m][:5]}")
+    emit("joint", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
+         joints=cfg.model.classes, agent_widths=list(agent.widths),
+         agent_input_downscale=agent.input_downscale,
+         occ_mode=agent.occ_mode if agent.num_occ_nodes else None,
+         occ_nodes=agent.num_occ_nodes, batch=BATCH, steps=steps, canvas=list(CANVAS),
+         dtype="bfloat16", seconds=seconds, img_per_s=BATCH * steps / seconds,
+         max_memory_allocated=peak, launches=launches,
+         raster_launches_per_step=launches["rasterize_gaussians"] / steps,
+         agent_params_moved=sum(moved.values()), agent_params=len(moved),
+         agent_params_fixed=sorted(fixed), **values)
+    return launches, state, step, batches[-1]
+
+
+def phase_joint_profile(state, step, batch):
+    """Where one full-width hg8_mpii_asr joint step spends the card's time."""
+    emit("joint_profile", step="joint", **_profile_step(lambda: step(state, batch)))
+
+
+@contextlib.contextmanager
+def _recording():
+    """What the joint steps draw and compute, by device: the draws, the
+    per-sample losses, the advantage before and after normalization, the
+    policy's log-probs and the agent's input.  The joint step reads these
+    functions by their module-level names."""
+    rec = {"cpu": {"losses": []}, "cuda": {"losses": []}}
+    names = ("sample_policy", "per_sample_stacked_mse", "normalize_advantage",
+             "policy_logp")
+    orig = {n: getattr(adversarial, n) for n in names}
+
+    def sample_policy(seed, step, index, logits, *args):
+        out = orig["sample_policy"](seed, step, index, logits, *args)
+        rec[index.device.type].update(draws=out, logits=logits)
+        return out
+
+    def mse(outs, target):
+        out = orig["per_sample_stacked_mse"](outs, target)
+        rec[out.device.type]["losses"].append(out.detach())
+        return out
+
+    def normalize(gap, baseline):
+        out = orig["normalize_advantage"](gap, baseline)
+        rec[gap.device.type].update(gap=gap, adv=out)
+        return out
+
+    def logp(logits, extras):
+        out = orig["policy_logp"](logits, extras)
+        rec[out.device.type].update(logp=out.detach(), extras=extras)
+        return out
+
+    for n, f in zip(names, (sample_policy, mse, normalize, logp)):
+        setattr(adversarial, n, f)
+    try:
+        yield rec
+    finally:
+        for n, f in orig.items():
+            setattr(adversarial, n, f)
+
+
+def _flat_logits(logits):
+    out = {k: v for k, v in logits.items() if k != "occ_cells"}
+    out.update({f"occ_cells{i}": c for i, c in enumerate(logits.get("occ_cells", ()))})
+    return out
+
+
+def _agent_snapshot(ts):
+    return ({n: p.detach().clone() for n, p in ts.model.named_parameters()},
+            {n: b.clone() for n, b in ts.model.named_buffers()},
+            {n: ts.optimizer.state[p].get("nu", torch.zeros_like(p)).clone()
+             for n, p in ts.model.named_parameters()},
+            ts.optimizer.count, ts.step)
+
+
+def _same_snapshot(a, b):
+    return all(all(torch.equal(x[n], y[n].to(x[n].device)) for n in x)
+               for x, y in zip(a[:3], b[:3])) and a[3:] == b[3:]
+
+
+def _check_joint_metrics(label, mc, mg, rc, rg, worst):
+    """The card's joint step against the CPU's from one state.  Each f32
+    forward value v (a per-sample loss, a logit) is held to PARITY_ATOL +
+    PARITY_RTOL*|v|; from those: the advantage by the mean over samples of
+    its two losses' bounds d_i; the normalized advantage by (d_i + d +
+    |adv_i|*d)/s, s its denominator and d the largest d_i (the moments move
+    by at most d); log_softmax by twice the logits' gap per head on the
+    path; agent_loss = -mean(adv*logp) and the entropy by what those move
+    (|dH| <= 2*max|dx|*max|log p|, plus 1e-6 for its own float32 sums:
+    8 ulps at 1.9 nats)."""
+    lc, lg = mc["loss"].item(), mg["loss"].item()
+    check(abs(lc - lg) <= PARITY_ATOL + PARITY_RTOL * abs(lc),
+          f"{label}: loss cpu {lc} vs cuda {lg}")
+    worst["loss"] = max(worst["loss"], abs(lc - lg))
+    check(abs(mc["acc"].item() - mg["acc"].item()) <= 0.1, f"{label}: acc")
+    for a, b in zip(rc["losses"], rg["losses"]):
+        check(((a - b.cpu()).abs() <= PARITY_ATOL + PARITY_RTOL * a.abs()).all(),
+              f"{label}: per-sample losses")
+    xc, xg = _flat_logits(rc["logits"]), _flat_logits(rg["logits"])
+    dx = max((xc[k] - xg[k].cpu()).abs().max().item() for k in xc)
+    check(all(((xc[k] - xg[k].cpu()).abs() <= PARITY_ATOL + PARITY_RTOL * xc[k].abs()).all()
+              for k in xc), f"{label}: agent logits by {dx}")
+    worst["logits"] = max(worst["logits"], dx)
+    max_logp = max(torch.log_softmax(v, -1).abs().max().item() for v in xc.values())
+    gap_h = abs(mc["entropy"].item() - mg["entropy"].item())
+    check(gap_h <= 2 * dx * max_logp + 1e-6, f"{label}: entropy by {gap_h}")
+
+    B = rc["gap"].shape[0]
+    l_adv = rc["losses"][-1][:B]
+    l_ref = l_adv - rc["gap"]
+    d_i = 2 * PARITY_ATOL + PARITY_RTOL * (l_adv.abs() + l_ref.abs())
+    gap_a = abs(mc["advantage"].item() - mg["advantage"].item())
+    check(gap_a <= d_i.mean().item(), f"{label}: advantage by {gap_a}")
+    adv, gap = rc["adv"], rc["gap"]
+    s = torch.sqrt(torch.clamp((gap * gap).mean() - gap.mean() ** 2, min=0.0)) + 1e-6
+    d = d_i.max()
+    dadv = (d_i + d + adv.abs() * d) / s + 8 * 2.0**-23 * (1 + adv.abs())
+    err = (rg["adv"].cpu() - adv).abs()
+    check((err <= dadv).all(), f"{label}: normalized advantage by {err.max().item()}")
+    ex = rc["extras"]
+    terms = 2 + (2 if "occ_lvl" in ex else 1 if "oi" in ex else 0)
+    dlogp = 2 * dx * terms
+    bound = ((rc["logp"].abs() * dadv).mean() + adv.abs().mean() * dlogp).item()
+    gap_l = abs(mc["agent_loss"].item() - mg["agent_loss"].item())
+    check(gap_l <= bound, f"{label}: agent_loss by {gap_l} (bound {bound})")
+    worst["agent_loss_vs_bound"] = max(worst["agent_loss_vs_bound"], gap_l / bound)
+
+
+def _check_stats_close(label, cpu_model, card_model, worst):
+    sd_c, sd_g = cpu_model.state_dict(), card_model.state_dict()
+    for k in sd_c:
+        if k.endswith(("running_mean", "running_var")):
+            w, g = sd_c[k], sd_g[k].cpu()
+            check(torch.allclose(g, w, atol=TRAIN_STATS_ATOL, rtol=TRAIN_STATS_RTOL),
+                  f"{label}: {k} by {(g - w).abs().max().item()}")
+            worst["stats"] = max(worst["stats"], (g - w).abs().max().item())
+
+
+def phase_joint_parity():
+    """hg8_mpii_asr cut to 2 stacks at feats 8 and hourglass depth 2 (as
+    tests/torch_joint_harness.py), agent widths (8, 16), 5 scale and 5
+    rotation bins, 64² crops, f32, TF32 off, for each of
+    JOINT_PARITY_CASES: two joint steps on the CPU; before each, the CPU's
+    state is carried to the card and the card takes the same step from it.
+    The draws must be equal (bins, occlusion node/level/cell, flips, the
+    reference crop's parameters, jitter), the metrics within the bounds of
+    _check_joint_metrics, the pose update within the bounds of train_parity
+    at JOINT_GRAD_ATOL, the agent's at TRAIN_GRAD_ATOL (its gradient held
+    to the CPU's gradient of the same objective with the card's
+    advantages), the BatchNorm statistics
+    within TRAIN_STATS_*, and on a non-update step the agent (parameters,
+    statistics, moments, count, step) unchanged on both."""
+    K, B = 16, 8
+    worst = {"loss": 0.0, "grad": 0.0, "update_vs_bound": 0.0,
+             "update_vs_cpu_optimizer": 0.0, "stats": 0.0, "logits": 0.0,
+             "agent_loss_vs_bound": 0.0}
+    cases = []
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for c, (name, agent_fields, step_kw) in enumerate(JOINT_PARITY_CASES):
+            cfg = named_config("hg8_mpii_asr")
+            cfg.model.stacks, cfg.model.feats, cfg.model.bf16 = 2, 8, False
+            cfg.model.depth = 2  # the deepest BatchNorms see 4x4, not 1x1
+            cfg.aug.inp_res, cfg.aug.out_res = (64, 64), (16, 16)
+            cfg.optim = copy.deepcopy(OPT_CFG)
+            cfg.agent.scale_bins = cfg.agent.rot_bins = 5
+            cfg.agent.occ_levels = (1, 2)
+            for k, v in agent_fields.items():
+                setattr(cfg.agent, k, v)
+            cpu, kw = _joint_state(cfg, "cpu", SEED + 12 + c, widths=(8, 16),
+                                   steps_per_epoch=1, **step_kw)
+            cpu_step = _joint_step_for(cpu, cfg, "cpu", kw)
+            seen = {}
+            cpu.agent.model.register_forward_pre_hook(
+                lambda mod, args: seen.__setitem__("x", args[0].detach().clone()))
+            rng = np.random.RandomState(SEED + 13 + c)
+            draws_equal, agent_updates = 0, 0
+            for t in range(JOINT_PARITY_STEPS):
+                b = _train_batch(rng, B, (96, 128), K, 3000 + t * B)
+                label = f"joint_parity {name} step {t}"
+                card = JointState(_carry_to(cpu.pose, "cuda", t),
+                                  _carry_to(cpu.agent, "cuda", cpu.agent.step), t)
+                ref_pose = _carry_to(cpu.pose, "cpu", t)
+                ref_agent = _carry_to(cpu.agent, "cpu", cpu.agent.step)
+                agent_before = copy.deepcopy(cpu.agent.model)
+                nets = {}
+                for net in ("pose", "agent"):
+                    ts = getattr(cpu, net)
+                    nets[net] = (
+                        {n: p.detach().clone() for n, p in ts.model.named_parameters()},
+                        {n: ts.optimizer.state[p].get("nu", torch.zeros_like(p)).clone()
+                         for n, p in ts.model.named_parameters()})
+                start = _agent_snapshot(card.agent), _agent_snapshot(cpu.agent)
+                card_step = _joint_step_for(card, cfg, "cuda", kw)
+                with _recording() as rec:
+                    mg = card_step(card, b)
+                    mc = cpu_step(cpu, b)
+                    torch.cuda.synchronize()
+                rc, rg = rec["cpu"], rec["cuda"]
+                (ec, ac, pc, jc), (eg, ag, pg, jg) = rc["draws"], rg["draws"]
+                check(set(ec) == set(eg) and all(torch.equal(ec[k], eg[k].cpu()) for k in ec),
+                      f"{label}: agent draws differ")
+                check(all(torch.equal(x, y.cpu()) for x, y in zip((*ac, *pc), (*ag, *pg))),
+                      f"{label}: augmentation draws differ")
+                check(torch.equal(jc, jg.cpu()), f"{label}: jitter differs")
+                draws_equal += 1
+                _check_joint_metrics(label, mc, mg, rc, rg, worst)
+                _check_card_update(f"{label} pose", cpu.pose.model, card.pose.model,
+                                   ref_pose, *nets["pose"], worst,
+                                   grad_atol=JOINT_GRAD_ATOL)
+                _check_stats_close(f"{label} pose", cpu.pose.model, card.pose.model, worst)
+                if t % kw["update_every"] == 0:
+                    agent_before.train()
+                    objective = -(rg["adv"].cpu() * adversarial.policy_logp(
+                        agent_before(seen["x"]), rc["extras"])).mean()
+                    objective.backward()
+                    want = {n: p.grad for n, p in agent_before.named_parameters()}
+                    _check_card_update(f"{label} agent", cpu.agent.model, card.agent.model,
+                                       ref_agent, *nets["agent"], worst, grad_want=want)
+                    agent_updates += 1
+                else:
+                    check(_same_snapshot(start[0], _agent_snapshot(card.agent)),
+                          f"{label}: the card's agent moved on a non-update step")
+                    check(_same_snapshot(start[1], _agent_snapshot(cpu.agent)),
+                          f"{label}: the CPU's agent moved on a non-update step")
+                _check_stats_close(f"{label} agent", cpu.agent.model, card.agent.model, worst)
+                check(card.step == cpu.step == t + 1, f"{label}: step counts")
+            cases.append({"case": name, "occ_mode": cpu.agent.model.occ_mode,
+                          "occ_nodes": cpu.agent.model.num_occ_nodes, **step_kw,
+                          "steps": JOINT_PARITY_STEPS, "draws_equal": draws_equal,
+                          "agent_updates": agent_updates})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    emit("joint_parity", batch=B, cases=cases, **{f"max_{k}": v for k, v in worst.items()})
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -722,9 +1088,18 @@ def main():
     del state, step
     phase_train_parity()
 
+    joint_launches, state, step, batch = phase_joint(named_config("hg8_mpii_asr"))
+    phase_joint_profile(state, step, batch)
+    del state, step
+    lsp_launches, state, step, _ = phase_joint(named_config("hg8_lsp_aho"))
+    del state, step
+    phase_joint_parity()
+
     raster["launches"] = launches["rasterize_gaussians"]
     raster["launches_by_path"] = {"validate": launches["rasterize_gaussians"],
-                                  "train": train_launches["rasterize_gaussians"]}
+                                  "train": train_launches["rasterize_gaussians"],
+                                  "joint": joint_launches["rasterize_gaussians"],
+                                  "joint_lsp": lsp_launches["rasterize_gaussians"]}
     print(json.dumps({"kernels": [raster]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,15 @@
 """Checkpoint carry from the JAX package."""
 
-from posetpu_torch.ckpt.transplant import from_flax_variables, from_optax_state
+from posetpu_torch.ckpt.transplant import (
+    from_flax_agent_variables,
+    from_flax_variables,
+    from_optax_agent_state,
+    from_optax_state,
+)
 
-__all__ = ["from_flax_variables", "from_optax_state"]
+__all__ = [
+    "from_flax_agent_variables",
+    "from_flax_variables",
+    "from_optax_agent_state",
+    "from_optax_state",
+]

@@ -1,6 +1,8 @@
 """Weight carry: the JAX package's flax hourglass variables -> a state dict
-of :class:`posetpu_torch.models.HourglassNet`, and its optax RMSprop state
--> the port's optimizer state (:func:`from_optax_state`).
+of :class:`posetpu_torch.models.HourglassNet`, its flax ``AugAgent``
+variables -> a state dict of :class:`posetpu_torch.models.agent.AugAgent`,
+and either network's optax RMSprop state -> the port's optimizer state
+(:func:`from_optax_state`, :func:`from_optax_agent_state`).
 
 The port's own copy of the mapping in ``posetpu/ckpt/transplant.py``:
 flax module paths map onto the port's module names (those of
@@ -11,6 +13,7 @@ flax module paths map onto the port's module names (those of
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -53,6 +56,25 @@ def _module_map(num_stacks, num_blocks, depth):
         if i < num_stacks - 1:
             m[f"fc_{i}"] = f"fc_.{i}"
             m[f"score_{i}"] = f"score_.{i}"
+    return m
+
+
+# the agent's flax modules keep their names in the port, but for Dense_0
+_AGENT_MODULE = re.compile(
+    r"(conv|bn)\d+|head_(scale|rot|occ|occ_level|occ_cell\d+|occ_part\d+)"
+)
+
+
+def _agent_module_map(names):
+    """flax AugAgent module name -> port module name."""
+    m = {}
+    for n in names:
+        if n == "Dense_0":
+            m[n] = "hidden"
+        elif _AGENT_MODULE.fullmatch(n):
+            m[n] = n
+        else:
+            raise KeyError(f"unmapped flax agent module: {n}")
     return m
 
 
@@ -132,6 +154,30 @@ def _optax_fields(state, found):
     return found
 
 
+def from_flax_agent_variables(params, batch_stats=None):
+    """Flax AugAgent ``params`` (and ``batch_stats``) -> a state dict of
+    float32 CPU tensors for ``AugAgent.load_state_dict``: conv kernels
+    HWIO -> OIHW, dense kernels transposed, ``Dense_0`` -> ``hidden``."""
+    out = _carry_tree(params, _agent_module_map(params))
+    if batch_stats is not None:
+        out.update(_carry_tree(batch_stats, _agent_module_map(batch_stats)))
+    return out
+
+
+def _carry_optax(opt_state, module_map):
+    """optax rmsprop state -> ``{"count", "nu", "trace"}`` by port names;
+    ``module_map(tree)`` gives the flax -> port module map of a moment."""
+    found = _optax_fields(opt_state, {})
+    if "nu" not in found or "count" not in found:
+        raise ValueError("not an rmsprop state: no nu or no update count")
+    trace = found.get("trace")
+    return {
+        "count": int(np.asarray(found["count"])),
+        "nu": _carry_tree(found["nu"], module_map(found["nu"])),
+        "trace": None if trace is None else _carry_tree(trace, module_map(trace)),
+    }
+
+
 def from_optax_state(opt_state, *, num_stacks, num_blocks=1, depth=4):
     """The JAX package's optimizer state (optax ``rmsprop``, optionally
     chained behind ``add_decayed_weights``) -> ``{"count": int, "nu":
@@ -143,13 +189,12 @@ def from_optax_state(opt_state, *, num_stacks, num_blocks=1, depth=4):
     ``count`` is the schedule's update count.  Reads the state's
     namedtuples by their field names and needs no JAX.
     """
-    found = _optax_fields(opt_state, {})
-    if "nu" not in found or "count" not in found:
-        raise ValueError("not an rmsprop state: no nu or no update count")
     mmap = _module_map(num_stacks, num_blocks, depth)
-    trace = found.get("trace")
-    return {
-        "count": int(np.asarray(found["count"])),
-        "nu": _carry_tree(found["nu"], mmap),
-        "trace": None if trace is None else _carry_tree(trace, mmap),
-    }
+    return _carry_optax(opt_state, lambda tree: mmap)
+
+
+def from_optax_agent_state(opt_state):
+    """The agent's optax state -> the port's, as :func:`from_optax_state`
+    maps the hourglass's, by :class:`AugAgent
+    <posetpu_torch.models.agent.AugAgent>` parameter names."""
+    return _carry_optax(opt_state, _agent_module_map)

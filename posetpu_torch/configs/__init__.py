@@ -2,6 +2,7 @@
 
 from posetpu_torch.configs.config import (
     NAMED_CONFIGS,
+    AgentConfig,
     AugConfig,
     ExperimentConfig,
     ModelConfig,
@@ -11,6 +12,7 @@ from posetpu_torch.configs.config import (
 
 __all__ = [
     "NAMED_CONFIGS",
+    "AgentConfig",
     "AugConfig",
     "ExperimentConfig",
     "ModelConfig",

@@ -1,15 +1,16 @@
 """Model, augmentation and optimizer configuration, and the named configs
 the port runs so far — the port's own copy of
 ``posetpu/configs/config.py`` (``ModelConfig``, ``AugConfig``,
-``OptimConfig`` and the ``hg2_mpii_mini``/``hg8_mpii`` entries of
-``named_config``).
+``OptimConfig``, ``AgentConfig`` and the ``hg2_mpii_mini``, ``hg8_mpii``,
+``hg8_mpii_asr`` and ``hg8_lsp_aho`` entries of ``named_config``).
 
 Only the fields the ported slices read are here.  Knobs that selected
 between TPU code paths are gone: the port has one warp path (``warp_table``
 had no other meaning), and the target rasterizer is chosen by the device of
 its inputs (``raster_backend``).  The network has one residual block per
-level (``blocks`` is always 1).  ``epochs``, the batch size, ``remat``,
-``scan_stacks`` and the agent and run settings come with the slices that
+level (``blocks`` is always 1).  The agent's ``fused_step`` chose between
+XLA program layouts and has no counterpart.  ``epochs``, the batch size,
+``remat``, ``scan_stacks`` and the run settings come with the slices that
 read them.
 """
 
@@ -55,11 +56,31 @@ class OptimConfig:
 
 
 @dataclass
+class AgentConfig:
+    enabled: bool = False
+    scale_bins: int = 7
+    rot_bins: int = 7
+    # > 0 enables the occlusion heads: 1 + sum g^2 over occ_levels for
+    # "tree" and "flat", 1 + sum(part_level_sizes) = 9 for "parts"
+    occ_nodes: int = 0
+    occ_levels: Sequence[int] = (1, 2, 4)
+    occ_mode: str = "tree"  # "tree" | "parts" | "flat"
+    input_downscale: int = 2  # the agent sees the crop avg-pooled by this
+    lr: float = 2.5e-4
+    reward_baseline: str = "batch_mean"  # or "sign"
+    update_every: int = 1  # agent updates on steps where step % N == 0
+    # weight of the reference crops in the pose update (0: the pose net
+    # trains on the adversarial crops only)
+    pose_ref_weight: float = 0.0
+
+
+@dataclass
 class ExperimentConfig:
     name: str = "hg2_mpii_mini"
     model: ModelConfig = field(default_factory=ModelConfig)
     aug: AugConfig = field(default_factory=AugConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    agent: AgentConfig = field(default_factory=AgentConfig)
     seed: int = 0
 
 
@@ -72,6 +93,19 @@ NAMED_CONFIGS = {
     ),
     # 8-stack hourglass, MPII full (Newell et al.'s published network)
     "hg8_mpii": ExperimentConfig("hg8_mpii", model=ModelConfig(stacks=8)),
+    # 8-stack + adversarial scale/rotation agent, joint training on MPII
+    "hg8_mpii_asr": ExperimentConfig(
+        "hg8_mpii_asr",
+        model=ModelConfig(stacks=8),
+        agent=AgentConfig(enabled=True),
+    ),
+    # scale/rotation agent with tree occlusion over 22 nodes, LSP
+    "hg8_lsp_aho": ExperimentConfig(
+        "hg8_lsp_aho",
+        model=ModelConfig(stacks=8, classes=14),
+        aug=AugConfig(dataset="lsp"),
+        agent=AgentConfig(enabled=True, occ_nodes=22),
+    ),
 }
 
 

@@ -14,7 +14,8 @@ BatchNorm: eps 1e-5; flax ``momentum=0.9`` is torch ``momentum=0.1``.
 
 In train mode the running variances follow flax, which averages in the
 *biased* batch variance where torch takes the unbiased one
-(:meth:`HourglassNet.forward`).  Eval mode is torch's BatchNorm as it is.
+(:mod:`posetpu_torch.models.batchnorm`).  Eval mode is torch's BatchNorm
+as it is.
 """
 
 from __future__ import annotations
@@ -23,19 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """torch's BatchNorm2d that records, in train mode, how many values
-    each channel's batch statistics were taken over (B*H*W of its last
-    input), for :meth:`HourglassNet.forward`'s running-variance
-    correction.  Parameters, buffers and state-dict names are torch's."""
-
-    batch_count = None
-
-    def forward(self, x):
-        if self.training:
-            self.batch_count = x.numel() // x.shape[1]
-        return super().forward(x)
+from posetpu_torch.models.batchnorm import BatchNorm2d, flax_train_forward
 
 
 class Bottleneck(nn.Module):
@@ -150,32 +139,12 @@ class HourglassNet(nn.Module):
 
     def forward(self, x):
         """x (B, H, W, 3) NHWC float -> list of ``num_stacks`` (B, K, H/4,
-        W/4) float32 heatmaps.
-
-        In train mode each BatchNorm's running variance ends as flax's
-        ``m*rv + (1-m)*var_biased`` (m = 0.9), without a second pass over
-        the activations.  torch leaves ``rv_t = m*rv + (1-m)*var*n/(n-1)``
-        with n = B*H*W values per channel, so ``rv_t*(1-1/n) + m*rv/n`` is
-        flax's value: one copy of each C-sized ``rv`` before the forward
-        and three ``_foreach`` calls over all BatchNorms after it.
-        """
+        W/4) float32 heatmaps.  In train mode each BatchNorm's running
+        variance ends as flax's
+        (:func:`posetpu_torch.models.batchnorm.flax_train_forward`)."""
         if not self.training:
             return self._forward(x)
-        # ``.data``: autograd saved the buffers with the forward (a
-        # train-mode backward reads the saved batch statistics, never
-        # these), and an update it tracked would fail that check
-        running = [bn.running_var.data for bn in self._norms]
-        with torch.no_grad():
-            kept = torch._foreach_mul(
-                running, [1.0 - bn.momentum for bn in self._norms]
-            )
-        outs = self._forward(x)
-        with torch.no_grad():
-            counts = [bn.batch_count for bn in self._norms]
-            torch._foreach_mul_(running, [1.0 - 1.0 / n for n in counts])
-            torch._foreach_mul_(kept, [1.0 / n for n in counts])
-            torch._foreach_add_(running, kept)
-        return outs
+        return flax_train_forward(self._norms, self._forward, x)
 
     def _forward(self, x):
         x = x.permute(0, 3, 1, 2)

@@ -1,4 +1,12 @@
-"""Loss, train and validation steps, train state and optimizer."""
+"""Loss, train, validation and joint adversarial steps, train state and
+optimizer."""
+
+from posetpu_torch.train.adversarial import (
+    JointState,
+    agent_from_config,
+    apply_occlusion,
+    make_joint_step,
+)
 
 from posetpu_torch.train.state import (
     OptaxRMSprop,
@@ -14,6 +22,10 @@ from posetpu_torch.train.step import (
 )
 
 __all__ = [
+    "JointState",
+    "agent_from_config",
+    "apply_occlusion",
+    "make_joint_step",
     "OptaxRMSprop",
     "TrainState",
     "lr_schedule",

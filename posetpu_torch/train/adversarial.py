@@ -1,0 +1,444 @@
+"""Joint adversarial augmentation training — counterpart of
+``posetpu/train/adversarial.py`` (``make_joint_step``).
+
+One joint minimax step, eagerly on one device:
+
+  neutral crop                                  aug.pipeline
+  -> agent forward, train mode                  models.agent
+  -> keyed draws: bins, occlusion, flips, the reference augmentation
+  -> adversarial + reference crops in one warp over 2B crops, and their
+     targets (the rasterizer kernel)
+  -> occlusion of the adversarial crops (tree, parts or flat)
+  -> reference forward, eval mode, no grad: the reward's baseline
+  -> pose forward/backward on the adversarial crops, RMSprop update
+  -> reward = per-sample loss(adversarial) - loss(reference), normalized
+  -> REINFORCE update of the agent on steps where step % update_every == 0
+
+The reference builds this same math twice (``make_joint_step`` and
+``make_joint_step_split``) for XLA's compile times; the port has only
+``make_joint_step``.  Data parallelism (``axis_name``) waits for its slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from posetpu_torch.aug.color import sample_jitter_scales
+from posetpu_torch.aug.keyed import (
+    STREAM_ADV_FLIP,
+    STREAM_OCC,
+    STREAM_ROT_BIN,
+    STREAM_SCALE_BIN,
+    bits_to_uniform,
+    keyed_bits,
+    sample_categorical,
+)
+from posetpu_torch.aug.pipeline import (
+    AugParams,
+    augment_batch,
+    neutral_params,
+    sample_aug_params_ps,
+)
+from posetpu_torch.eval.decode import pck_counts, pck_from_counts
+from posetpu_torch.models.agent import (
+    AugAgent,
+    occlusion_hierarchy,
+    occlusion_tree_logp,
+    part_level_sizes,
+    part_occlusion_boxes,
+    rotation_bin_table,
+    sample_occlusion_tree,
+    scale_bin_table,
+)
+from posetpu_torch.train.state import TrainState, make_optimizer
+from posetpu_torch.train.step import (
+    _normalization,
+    _to_device,
+    per_sample_stacked_mse,
+)
+from posetpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class JointState:
+    """The pose network's and the agent's train states, and the number of
+    joint steps taken, which keys the draws and the agent's cadence.  The
+    agent's ``step`` and its optimizer's count advance on update steps
+    only."""
+
+    pose: TrainState
+    agent: TrainState
+    step: int = 0
+
+
+def apply_occlusion(images, node_idx, boxes):
+    """Zero the sampled occluder box of each sample (zero is the dataset
+    mean after normalization).
+
+    images (B, H, W, C); node_idx (B,) into ``boxes``, node 0 "no
+    occlusion" with box (0, 0, 0, 0); boxes (N, 4) int (y0, x0, h, w) for
+    every sample, or (B, N, 4) per sample (body parts).
+    """
+    B, H, W, _ = images.shape
+    dev = images.device
+    boxes = torch.as_tensor(boxes, device=dev)
+    node_idx = torch.as_tensor(node_idx, device=dev).long()
+    if boxes.dim() == 3:
+        box = boxes.gather(1, node_idx[:, None, None].expand(B, 1, 4))[:, 0]
+    else:
+        box = boxes[node_idx]
+    y0, x0, h, w = (box[:, i, None, None] for i in range(4))
+    ys = torch.arange(H, device=dev)[None, :, None]
+    xs = torch.arange(W, device=dev)[None, None, :]
+    inside = (ys >= y0) & (ys < y0 + h) & (xs >= x0) & (xs < x0 + w)
+    return torch.where(inside[..., None], 0.0, images)
+
+
+def occ_box_table(occ, occ_boxes, tpts, target_weight, aug_cfg):
+    """The box table of :func:`apply_occlusion`: the static grid (tree and
+    flat), or body-part boxes from the adversarial crop's own keypoints
+    (parts).  ``tpts`` are the untruncated heatmap coordinates
+    (``tpts_float``); the crop coordinates are their exact linear rescale
+    ``(tpts - 1) * inp/out`` (the truncated ints would pull the boxes up to
+    inp/out pixels toward the origin)."""
+    if occ["mode"] != "parts":
+        return occ_boxes
+    ry = aug_cfg.inp_res[0] / aug_cfg.out_res[0]
+    rx = aug_cfg.inp_res[1] / aug_cfg.out_res[1]
+    scale = torch.tensor([rx, ry], dtype=torch.float32, device=tpts.device)
+    return part_occlusion_boxes((tpts - 1.0) * scale, target_weight, occ["dataset"])
+
+
+def sample_policy(seed, step, index, logits, aug_cfg, scale_table, rot_table, occ):
+    """Every draw of one joint step, keyed on (``seed``, ``step``, global
+    sample ``index``): a sample draws the same whatever its batch.
+
+    ``logits`` are the agent's (detached); ``occ`` is None or the occlusion
+    spec of :func:`make_joint_step`.  Returns (extras, adv_params,
+    ref_params, jitter): ``extras`` the sampled path (``si``, ``ri`` and
+    ``oi``, plus ``occ_lvl`` and ``occ_cell`` for a tree) that
+    :func:`policy_logp` re-evaluates; the adversarial crop's AugParams
+    (the bins' scale and rotation, a flip with ``flip_prob``); the
+    reference crop's, from the plain training distribution; the (B, 3)
+    jitter scales both crops share, or None without color jitter.
+    """
+    si, _ = sample_categorical(seed, step, index, STREAM_SCALE_BIN, logits["scale"])
+    ri, _ = sample_categorical(seed, step, index, STREAM_ROT_BIN, logits["rot"])
+    extras = {"si": si, "ri": ri}
+    if occ is not None:
+        if occ["mode"] in ("tree", "parts"):
+            node, lvl, cell, _ = sample_occlusion_tree(
+                seed, step, index, STREAM_OCC, logits["occ_level"], logits["occ_cells"]
+            )
+            extras.update({"oi": node, "occ_lvl": lvl, "occ_cell": cell})
+        else:
+            extras["oi"], _ = sample_categorical(
+                seed, step, index, STREAM_OCC, logits["occ"]
+            )
+    flip_u = bits_to_uniform(keyed_bits(seed, step, index, STREAM_ADV_FLIP, 1)[:, 0])
+    adv_params = AugParams(
+        scale_factor=scale_table[si],
+        rot=rot_table[ri],
+        flip=flip_u < aug_cfg.flip_prob,
+    )
+    ref_params = sample_aug_params_ps(
+        seed, step, index, scale_factor=aug_cfg.scale_factor,
+        rot_factor=aug_cfg.rot_factor, rot_prob=aug_cfg.rot_prob,
+        flip_prob=aug_cfg.flip_prob, scale_mode=aug_cfg.scale_mode,
+    )
+    jitter = sample_jitter_scales(seed, step, index) if aug_cfg.color_jitter else None
+    return extras, adv_params, ref_params, jitter
+
+
+def _pick(logits, idx):
+    return torch.log_softmax(logits, dim=-1).gather(1, idx[:, None])[:, 0]
+
+
+def policy_logp(logits, extras):
+    """log pi of the sampled path per sample (B,), differentiable in
+    ``logits``; the indices in ``extras`` are fixed (REINFORCE)."""
+    logp = _pick(logits["scale"], extras["si"]) + _pick(logits["rot"], extras["ri"])
+    if "occ_lvl" in extras:
+        logp = logp + occlusion_tree_logp(
+            logits["occ_level"], logits["occ_cells"], extras["occ_lvl"],
+            extras["occ_cell"],
+        )
+    elif "oi" in extras:
+        logp = logp + _pick(logits["occ"], extras["oi"])
+    return logp
+
+
+def _head_entropy(head_logits):
+    p = torch.softmax(head_logits, dim=-1)
+    return -(p * torch.log_softmax(head_logits, dim=-1)).sum(-1).mean()
+
+
+def entropy(logits):
+    """Mean categorical entropy (nats) over every head of the policy:
+    scale, rotation, and the occlusion heads (the flat head, or the level
+    head and each cell head), so a collapse of any of them shows."""
+    ents = [_head_entropy(logits[h]) for h in ("scale", "rot", "occ", "occ_level")
+            if h in logits]
+    ents += [_head_entropy(c) for c in logits.get("occ_cells", ())]
+    return sum(ents) / len(ents)
+
+
+def normalize_advantage(adv, baseline):
+    """``"batch_mean"``: standardize with the batch's biased moments,
+    ``(adv - m) / (sqrt(max(E[adv²] - m², 0)) + 1e-6)``; ``"sign"``: its
+    sign; any other value leaves it as it is, as the reference does."""
+    adv = adv.detach()
+    if baseline == "batch_mean":
+        m = adv.mean()
+        m2 = (adv * adv).mean()
+        s = torch.sqrt(torch.clamp(m2 - m * m, min=0.0)) + 1e-6
+        adv = (adv - m) / s
+    elif baseline == "sign":
+        adv = torch.sign(adv)
+    return adv
+
+
+def _occ_spec(occ_boxes, agent_model, occ_mode, occ_levels):
+    """The sampler's occlusion spec, matching the agent's heads; None
+    arguments resolve from the agent's own fields.  "parts" needs no static
+    table and is on when the agent has occlusion heads; the grid modes are
+    on when ``occ_boxes`` is given."""
+    mode = occ_mode or agent_model.occ_mode
+    if mode == "parts":
+        if agent_model.num_occ_nodes <= 0:
+            return None
+        return {"mode": mode, "levels": (), "dataset": agent_model.occ_dataset}
+    if occ_boxes is None:
+        return None
+    return {"mode": mode, "levels": tuple(occ_levels or agent_model.occ_levels)}
+
+
+def _detached(logits):
+    return {k: tuple(t.detach() for t in v) if isinstance(v, tuple) else v.detach()
+            for k, v in logits.items()}
+
+
+def make_joint_step(
+    pose_model,
+    agent_model,
+    pose_opt,
+    agent_opt,
+    aug_cfg,
+    mean,
+    std=None,
+    *,
+    seed=0,
+    scale_table,
+    rot_table,
+    occ_boxes=None,
+    occ_mode=None,
+    occ_levels=None,
+    baseline="batch_mean",
+    ref_baseline=True,
+    update_every=1,
+    pose_ref_weight=0.0,
+    device="cuda",
+):
+    """Build the joint minimax step.
+
+    ``joint_step(state, batch) -> metrics`` advances ``state``
+    (:class:`JointState` holding these models and optimizers) in place.
+    ``batch`` is a train batch (``image``, ``valid_wh``, ``center``,
+    ``scale``, ``pts``, ``vis``, ``index``).  ``metrics`` (``loss``,
+    ``acc``, ``agent_loss``, ``advantage``, ``entropy``) stay device
+    tensors.
+
+    - ``ref_baseline=False`` drops the reference crops and rewards against
+      the batch's mean adversarial loss.
+    - ``update_every=N`` updates the agent (parameters, BatchNorm
+      statistics, RMSprop moments and count, ``state.agent.step``) only
+      where ``state.step % N == 0``; ``agent_loss`` and ``entropy`` are
+      reported every step.  The pose network updates every step.
+    - ``pose_ref_weight=w`` (0 <= w < 1, needs ``ref_baseline``) trains the
+      pose network on concat(adversarial, reference) with loss
+      ``(1-w)*mean(l_adv) + w*mean(l_ref)``, BatchNorm statistics from the
+      2B crops, and takes the reward's baseline from that pass.
+    - ``occ_boxes`` (N, 4) turns on grid occlusion (tree or flat); "parts"
+      is on when the agent has occlusion heads.  ``occ_mode`` and
+      ``occ_levels`` default to the agent's own.
+
+    The models move to ``device`` (default CUDA; raises without it unless
+    ``device="cpu"``).
+    """
+    if pose_ref_weight and not ref_baseline:
+        raise ValueError("pose_ref_weight > 0 requires ref_baseline=True")
+    if not 0.0 <= pose_ref_weight < 1.0:
+        raise ValueError(f"pose_ref_weight must be in [0, 1): {pose_ref_weight}")
+    if update_every < 1:
+        raise ValueError(f"update_every must be >= 1: {update_every}")
+    dev = resolve_device(device)
+    pose_model.to(dev)
+    agent_model.to(dev)
+    mean_t, std_t = _normalization(mean, std, dev)
+    scale_table = torch.as_tensor(scale_table, dtype=torch.float32, device=dev)
+    rot_table = torch.as_tensor(rot_table, dtype=torch.float32, device=dev)
+    occ = _occ_spec(occ_boxes, agent_model, occ_mode, occ_levels)
+    if occ_boxes is not None:
+        occ_boxes = torch.as_tensor(occ_boxes, dtype=torch.int32, device=dev)
+    mixed = pose_ref_weight > 0.0
+
+    def augment(b, params, jitter, src_index=None):
+        if src_index is not None:  # metadata of both crops of each sample
+            b = {k: (v if k == "image" else torch.cat([v, v])) for k, v in b.items()}
+        return augment_batch(
+            b["image"], b["valid_wh"], b["center"], b["scale"], b["pts"],
+            b["vis"], params, inp_res=tuple(aug_cfg.inp_res),
+            out_res=tuple(aug_cfg.out_res), sigma=aug_cfg.sigma, mean=mean_t,
+            std=std_t, dataset=aug_cfg.dataset, jitter_scales=jitter,
+            src_index=src_index, device=dev,
+        )
+
+    def joint_step(state, batch):
+        if (state.pose.model is not pose_model or state.pose.optimizer is not pose_opt
+                or state.agent.model is not agent_model
+                or state.agent.optimizer is not agent_opt):
+            raise ValueError("the state holds other models or optimizers "
+                             "than this joint step was built for")
+        b = _to_device(batch, dev)
+        B = b["image"].shape[0]
+        t = state.step
+        do_update = t % update_every == 0
+
+        # 1-3: neutral crop, agent forward, draws.  One train-mode forward
+        # serves the draws (detached) and the REINFORCE loss; its
+        # BatchNorm statistics are kept on update steps only
+        with torch.no_grad():
+            inp_n = augment(b, neutral_params(B, dev), None)["input"]
+        agent_model.train()
+        kept = None if do_update else [x.clone() for x in agent_model.buffers()]
+        with torch.set_grad_enabled(do_update):
+            logits = agent_model(inp_n)
+        if kept is not None:
+            with torch.no_grad():
+                for x, old in zip(agent_model.buffers(), kept):
+                    x.copy_(old)
+        drawn = _detached(logits)
+        # a module-level name: tests substitute the reference's draws
+        extras, adv_params, ref_params, jitter = sample_policy(
+            seed, t, b["index"], drawn, aug_cfg, scale_table, rot_table, occ,
+        )
+
+        # 4-5: adversarial and reference crops in one warp, then occlusion
+        with torch.no_grad():
+            if ref_baseline:
+                pair = AugParams(*(torch.cat(p) for p in zip(adv_params, ref_params)))
+                both = None if jitter is None else torch.cat([jitter, jitter])
+                aug = augment(b, pair, both, src_index=torch.arange(B, device=dev).repeat(2))
+                inp_r, tgt_r = aug["input"][B:], aug["target"][B:]
+            else:
+                aug = augment(b, adv_params, jitter)
+            inp_a, tgt_a = aug["input"][:B], aug["target"][:B]
+            if occ is not None:
+                boxes = occ_box_table(occ, occ_boxes, aug["tpts_float"][:B],
+                                      aug["target_weight"][:B], aug_cfg)
+                inp_a = apply_occlusion(inp_a, extras["oi"], boxes)
+
+        # 7 before 6: the reward's reference forward reads the pose
+        # network's parameters and running statistics from before this
+        # step's update, which the train forward and the optimizer move
+        if ref_baseline and not mixed:
+            pose_model.eval()
+            with torch.no_grad():
+                l_ref = per_sample_stacked_mse(pose_model(inp_r), tgt_r)
+
+        # 6: pose forward/backward and update
+        pose_model.train()
+        if mixed:
+            inp_t, tgt_t = torch.cat([inp_a, inp_r]), torch.cat([tgt_a, tgt_r])
+        else:
+            inp_t, tgt_t = inp_a, tgt_a
+        outs = pose_model(inp_t)
+        l_sample = per_sample_stacked_mse(outs, tgt_t)
+        if mixed:
+            loss = ((1.0 - pose_ref_weight) * l_sample[:B].mean()
+                    + pose_ref_weight * l_sample[B:].mean())
+        else:
+            loss = l_sample.mean()
+        pose_opt.zero_grad(set_to_none=True)
+        loss.backward()
+        pose_opt.step()
+
+        # reward: harder-than-reference draws get a positive advantage
+        l_sample = l_sample.detach()
+        l_adv = l_sample[:B]
+        if mixed:
+            l_ref = l_sample[B:]
+        elif not ref_baseline:
+            l_ref = l_adv.mean() * torch.ones_like(l_adv)
+        gap = l_adv - l_ref
+        adv = normalize_advantage(gap, baseline)
+        agent_loss = -(adv * policy_logp(logits, extras)).mean()
+        if do_update:
+            agent_opt.zero_grad(set_to_none=True)
+            agent_loss.backward()
+            agent_opt.step()
+            state.agent.step += 1
+
+        hit, cnt = pck_counts(outs[-1][:B].detach().float(), tgt_a)
+        state.pose.step += 1
+        state.step += 1
+        return {
+            "loss": loss.detach(),
+            "acc": pck_from_counts(hit, cnt)[0],
+            "agent_loss": agent_loss.detach(),
+            "advantage": gap.mean(),
+            "entropy": entropy(drawn),
+        }
+
+    return joint_step
+
+
+def agent_from_config(cfg, *, steps_per_epoch=1, widths=(32, 64, 128, 256),
+                      device="cuda"):
+    """The agent of ``cfg`` and what :func:`make_joint_step` needs with it:
+    ``(agent, agent_optimizer, joint_kw)``.
+
+    The bin tables (rotation bins over +-``aug.rot_factor``), the occlusion
+    table of ``occ_mode`` and ``occ_levels`` at ``aug.inp_res``, and the
+    agent's optimizer: the experiment's with ``agent.lr``, its schedule
+    over ``steps_per_epoch``.  ``agent.occ_nodes`` turns occlusion on and
+    must equal the node count of the hierarchy.  ``widths`` is the agent's
+    conv widths (the reference's default).  The agent is made on ``device``
+    (default CUDA; raises without it unless ``device="cpu"``).
+    """
+    a = cfg.agent
+    if not a.enabled:
+        raise ValueError(f"config {cfg.name!r} trains no agent")
+    occ_boxes = None
+    if a.occ_mode == "parts":
+        occ_nodes = 1 + sum(part_level_sizes(cfg.aug.dataset)) if a.occ_nodes else 0
+        src = f"PART_GROUPS[{cfg.aug.dataset!r}]"
+    else:
+        if a.occ_nodes:
+            occ_boxes = occlusion_hierarchy(tuple(cfg.aug.inp_res), tuple(a.occ_levels))
+        occ_nodes = 0 if occ_boxes is None else len(occ_boxes)
+        src = f"occ_levels={tuple(a.occ_levels)}"
+    if a.occ_nodes and a.occ_nodes != occ_nodes:
+        raise ValueError(f"agent.occ_nodes={a.occ_nodes} does not match the "
+                         f"{a.occ_mode!r} hierarchy: {src} defines {occ_nodes} nodes")
+    agent = AugAgent(
+        num_scale_bins=a.scale_bins, num_rot_bins=a.rot_bins,
+        num_occ_nodes=occ_nodes, occ_mode=a.occ_mode,
+        occ_levels=tuple(a.occ_levels), occ_dataset=cfg.aug.dataset,
+        widths=widths, input_downscale=a.input_downscale,
+        dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32, device=device,
+    )
+    agent_opt = make_optimizer(
+        agent.parameters(), dataclasses.replace(cfg.optim, lr=a.lr), steps_per_epoch
+    )
+    joint_kw = dict(
+        scale_table=scale_bin_table(a.scale_bins),
+        rot_table=rotation_bin_table(a.rot_bins, -cfg.aug.rot_factor, cfg.aug.rot_factor),
+        occ_boxes=occ_boxes, occ_mode=a.occ_mode, occ_levels=tuple(a.occ_levels),
+        baseline=a.reward_baseline, update_every=a.update_every,
+        pose_ref_weight=a.pose_ref_weight,
+    )
+    return agent, agent_opt, joint_kw

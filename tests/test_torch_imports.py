@@ -30,7 +30,8 @@ def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert "posetpu_torch.infer" in mods and "posetpu_torch.aug.cuda_kernels" in mods
     assert {"posetpu_torch.aug.keyed", "posetpu_torch.train.state",
-            "posetpu_torch.train.step"} <= set(mods)
+            "posetpu_torch.train.step", "posetpu_torch.models.agent",
+            "posetpu_torch.models.batchnorm", "posetpu_torch.train.adversarial"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,6 +90,19 @@ def test_default_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_train_step(model, opt, cfg.aug, MPII_MEAN)
     assert next(model.parameters()).device.type == "cpu"
+    from posetpu_torch.models.agent import AugAgent, rotation_bin_table, scale_bin_table
+    from posetpu_torch.train.adversarial import agent_from_config, make_joint_step
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AugAgent(widths=(8,))
+    agent = AugAgent(widths=(8,), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_joint_step(model, agent, opt, make_optimizer(agent.parameters(), cfg.optim),
+                        cfg.aug, MPII_MEAN, scale_table=scale_bin_table(),
+                        rot_table=rotation_bin_table())
+    assert next(agent.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        agent_from_config(named_config("hg8_mpii_asr"), widths=(8,))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         neutral_params(2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
