@@ -43,6 +43,25 @@ Phases, each printing one JSON line:
              the card and on the CPU from the CPU's state (draws equal,
              metrics, both updates and statistics within derived bounds,
              the agent unchanged on its non-update step)
+  host       what the machine decodes with: Pillow, libjpeg (header and
+             library), nvJPEG's header, CPU count, matplotlib; the decode
+             routes this run takes
+  loader     a synthetic MPII split at MPII's image size (64 JPEGs of
+             1280x720): one epoch of HostLoader at batch 32 per decode route,
+             host-only (decode ms a batch), then through
+             make_batch_placer("cuda") (img/s, copy ms a batch on the copy
+             stream, bytes a batch); the placed batches equal the host ones
+             exactly, and the routes agree (images within 2.5 LSB, metadata
+             exactly)
+  fit        posetpu_torch.train.cli.main at full hg8_mpii width, bf16,
+             batch 32 on the synthetic split (2 train steps and 1 padded
+             validation batch an epoch): 2 epochs, then --resume auto to 3,
+             then posetpu_torch.eval.cli.main; log rows, checkpoint layout,
+             the resumed update count and step, preds.mat, and the
+             rasterizer's launches (train steps + validation batches)
+  fit_joint  one epoch each of hg8_mpii_asr and hg8_lsp_aho (a synthetic LSP
+             split, 14 joints) through the same CLI; launches 2 per joint
+             step + validation batches
 
 Then the kernel summary line (launches from validate, and by path), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -54,12 +73,16 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,7 +96,11 @@ from posetpu_torch.aug import (
     sample_aug_params_ps,
 )
 from posetpu_torch.aug.heatmap import rasterize_gaussians, rasterize_gaussians_plain
+from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.configs import named_config
+from posetpu_torch.data import HostLoader, MpiiDataset, make_batch_placer, make_synthetic_dataset
+from posetpu_torch.eval import cli as eval_cli
+from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.models import hg
 from posetpu_torch.train.adversarial import (
@@ -82,6 +109,7 @@ from posetpu_torch.train.adversarial import (
     make_joint_step,
 )
 from posetpu_torch.train.state import TrainState, make_optimizer
+from posetpu_torch.train import cli as train_cli
 from posetpu_torch.train.step import make_eval_step, make_train_step
 from posetpu_torch.utils import cuda_build
 
@@ -1073,6 +1101,253 @@ def phase_joint_parity():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     emit("joint_parity", batch=B, cases=cases, **{f"max_{k}": v for k, v in worst.items()})
 
+# loader: MPII's own image size and a synthetic split of it; the pre-pad
+# window the driver's auto-sizing picks for such a split (the whole frame:
+# the worst-case crop box of its largest person exceeds the image)
+LOADER_RES = (1280, 720)
+LOADER_IMAGES = 64
+LOADER_PAD = (768, 1280)
+LOADER_LSB = 2.5  # libjpeg against Pillow's IDCT rounding (tests/test_native.py)
+# fit: the synthetic split's 64 train and 16 validation images at batch 32
+FIT_EPOCHS, FIT_RESUME_EPOCHS = 2, 3
+FIT_STEPS, FIT_VAL_BATCHES = 64 // BATCH, 1
+
+
+def _route_probe():
+    """What the machine decodes with, and the decode routes this run
+    takes: "pil" where Pillow imports, "native" where the C++ pool builds."""
+    try:
+        import PIL
+
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    gxx = shutil.which("g++")
+    header = bool(gxx) and subprocess.run(
+        [gxx, "-x", "c++", "-fsyntax-only", "-"],
+        input="#include <cstddef>\n#include <cstdio>\n#include <jpeglib.h>\n",
+        capture_output=True, text=True, timeout=60).returncode == 0
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                              timeout=60).stdout
+    libjpeg = sorted({ln.split()[0] for ln in ldconfig.splitlines()
+                      if "libjpeg" in ln})
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    try:
+        import matplotlib  # noqa: F401
+
+        mpl = True
+    except ImportError:
+        mpl = False
+    routes, native_error = [], None
+    if pillow:
+        routes.append("pil")
+    try:
+        from posetpu_torch.native import NativeDecoder
+
+        NativeDecoder(num_threads=1).close()
+        routes.append("native")
+    except Exception as e:  # no g++ or no libjpeg: the route is absent
+        lines = str(e).strip().splitlines()
+        native_error = next((ln for ln in lines if "error" in ln), lines[-1])[:200]
+    return dict(pillow=pillow, gxx=gxx, jpeglib_header=header, libjpeg=libjpeg,
+                nvjpeg_header=os.path.exists(os.path.join(cuda_home, "include", "nvjpeg.h")),
+                cpu_count=os.cpu_count(), matplotlib=mpl, routes=routes,
+                native_error=native_error)
+
+
+def phase_host():
+    info = _route_probe()
+    check(info["routes"], "no decode route: neither Pillow nor the native pool")
+    emit("host", **info)
+    return info["routes"]
+
+
+def _host_epoch(ds, route):
+    """One epoch of HostLoader batches decoded on the host only, with the
+    seconds each took."""
+    loader = HostLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, backend=route)
+    gen, out = loader._batches(loader._order()), []
+    while True:
+        t0 = time.perf_counter()
+        b = next(gen, None)
+        if b is None:
+            return out
+        out.append((b, time.perf_counter() - t0))
+
+
+def phase_loader(routes, workdir):
+    """One epoch per decode route at MPII's image size, batch 32: host-only
+    (decode ms a batch), then through the CUDA batch placer (img/s over the
+    epoch, copy ms a batch, bytes a batch).  The placed batches equal the
+    host ones exactly; the routes agree."""
+    check("pil" in routes, "the loader phase writes its JPEGs with Pillow")
+    root = os.path.join(workdir, "loader")
+    t0 = time.perf_counter()
+    make_synthetic_dataset(root, num_train=LOADER_IMAGES, num_val=0, res=LOADER_RES,
+                           seed=SEED)
+    make_s = time.perf_counter() - t0
+    ds = MpiiDataset(os.path.join(root, "annotations.json"),
+                     os.path.join(root, "images"), split="train")
+    results, host = [], {}
+    for route in routes:
+        timed = _host_epoch(ds, route)
+        host[route] = [b for b, _ in timed]
+        placer = make_batch_placer("cuda", timing=True)
+        loader = HostLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, backend=route,
+                            place=placer)
+        check(loader.backend == route, f"loader route {loader.backend} != {route}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed = []
+        for b in loader:
+            b["image"].sum(dtype=torch.int64)  # a consumer on the compute stream
+            placed.append(b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(len(placed) == len(host[route]) == LOADER_IMAGES // BATCH,
+              f"{route}: {len(placed)} placed batches")
+        for d, h in zip(placed, host[route]):
+            check(set(d) == set(h), f"{route}: keys {sorted(d)}")
+            for k, v in h.items():
+                got = d[k].cpu().numpy()
+                check(d[k].is_cuda and got.dtype == v.dtype and np.array_equal(got, v),
+                      f"{route}: placed {k} differs from the host batch")
+        nbytes = sum(v.nbytes for v in host[route][0].values())
+        copy_ms = placer.copy_ms()
+        results.append({"route": route, "img_per_s": LOADER_IMAGES / seconds,
+                        "decode_ms_per_batch": [1e3 * t for _, t in timed],
+                        "copy_ms_per_batch": copy_ms, "bytes_per_batch": nbytes,
+                        "copy_gb_per_s": [nbytes / (ms * 1e6) for ms in copy_ms]})
+    agree = {}
+    for route in routes[1:]:
+        lsb = 0
+        for a, b in zip(host[routes[0]], host[route]):
+            lsb = max(lsb, int(np.abs(a["image"].astype(np.int16)
+                                      - b["image"].astype(np.int16)).max()))
+            for k in a:
+                if k != "image":
+                    check(np.array_equal(a[k], b[k]), f"{route} vs {routes[0]}: {k}")
+        check(lsb <= LOADER_LSB, f"{route} vs {routes[0]}: images {lsb} LSB apart")
+        agree[route] = lsb
+    emit("loader", images=LOADER_IMAGES, res=list(LOADER_RES), pad_hw=list(LOADER_PAD),
+         batch=BATCH, synth_seconds=make_s, routes=results, max_lsb_vs_first=agree)
+
+
+def _cli(main, argv):
+    """Call a CLI's main in this process with the rasterizer's counts reset
+    just before; returns (result, launches, stdout)."""
+    buf = io.StringIO()
+    cuda_kernels.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    torch.cuda.synchronize()
+    launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    print(buf.getvalue(), end="", file=sys.stderr, flush=True)
+    return result, launches, buf.getvalue()
+
+
+def _img_per_s(out):
+    return [float(x) for x in re.findall(r"\| ([0-9.]+) img/s", out)]
+
+
+def _check_run(label, run_dir, rows, steps_total):
+    """log.txt rows with finite losses, the ckpt/ layout (the newest 3
+    epochs), best/ where a validation improved, and the last checkpoint's
+    update count and step."""
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        lines = f.read().splitlines()
+    check(lines[0].split("\t") == ["Epoch", "LR", "Train Loss", "Val Loss",
+                                   "Train Acc", "Val Acc"], f"{label}: log header")
+    vals = [[float(x) for x in ln.split("\t")] for ln in lines[1:]]
+    check(len(vals) == rows and [v[0] for v in vals] == list(range(rows)),
+          f"{label}: log rows {lines[1:]}")
+    check(all(math.isfinite(v[2]) and math.isfinite(v[3]) for v in vals),
+          f"{label}: non-finite losses")
+    kept = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    check(kept == [f"{e:05d}" for e in range(max(0, rows - 3), rows)],
+          f"{label}: ckpt/ holds {kept}")
+    best = os.path.isdir(os.path.join(run_dir, "best"))
+    check(best == (max(v[5] for v in vals) > 0), f"{label}: best/ {best}")
+    last = CheckpointManager(run_dir).load()
+    st = last["state"]
+    pose = st.get("pose", st)
+    check(last["epoch"] == rows - 1, f"{label}: last epoch {last['epoch']}")
+    check(pose["count"] == pose["step"] == steps_total and st["step"] == steps_total,
+          f"{label}: count {pose['count']}, step {pose['step']}, want {steps_total}")
+    return vals, best
+
+
+def phase_fit(workdir):
+    """train.cli.main at full hg8_mpii width, bf16, batch 32 on the
+    synthetic split: 2 epochs, then --resume auto to 3, then eval.cli.main.
+    The rasterizer launches once per train step and per validation batch."""
+    ckpt = os.path.join(workdir, "fit")
+    common = ["--config", "hg8_mpii", "--synthetic", "--train-batch", str(BATCH),
+              "--checkpoint", ckpt]
+    run_dir = os.path.join(ckpt, "hg8_mpii")
+    per_epoch = FIT_STEPS + FIT_VAL_BATCHES
+    t0 = time.perf_counter()
+    rc, l1, out1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
+    s1 = time.perf_counter() - t0
+    check(rc == 0, f"train cli returned {rc}")
+    check(l1 == FIT_EPOCHS * per_epoch, f"fit launches {l1}, want {FIT_EPOCHS * per_epoch}")
+    _check_run("fit", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_STEPS)
+    t0 = time.perf_counter()
+    rc, l2, out2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
+                                                  "--resume", "auto"])
+    s2 = time.perf_counter() - t0
+    check(rc == 0, f"resumed train cli returned {rc}")
+    extra = FIT_RESUME_EPOCHS - FIT_EPOCHS
+    check(l2 == extra * per_epoch, f"resumed fit launches {l2}")
+    # the resumed run restored count and step (4) and added its 2 steps
+    vals, best = _check_run("fit resumed", run_dir, FIT_RESUME_EPOCHS,
+                            FIT_RESUME_EPOCHS * FIT_STEPS)
+    t0 = time.perf_counter()
+    pckh, l3, out3 = _cli(eval_cli.main, common + (["--best"] if best else []))
+    s3 = time.perf_counter() - t0
+    check(math.isfinite(pckh) and 0.0 <= pckh <= 100.0, f"PCKh {pckh}")
+    check("PCKh@0.5" in out3, "eval printed no PCKh@0.5")
+    check(l3 == FIT_VAL_BATCHES, f"eval launches {l3}")
+    preds = load_preds(os.path.join(run_dir, "preds.mat"))
+    check(preds.shape == (16, 16, 2) and np.isfinite(preds).all(), f"preds {preds.shape}")
+    emit("fit", config="hg8_mpii", batch=BATCH, epochs=FIT_EPOCHS,
+         resumed_to=FIT_RESUME_EPOCHS, steps_per_epoch=FIT_STEPS,
+         val_batches=FIT_VAL_BATCHES, seconds=[s1, s2, s3],
+         images_per_sec=_img_per_s(out1) + _img_per_s(out2), log=vals,
+         best_written=best, eval_from="best" if best else "latest", pckh=pckh,
+         launches={"train": l1, "resumed": l2, "eval": l3},
+         launches_per_epoch=per_epoch)
+    return l1 + l2 + l3
+
+
+def phase_fit_joint(workdir):
+    """One epoch each of hg8_mpii_asr and hg8_lsp_aho through the train
+    CLI at full width, batch 32: 2 rasterizer launches per joint step and
+    1 per validation batch."""
+    total, runs = 0, []
+    for name in ("hg8_mpii_asr", "hg8_lsp_aho"):
+        ckpt = os.path.join(workdir, name)
+        t0 = time.perf_counter()
+        rc, launches, out = _cli(train_cli.main, [
+            "--config", name, "--synthetic", "--train-batch", str(BATCH),
+            "--checkpoint", ckpt, "--epochs", "1"])
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"{name}: train cli returned {rc}")
+        want = JOINT_RASTER_LAUNCHES * FIT_STEPS + FIT_VAL_BATCHES
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        run_dir = os.path.join(ckpt, name)
+        vals, best = _check_run(name, run_dir, 1, FIT_STEPS)
+        agent = CheckpointManager(run_dir).load()["state"]["agent"]
+        check(agent["count"] == agent["step"] == FIT_STEPS,
+              f"{name}: agent count {agent['count']}")
+        check("agent" in out, f"{name}: no agent loss in the progress line")
+        runs.append({"config": name, "seconds": seconds, "images_per_sec": _img_per_s(out),
+                     "log": vals, "best_written": best, "launches": launches,
+                     "launches_want": want})
+        total += launches
+    emit("fit_joint", batch=BATCH, epochs=1, steps_per_epoch=FIT_STEPS, runs=runs)
+    return total
+
 
 def main():
     smi = phase_device()
@@ -1095,11 +1370,22 @@ def main():
     del state, step
     phase_joint_parity()
 
+    routes = phase_host()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        phase_loader(routes, workdir)
+        fit_launches = phase_fit(workdir)
+        fit_joint_launches = phase_fit_joint(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     raster["launches"] = launches["rasterize_gaussians"]
     raster["launches_by_path"] = {"validate": launches["rasterize_gaussians"],
                                   "train": train_launches["rasterize_gaussians"],
                                   "joint": joint_launches["rasterize_gaussians"],
-                                  "joint_lsp": lsp_launches["rasterize_gaussians"]}
+                                  "joint_lsp": lsp_launches["rasterize_gaussians"],
+                                  "fit": fit_launches,
+                                  "fit_joint": fit_joint_launches}
     print(json.dumps({"kernels": [raster]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

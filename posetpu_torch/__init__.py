@@ -11,6 +11,10 @@ tensor every kernel wrapper launches its hand-written kernel (built from
 the sources in this package at first use); on a CPU tensor it runs the
 kernel's plain PyTorch version.
 
-Ported so far: the serving path (:class:`posetpu_torch.infer.PosePredictor`)
-and the validation step (:func:`posetpu_torch.train.step.make_eval_step`).
+Ported so far: the serving path (:class:`posetpu_torch.infer.PosePredictor`),
+the validation, train and joint adversarial steps (:mod:`posetpu_torch.train`),
+the data layer and host loader (:mod:`posetpu_torch.data`) with its C++ JPEG
+pool (:mod:`posetpu_torch.native`), the epoch driver
+(:class:`posetpu_torch.train.loop.Experiment`) and the command lines
+``python -m posetpu_torch.train.cli`` and ``python -m posetpu_torch.eval.cli``.
 """

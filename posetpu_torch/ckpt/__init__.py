@@ -1,5 +1,6 @@
-"""Checkpoint carry from the JAX package."""
+"""Checkpoints of a run, and the weight carry from the JAX package."""
 
+from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.ckpt.transplant import (
     from_flax_agent_variables,
     from_flax_variables,
@@ -8,6 +9,7 @@ from posetpu_torch.ckpt.transplant import (
 )
 
 __all__ = [
+    "CheckpointManager",
     "from_flax_agent_variables",
     "from_flax_variables",
     "from_optax_agent_state",

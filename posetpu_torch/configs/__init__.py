@@ -7,6 +7,8 @@ from posetpu_torch.configs.config import (
     ExperimentConfig,
     ModelConfig,
     OptimConfig,
+    add_overrides,
+    apply_overrides,
     named_config,
 )
 
@@ -17,5 +19,7 @@ __all__ = [
     "ExperimentConfig",
     "ModelConfig",
     "OptimConfig",
+    "add_overrides",
+    "apply_overrides",
     "named_config",
 ]

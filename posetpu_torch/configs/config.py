@@ -9,16 +9,18 @@ between TPU code paths are gone: the port has one warp path (``warp_table``
 had no other meaning), and the target rasterizer is chosen by the device of
 its inputs (``raster_backend``).  The network has one residual block per
 level (``blocks`` is always 1).  The agent's ``fused_step`` chose between
-XLA program layouts and has no counterpart.  ``epochs``, the batch size,
-``remat``, ``scan_stacks`` and the run settings come with the slices that
-read them.
+XLA program layouts and has no counterpart.  ``remat``, ``scan_stacks``,
+``num_devices``, ``steps_per_dispatch``, the grain loader and TensorBoard
+come with the slices that read them; so do their flags, which
+:func:`add_overrides` does not define (argparse rejects them).
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 from dataclasses import dataclass, field
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass
@@ -47,6 +49,7 @@ class AugConfig:
 @dataclass
 class OptimConfig:
     lr: float = 2.5e-4  # reference --lr (RMSprop)
+    epochs: int = 100  # reference --epochs
     schedule: Sequence[int] = (60, 90)  # reference --schedule (epoch lr drops)
     gamma: float = 0.1  # reference --gamma
     rms_decay: float = 0.99  # torch RMSprop alpha
@@ -81,7 +84,28 @@ class ExperimentConfig:
     aug: AugConfig = field(default_factory=AugConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     agent: AgentConfig = field(default_factory=AgentConfig)
+    # data
+    annotations: str = ""  # reference --json path
+    images_dir: str = ""  # reference --image-path
+    # Pre-pad host canvas (the static shape the device warp reads from).
+    # None: auto-sized at Experiment init so the largest person's
+    # worst-case crop footprint (200*scale box x the largest aug scale x the
+    # rotation bounding-box expansion) fits, capped at the largest image,
+    # rounded up to a multiple of 64.  An explicit (H, W) is used as it is,
+    # with a warning when too small (such crops read zero padding where the
+    # reference reads pixels).
+    pad_hw: Optional[Tuple[int, int]] = None
+    batch_size: int = 6  # reference batch 6 per GPU
+    # run
+    checkpoint_dir: str = "checkpoints"  # reference --checkpoint
+    resume: str = ""  # reference --resume: a checkpoint path, or "auto"
+    # initialize the pose network from a baseline run's checkpoint
+    # directory before joint adversarial training (optimizer fresh)
+    init_pose_from: str = ""
     seed: int = 0
+    synthetic: bool = False  # build a synthetic mini-split on the fly
+    steps_per_epoch: Optional[int] = None  # cap (smoke tests)
+    eval_every: int = 1
 
 
 NAMED_CONFIGS = {
@@ -89,7 +113,8 @@ NAMED_CONFIGS = {
     "hg2_mpii_mini": ExperimentConfig(
         "hg2_mpii_mini",
         model=ModelConfig(stacks=2),
-        optim=OptimConfig(schedule=(6, 8)),
+        optim=OptimConfig(epochs=10, schedule=(6, 8)),
+        synthetic=True,
     ),
     # 8-stack hourglass, MPII full (Newell et al.'s published network)
     "hg8_mpii": ExperimentConfig("hg8_mpii", model=ModelConfig(stacks=8)),
@@ -116,3 +141,60 @@ def named_config(name) -> ExperimentConfig:
         )
     # deep copy: callers adjust leaves freely without touching the registry
     return copy.deepcopy(NAMED_CONFIGS[name])
+
+
+# ---- argparse overrides (reference flag names) ----
+
+_FLAGS = {
+    # flag -> (path, type)
+    "--stacks": ("model.stacks", int),
+    "--num-classes": ("model.classes", int),
+    "--features": ("model.feats", int),
+    "--sigma": ("aug.sigma", float),
+    "--scale-factor": ("aug.scale_factor", float),
+    "--rot-factor": ("aug.rot_factor", float),
+    "--lr": ("optim.lr", float),
+    "--epochs": ("optim.epochs", int),
+    "--gamma": ("optim.gamma", float),
+    "--train-batch": ("batch_size", int),
+    "--checkpoint": ("checkpoint_dir", str),
+    "--resume": ("resume", str),
+    "--init-pose-from": ("init_pose_from", str),
+    "--json": ("annotations", str),
+    "--image-path": ("images_dir", str),
+    "--seed": ("seed", int),
+    "--steps-per-epoch": ("steps_per_epoch", int),
+    "--occ-mode": ("agent.occ_mode", str),  # tree | parts | flat
+    "--occ-nodes": ("agent.occ_nodes", int),
+    "--agent-update-every": ("agent.update_every", int),
+    "--pose-ref-weight": ("agent.pose_ref_weight", float),
+}
+
+
+def add_overrides(parser: argparse.ArgumentParser):
+    """Add the reference's override flags that the port reads."""
+    for flag, (_, typ) in _FLAGS.items():
+        parser.add_argument(flag, type=typ, default=None)
+    parser.add_argument("--schedule", type=int, nargs="*", default=None)
+    parser.add_argument("--synthetic", action="store_true", default=None)
+    parser.add_argument("--no-color-jitter", action="store_true", default=None)
+    return parser
+
+
+def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
+    """Set the config leaves named by the flags given in ``args``."""
+    for flag, (path, _) in _FLAGS.items():
+        v = getattr(args, flag.lstrip("-").replace("-", "_"), None)
+        if v is not None:
+            head, _, leaf = path.partition(".")
+            if leaf:
+                setattr(getattr(cfg, head), leaf, v)
+            else:
+                setattr(cfg, head, v)
+    if getattr(args, "schedule", None) is not None:
+        cfg.optim.schedule = tuple(args.schedule)
+    if getattr(args, "synthetic", None):
+        cfg.synthetic = True
+    if getattr(args, "no_color_jitter", None):
+        cfg.aug.color_jitter = False
+    return cfg

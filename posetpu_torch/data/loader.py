@@ -1,0 +1,386 @@
+"""Decode-only host loader — the port's own copy of
+``posetpu/data/loader.py`` (``load_sample``, ``pad_batch``,
+``threaded_place_iter``, ``HostLoader``), with a CUDA batch placer.
+
+The host does the one thing the device does not: variable-size JPEG
+decode.  Warp, jitter and targets run on the device
+(:mod:`posetpu_torch.aug.pipeline`).  Batches are padded to one static
+shape.  Oversized images are integer-cropped (a pure translation, recorded
+in the center/keypoint metadata) to the pad window around the person.
+
+A background thread decodes batch N+1 and starts its copy to the device
+while the device runs batch N.  :func:`make_batch_placer` builds the
+``place`` step for the CUDA path: decode into pinned host memory, copy with
+``non_blocking=True`` on a stream of its own, record an event; the loader
+then orders the consumer's stream after that event before it yields the
+batch.
+
+Pillow is imported by :func:`_decode` only, so the native route works on a
+machine without it.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from posetpu_torch.utils.device import resolve_device
+
+
+def _decode(path):
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), np.uint8)
+
+
+def load_sample(dataset, i, pad_hw):
+    """Decode sample ``i`` and fit it into a (pad_h, pad_w) canvas.
+
+    Returns a dict of numpy arrays (image, valid_wh, center, scale, pts,
+    vis, index, offset).  Images stay uint8 on the host; the device
+    converts them to float.  If the decoded image exceeds the canvas, an
+    integer crop window centered on the person is taken first and every
+    coordinate is shifted by the integer offset: exact as long as the
+    person's crop box (200 * 1.25 * scale * the largest aug scale) fits in
+    ``pad_hw``; beyond it, the device samples zeros where the reference's
+    host crop would read pixels.
+    """
+    pad_h, pad_w = pad_hw
+    img = _decode(dataset.image_path(i))
+    c, s, pts, vis = dataset.meta(i)
+    H, W = img.shape[:2]
+    off_x = off_y = 0
+    if H > pad_h or W > pad_w:
+        # half-up rounding, matching the C++ pool's int(c + 0.5f): the two
+        # backends must pick the same window (Python round() is
+        # half-to-even and diverges on *.5 centers)
+        off_y = min(max(int(c[1] + 0.5) - pad_h // 2, 0), max(H - pad_h, 0))
+        off_x = min(max(int(c[0] + 0.5) - pad_w // 2, 0), max(W - pad_w, 0))
+        img = img[off_y : off_y + pad_h, off_x : off_x + pad_w]
+        H, W = img.shape[:2]
+    canvas = np.zeros((pad_h, pad_w, 3), np.uint8)
+    canvas[:H, :W] = img
+    return {
+        "image": canvas,
+        "valid_wh": np.array([W, H], np.int32),
+        "center": (c - [off_x, off_y]).astype(np.float32),
+        "scale": np.float32(s),
+        "pts": (pts - [off_x, off_y]).astype(np.float32),
+        "vis": vis.astype(np.float32),
+        "index": np.int32(i),
+        # the crop-window offset, so eval maps predictions back to the
+        # original image frame (center/pts above are in the cropped frame)
+        "offset": np.array([off_x, off_y], np.int32),
+    }
+
+
+def _collate(items, image_out=None):
+    return {
+        k: np.stack([it[k] for it in items], out=image_out if k == "image" else None)
+        for k in items[0]
+    }
+
+
+def pad_batch(batch, size):
+    """Pad a (possibly ragged) batch to ``size`` rows and attach a ``mask``.
+
+    The final validation batch is generally smaller than the batch size.
+    Padding repeats the last sample up to the one batch shape every eval
+    step runs at; the (size,) float mask marks real rows, and the eval step
+    reduces with masked sums so padded rows count nowhere.  Callers trim
+    per-sample outputs (preds) back to the true count.
+    """
+    n = batch["image"].shape[0]
+    if n > size:
+        raise ValueError(f"batch of {n} larger than pad target {size}")
+    mask = np.zeros((size,), np.float32)
+    mask[:n] = 1.0
+    if n == size:
+        return {**batch, "mask": mask}
+    out = {
+        k: np.concatenate([v, np.repeat(v[-1:], size - n, axis=0)])
+        for k, v in batch.items()
+    }
+    out["mask"] = mask
+    return out
+
+
+def threaded_place_iter(src_iter, place, prefetch=2):
+    """Drive ``src_iter`` from a background thread and apply ``place``
+    (the copy to the device) there, so decode, collate and the copy overlap
+    the training step.  The queue is abandon-safe: a consumer that exits
+    early (a ``steps_per_epoch`` cap, a test's ``break``, the generator's
+    collection) releases the producer thread and drops the prefetched
+    batches, which with ``place`` hold device memory.  An exception in the
+    producer is raised in the consumer."""
+    q = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def _put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for item in src_iter:
+                if not _put(place(item)):
+                    return
+            _put(None)
+        except BaseException as e:
+            _put(e)
+
+    threading.Thread(target=produce, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except BaseException:
+            # queue.Empty ends the drain; anything else is an interpreter-
+            # shutdown artifact (stdlib queue's own `raise Empty` breaks
+            # once module globals are cleared): the drain is best-effort
+            pass
+
+
+class _CpuPlacer:
+    """Batches as CPU tensors sharing the numpy arrays' memory."""
+
+    def __call__(self, batch):
+        return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+class CudaBatchPlacer:
+    """The loader's ``place`` step on a CUDA device.
+
+    In the producer thread: :meth:`host_image` hands the loader a pinned
+    uint8 tensor to decode the batch's images into; :meth:`__call__`
+    pins the small arrays, copies every field with ``non_blocking=True`` on
+    this placer's own stream and records an event there.  In the consumer
+    thread, :meth:`ready` makes the consumer's current stream wait for
+    that event and calls ``record_stream`` on each device tensor, so that
+    the caching allocator does not hand the batch's memory to the copy
+    stream again while the compute stream may still read it.
+
+    ``timing=True`` also records CUDA timing events around each copy;
+    :meth:`copy_ms` reads them (it synchronizes).
+    """
+
+    def __init__(self, device, timing=False):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.timing = timing
+        self._copy_events = []
+
+    def host_image(self, shape):
+        return torch.empty(tuple(shape), dtype=torch.uint8, pin_memory=True)
+
+    def __call__(self, batch):
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if self.timing:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self.stream)
+            out = {}
+            for k, v in batch.items():
+                t = torch.as_tensor(v)
+                if not t.is_pinned():
+                    # a pinned copy of the small metadata arrays: a copy from
+                    # pageable memory would stall this thread
+                    t = t.pin_memory()
+                out[k] = t.to(self.device, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=self.timing)
+            done.record(self.stream)
+            if self.timing:
+                self._copy_events.append((start, done))
+        return out, done
+
+    def ready(self, placed):
+        tensors, done = placed
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(done)
+        for t in tensors.values():
+            t.record_stream(current)
+        return tensors
+
+    def copy_ms(self):
+        """Device ms of each copy recorded so far (``timing=True``)."""
+        out = []
+        for start, done in self._copy_events:
+            done.synchronize()
+            out.append(start.elapsed_time(done))
+        return out
+
+
+def make_batch_placer(device="cuda", timing=False):
+    """The ``place`` step of :class:`HostLoader` for ``device``: on CUDA a
+    :class:`CudaBatchPlacer` (pinned decode buffers, copies on a stream of
+    its own, event-ordered hand-off); on the CPU the batch as tensors.
+    Default CUDA; raises without it unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return _CpuPlacer()
+    return CudaBatchPlacer(dev, timing=timing)
+
+
+class HostLoader:
+    """Iterable over static-shape batches with background decode prefetch.
+
+    ``backend``: "pil" (Pillow), "native" (the C++ parallel JPEG pool,
+    :mod:`posetpu_torch.native`), or "auto" (native when it builds, Pillow
+    otherwise).  Files the native pool cannot decode fall back to Pillow per
+    sample, so the two backends give the same batch contract.
+
+    ``place``: an optional callable applied to each collated numpy batch in
+    the prefetch thread, e.g. :func:`make_batch_placer`'s, so the copy to
+    the device overlaps the previous step.  A ``place`` with a
+    ``host_image(shape)`` method gets the batch's images decoded straight
+    into the (pinned) tensor it returns, and one with ``ready(placed)`` has
+    it called on each placed batch in the consuming thread before the batch
+    is yielded.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size,
+        pad_hw=(512, 512),
+        shuffle=True,
+        seed=0,
+        drop_last=True,
+        prefetch=2,
+        backend="auto",
+        place=None,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.pad_hw = pad_hw
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.place = place
+        self.epoch = 0
+        self._decoder = None
+        if backend not in ("auto", "native", "pil"):
+            raise ValueError(f"unknown backend {backend!r} (auto, native or pil)")
+        if backend in ("auto", "native"):
+            try:
+                from posetpu_torch.native import NativeDecoder
+
+                self._decoder = NativeDecoder()
+            except Exception:
+                if backend == "native":
+                    raise
+        self.backend = "native" if self._decoder is not None else "pil"
+
+    def _image_buffer(self, n):
+        """(host array to decode into, what the batch carries as "image")."""
+        shape = (n, *self.pad_hw, 3)
+        alloc = getattr(self.place, "host_image", None)
+        if alloc is None:
+            arr = np.empty(shape, np.uint8)
+            return arr, arr
+        buf = alloc(shape)
+        return buf.numpy(), buf
+
+    def _native_batch(self, sel):
+        """Decode one batch through the C++ pool; Pillow fallback per
+        failure.  The pool writes straight into the batch's image buffer."""
+        ds = self.dataset
+        metas = [ds.meta(int(i)) for i in sel]
+        paths = [ds.image_path(int(i)) for i in sel]
+        centers = np.stack([m[0] for m in metas]).astype(np.float32)
+        arr, image = self._image_buffer(len(sel))
+        images, wh, offs, ok = self._decoder.decode_batch(
+            paths, centers, self.pad_hw, out=arr
+        )
+        report_off = np.asarray(offs, np.int32).copy()  # surfaced to eval
+        for j, i in enumerate(sel):
+            if not ok[j]:  # non-JPEG / unreadable: Pillow fallback in place
+                item = load_sample(ds, int(i), self.pad_hw)
+                images[j] = item["image"]
+                wh[j] = item["valid_wh"]
+                # the item's center/pts are already shifted by its own crop
+                # offset: subtract nothing below, but report the offset so
+                # eval maps preds back to the original frame
+                offs[j] = 0
+                report_off[j] = item["offset"]
+                metas[j] = (
+                    item["center"].astype(np.float64),
+                    float(item["scale"]),
+                    item["pts"].astype(np.float64),
+                    item["vis"].astype(np.float64),
+                )
+        offs_f = offs.astype(np.float64)
+        return {
+            "image": image,
+            "valid_wh": wh,
+            "center": np.stack(
+                [m[0] - offs_f[j] for j, m in enumerate(metas)]
+            ).astype(np.float32),
+            "scale": np.asarray([m[1] for m in metas], np.float32),
+            "pts": np.stack(
+                [m[2] - offs_f[j] for j, m in enumerate(metas)]
+            ).astype(np.float32),
+            "vis": np.stack([m[3] for m in metas]).astype(np.float32),
+            "index": np.asarray(sel, np.int32),
+            "offset": report_off,
+        }
+
+    def _pil_batch(self, sel):
+        arr, image = self._image_buffer(len(sel))
+        out = _collate(
+            [load_sample(self.dataset, int(i), self.pad_hw) for i in sel],
+            image_out=arr,
+        )
+        out["image"] = image
+        return out
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _order(self):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def _batches(self, order):
+        """Plain generator of collated batches for one epoch: decode runs
+        wherever it is driven from (the prefetch thread)."""
+        for b in range(len(self)):
+            sel = order[b * self.batch_size : (b + 1) * self.batch_size]
+            if self._decoder is not None:
+                yield self._native_batch(sel)
+            else:
+                yield self._pil_batch(sel)
+
+    def __iter__(self):
+        order = self._order()
+        self.epoch += 1
+        place = self.place if self.place is not None else (lambda b: b)
+        ready = getattr(self.place, "ready", None)
+        # decode, collate and the copy run in the producer thread; the
+        # consumer only orders its stream after each ready batch
+        it = threaded_place_iter(self._batches(order), place, prefetch=self.prefetch)
+        try:
+            for item in it:
+                yield item if ready is None else ready(item)
+        finally:
+            it.close()  # an early exit releases the producer now

@@ -1,4 +1,5 @@
-"""Heatmap decode and PCK."""
+"""Heatmap decode, PCK counts, the offline PCKh/PCK protocols and the
+prediction export."""
 
 from posetpu_torch.eval.decode import (
     calc_dists,
@@ -8,6 +9,8 @@ from posetpu_torch.eval.decode import (
     pck_from_counts,
     quarter_offset,
 )
+from posetpu_torch.eval.export import load_preds, save_preds
+from posetpu_torch.eval.pck import pck_lsp, pckh
 
 __all__ = [
     "calc_dists",
@@ -16,4 +19,8 @@ __all__ = [
     "pck_counts",
     "pck_from_counts",
     "quarter_offset",
+    "load_preds",
+    "save_preds",
+    "pck_lsp",
+    "pckh",
 ]

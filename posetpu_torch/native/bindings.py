@@ -1,0 +1,122 @@
+"""ctypes bindings of the C++ JPEG decode pool (``decode_pool.cpp``).
+
+The pool builds at first use with ``g++ ... -ljpeg -lpthread`` through
+:mod:`posetpu_torch.utils.cuda_build`, the builder the CUDA kernels use: into
+``posetpu_torch/_build/``, under a name keyed by the source and flags,
+written to a file of its own and moved into place.  Processes that start the
+first build at once each load a whole library.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+
+import numpy as np
+
+from posetpu_torch.utils import cuda_build
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "decode_pool.cpp")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_LIBS = ("-ljpeg", "-lpthread")
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the native decode pool cannot build")
+    return gxx
+
+
+@functools.cache
+def _lib():
+    """The pool's library, built if needed, its functions typed once."""
+    lib = cuda_build.load_library(SOURCE, compiler=_gxx(), flags=GXX_FLAGS,
+                                  libs=GXX_LIBS)
+    lib.pool_create.restype = ctypes.c_void_p
+    lib.pool_create.argtypes = [ctypes.c_int]
+    lib.pool_destroy.restype = None
+    lib.pool_destroy.argtypes = [ctypes.c_void_p]
+    lib.pool_decode_batch.restype = ctypes.c_int
+    lib.pool_decode_batch.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    return lib
+
+
+class NativeDecoder:
+    """Parallel JPEG batch decoder.
+
+    ``decode_batch(paths, centers, pad_hw, out=None) -> (images, valid_wh,
+    offsets, ok)``:
+
+    - images (N, ph, pw, 3) uint8, zero-padded: ``out`` when given (a
+      C-contiguous uint8 array of that shape, e.g. the numpy view of a
+      pinned tensor), else a new array.  A failed slot reads all zero.
+    - valid_wh (N, 2) int32, the (w, h) of the valid region, (0, 0) on
+      failure.
+    - offsets (N, 2) int32, the integer crop offset (x, y).
+    - ok (N,) bool, per-file success (callers fall back to PIL).
+
+    Raises RuntimeError when the pool cannot build (no g++ or no libjpeg).
+    """
+
+    def __init__(self, num_threads=None):
+        self._lib = _lib()
+        n = num_threads or min(16, os.cpu_count() or 4)
+        self._pool = self._lib.pool_create(int(n))
+
+    def decode_batch(self, paths, centers, pad_hw, out=None):
+        if self._pool is None:
+            # a NULL pool handle would segfault inside the C++ call
+            raise RuntimeError("NativeDecoder used after close()")
+        ph, pw = (int(v) for v in pad_hw)
+        n = len(paths)
+        if out is None:
+            out = np.empty((n, ph, pw, 3), np.uint8)
+        elif (out.dtype != np.uint8 or out.shape != (n, ph, pw, 3)
+              or not out.flags.c_contiguous or not out.flags.writeable):
+            raise ValueError(
+                f"out must be a writeable C-contiguous uint8 array of shape "
+                f"{(n, ph, pw, 3)}; got {out.dtype} {out.shape}"
+            )
+        centers = np.ascontiguousarray(centers, np.float32)
+        if centers.shape != (n, 2):
+            raise ValueError(f"centers must be ({n}, 2); got {centers.shape}")
+        wh = np.zeros((n, 2), np.int32)
+        offs = np.zeros((n, 2), np.int32)
+        c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+        self._lib.pool_decode_batch(
+            self._pool,
+            c_paths,
+            n,
+            ph,
+            pw,
+            centers.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            wh.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        ok = (wh > 0).all(axis=1)
+        return out, wh, offs, ok
+
+    def close(self):
+        if self._pool:
+            self._lib.pool_destroy(self._pool)
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

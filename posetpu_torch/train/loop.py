@@ -1,0 +1,341 @@
+"""Experiment driver — the counterpart of ``posetpu/train/loop.py``
+(``build_dataset``, ``Experiment``), on one device.
+
+It builds the data, the network (and the agent), the optimizers and the
+steps from an ExperimentConfig, then runs epochs of train and validate,
+logs the reference's txt columns, checkpoints (best on validation
+improvement), resumes, and writes the validation predictions
+(``preds.mat``).  Data parallelism, steps per dispatch and TensorBoard wait
+for their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import shutil
+import tempfile
+import time
+import warnings
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from posetpu_torch.ckpt.manager import CheckpointManager
+from posetpu_torch.data.datasets import LspDataset, MpiiDataset
+from posetpu_torch.data.loader import HostLoader, make_batch_placer, pad_batch
+from posetpu_torch.data.synthetic import make_synthetic_dataset
+from posetpu_torch.eval.decode import pck_from_counts
+from posetpu_torch.eval.export import save_preds
+from posetpu_torch.models import hg
+from posetpu_torch.train.adversarial import JointState, agent_from_config, make_joint_step
+from posetpu_torch.train.state import TrainState, make_optimizer
+from posetpu_torch.train.step import make_eval_step, make_train_step
+from posetpu_torch.utils.device import resolve_device
+from posetpu_torch.utils.logger import AverageMeter, Logger
+
+SYNTH_TRAIN, SYNTH_VAL = 64, 16
+
+
+def build_dataset(cfg, split="train"):
+    """The config's dataset split.  With ``cfg.synthetic`` and no
+    annotations, a synthetic mini-split (64 train, 16 validation images) is
+    made once in the temp directory, keyed by dataset and seed, and
+    ``cfg.annotations``/``cfg.images_dir`` point at it."""
+    if cfg.synthetic and not cfg.annotations:
+        # the port's own name: the JAX package keeps its own cache, which
+        # the two packages could otherwise write differently
+        root = os.path.join(
+            tempfile.gettempdir(), f"posetpu_torch_synth_{cfg.aug.dataset}_s{cfg.seed}"
+        )
+        json_path = os.path.join(root, "annotations.json")
+        if not os.path.exists(json_path):
+            # made aside and moved into place whole: processes that start
+            # at once never read a half-written split
+            tmp = f"{root}.{os.getpid()}.tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            make_synthetic_dataset(tmp, num_train=SYNTH_TRAIN, num_val=SYNTH_VAL,
+                                   dataset=cfg.aug.dataset, seed=cfg.seed)
+            try:
+                os.rename(tmp, root)
+            except OSError:  # another process moved its copy first
+                shutil.rmtree(tmp, ignore_errors=True)
+        cfg.annotations = json_path
+        cfg.images_dir = os.path.join(root, "images")
+    cls = LspDataset if cfg.aug.dataset == "lsp" else MpiiDataset
+    return cls(cfg.annotations, cfg.images_dir, split=split)
+
+
+def seeded_init_(module, seed):
+    """Draw every conv and linear layer's weights afresh from an explicit
+    ``torch.Generator`` seeded with ``seed``, by torch's own default rule
+    (kaiming-uniform with a = sqrt(5); bias uniform in +-1/sqrt(fan_in)),
+    in module order.  BatchNorm keeps its unit scale and zero shift."""
+    g = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                w = torch.empty(m.weight.shape)
+                nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=g)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    fan_in = m.weight[0].numel()
+                    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+                    m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound,
+                                                                    generator=g))
+    return module
+
+
+class Experiment:
+    """Everything needed to run or resume one config on one device."""
+
+    def __init__(self, cfg, eval_only=False, device="cuda"):
+        """``eval_only``: built for offline evaluation; the run directory's
+        files are not changed (log.txt opens in resume mode, config.json is
+        not rewritten).  ``device`` defaults to CUDA and raises without it
+        unless ``"cpu"``."""
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.eval_only = eval_only
+        self.train_ds = build_dataset(cfg, "train")
+        self.val_ds = build_dataset(cfg, "valid")
+        self.mean, self.std = self.train_ds.mean_std()
+        self.std = None  # the reference normalizes by mean subtraction only
+        self._check_pad_hw()
+
+        self.loader = HostLoader(
+            self.train_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), seed=cfg.seed,
+            # decode into pinned memory and copy on a stream of its own while
+            # the previous step runs
+            place=make_batch_placer(self.device),
+        )
+        # validation batches stay on the host: pad_batch pads the ragged
+        # last batch in numpy before the eval step copies it
+        self.val_loader = HostLoader(
+            self.val_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), shuffle=False,
+            drop_last=False,
+        )
+        self.steps_per_epoch = cfg.steps_per_epoch or len(self.loader)
+
+        m = cfg.model
+        self.model = seeded_init_(
+            hg(num_stacks=m.stacks, num_classes=m.classes, num_feats=m.feats,
+               depth=m.depth, dtype=torch.bfloat16 if m.bf16 else torch.float32),
+            cfg.seed,
+        )
+        opt = make_optimizer(self.model.parameters(), cfg.optim, self.steps_per_epoch)
+        pose_state = TrainState(self.model, opt)
+        if cfg.agent.enabled:
+            agent, agent_opt, joint_kw = agent_from_config(
+                cfg, steps_per_epoch=self.steps_per_epoch, device="cpu"
+            )
+            seeded_init_(agent, cfg.seed + 1)
+            self.state = JointState(pose_state, TrainState(agent, agent_opt))
+            self.train_step = make_joint_step(
+                self.model, agent, opt, agent_opt, cfg.aug, self.mean, self.std,
+                seed=cfg.seed, device=self.device, **joint_kw,
+            )
+        else:
+            self.state = pose_state
+            self.train_step = make_train_step(
+                self.model, opt, cfg.aug, self.mean, self.std, seed=cfg.seed,
+                device=self.device,
+            )
+        self.eval_step = make_eval_step(self.model, cfg.aug, self.mean, self.std,
+                                        device=self.device)
+
+        run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
+        self.ckpt = CheckpointManager(run_dir)
+        self.logger = Logger(os.path.join(run_dir, "log.txt"),
+                             resume=bool(cfg.resume) or eval_only)
+        self.logger.set_names(Logger.DEFAULT_NAMES)
+        if not eval_only:
+            # reproducibility: the exact resolved config next to the log
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        self.start_epoch = 0
+        self.best_acc = 0.0
+        if cfg.init_pose_from:
+            self._init_pose_from(cfg.init_pose_from)
+        if cfg.resume:
+            self._resume(cfg.resume)
+
+    def close(self):
+        """Close the log file."""
+        self.logger.close()
+
+    def _worst_case_box(self):
+        """Side of the largest person's worst-case crop-source footprint:
+        200*scale box x the largest aug scale-up (the sampler clips exp mode
+        at 2^(2*scale_factor)) x the rotation bounding-box expansion
+        (|cos|+|sin| over the clipped rotation range, <= sqrt(2)).  One pass
+        over the annotation scales, no decode.  0.0 without metadata."""
+        cfg = self.cfg
+        try:
+            max_scale = max(
+                (self.train_ds.meta(i)[1] for i in range(len(self.train_ds))),
+                default=0.0,
+            )
+        except Exception:
+            return 0.0
+        aug_up = (
+            2.0 ** (2 * cfg.aug.scale_factor)
+            if cfg.aug.scale_mode == "exp"
+            else 1.0 + cfg.aug.scale_factor
+        )
+        rot_max = 2.0 * cfg.aug.rot_factor if cfg.aug.rot_prob > 0 else 0.0
+        theta = math.radians(min(abs(rot_max), 45.0))
+        rot_expand = math.cos(theta) + math.sin(theta)
+        return 200.0 * max_scale * aug_up * rot_expand
+
+    def _check_pad_hw(self):
+        """Resolve or check the pre-pad host window.  ``cfg.pad_hw=None``
+        auto-sizes it to the worst-case box (:meth:`_worst_case_box`), capped
+        per axis at the largest image (the device warp reads zero beyond
+        ``valid_wh``), rounded up to a multiple of 64, at least 256; the
+        value lands in config.json.  An explicit ``pad_hw`` is kept, with a
+        warning when too small: such crops read zero padding where the
+        reference's host crop reads real pixels."""
+        cfg = self.cfg
+        box = self._worst_case_box()
+        if cfg.pad_hw is None:
+            try:
+                max_h, max_w = self.train_ds.max_image_hw()
+            except Exception:
+                max_h = max_w = 1 << 30
+            side = int(box) if box else 512
+            rnd = lambda v: max(256, -(-int(v) // 64) * 64)  # noqa: E731
+            cfg.pad_hw = (rnd(min(side, max_h)), rnd(min(side, max_w)))
+            return
+        if box > min(cfg.pad_hw):
+            warnings.warn(
+                f"largest person's worst-case crop footprint (~{box:.0f}px, "
+                f"incl. aug scale-up and rotation expansion) exceeds "
+                f"pad_hw={tuple(cfg.pad_hw)}; such crops read zero padding "
+                f"where the reference reads image pixels — raise pad_hw or "
+                f"leave pad_hw=None to auto-size it from the dataset",
+                stacklevel=2,
+            )
+
+    def _init_pose_from(self, path):
+        """Load a baseline run's pose network (parameters and statistics;
+        its ``best/`` checkpoint, else its latest) into this run's pose
+        network.  The optimizer starts fresh, as the reference's does."""
+        src = CheckpointManager(path)
+        best = src.best_path
+        sd = src.load(best if os.path.isdir(best) else None)["state"]
+        self.model.load_state_dict(sd.get("pose", sd)["model"])
+
+    def _resume(self, path):
+        path = None if path == "auto" else path
+        self.state, last_epoch, self.best_acc = self.ckpt.restore(self.state, path)
+        # checkpoints record the last completed epoch; resume at the next.
+        # The loader's epoch counter is not rewound, as the reference's is
+        # not: a resumed run shuffles as epoch 0 did.  The draws continue
+        # from the restored step.
+        self.start_epoch = last_epoch + 1
+
+    # ---- epoch loops ----
+
+    def train_epoch(self, epoch):
+        """One epoch (at most ``steps_per_epoch`` steps).  Every step's
+        metrics stay device tensors and are read once at the end: a read per
+        step would wait for the device and stall the enqueue."""
+        device_metrics = []
+        t0 = time.time()
+        seen = 0
+        for batch in self.loader:
+            device_metrics.append(self.train_step(self.state, batch))
+            seen += batch["image"].shape[0]
+            if len(device_metrics) >= self.steps_per_epoch:
+                break
+        out = {}
+        if device_metrics:
+            # one read of every metric: also the honest end-of-epoch barrier
+            stacked = {k: torch.stack([m[k].float() for m in device_metrics]).cpu()
+                       for k in device_metrics[0]}
+            for k, v in stacked.items():
+                meter = AverageMeter()
+                for x in v.tolist():
+                    meter.update(x)
+                out[k] = meter.avg
+        dt = time.time() - t0
+        out["images_per_sec"] = seen / dt if dt > 0 else 0.0
+        out["steps"] = len(device_metrics)
+        return out
+
+    @torch.no_grad()
+    def validate(self, epoch):
+        """Loss and acc over the validation split, every batch padded to
+        the batch size (one shape, as CUDA graphs will need), PCK from the
+        split's global hit/count sums (returned too, as ``pck_hit`` and
+        ``pck_cnt``), predictions trimmed to the real rows."""
+        sums, preds, hits, cnts, n_total = {}, [], [], [], 0
+        for batch in self.val_loader:
+            n = batch["image"].shape[0]
+            metrics, p = self.eval_step(pad_batch(batch, self.cfg.batch_size))
+            hits.append(metrics["pck_hit"])
+            cnts.append(metrics["pck_cnt"])
+            for k, v in metrics.items():
+                if k not in ("pck_hit", "pck_cnt"):
+                    sums.setdefault(k, []).append((v, n))
+            preds.append(p[:n])
+            n_total += n
+        out = {}
+        for k, vs in sums.items():
+            vals = torch.stack([v.float() for v, _ in vs]).cpu().tolist()
+            meter = AverageMeter()
+            for x, (_, n) in zip(vals, vs):
+                meter.update(x, n=n)
+            out[k] = meter.avg
+        if cnts:
+            hit = torch.stack(hits).double().sum(0).cpu()
+            cnt = torch.stack(cnts).double().sum(0).cpu()
+            out["acc"] = float(pck_from_counts(hit, cnt)[0])
+            out["pck_hit"], out["pck_cnt"] = hit.numpy(), cnt.numpy()
+        preds = (torch.cat(preds).cpu().numpy() if preds
+                 else np.zeros((0, 0, 2), np.float32))
+        return out, preds
+
+    def current_lr(self, epoch):
+        lr = self.cfg.optim.lr
+        for e in self.cfg.optim.schedule:
+            if epoch >= e:
+                lr *= self.cfg.optim.gamma
+        return lr
+
+    def fit(self, progress=print):
+        """Train from ``start_epoch`` to ``optim.epochs``: validate every
+        ``eval_every`` epochs and on the last; log a row; checkpoint, to
+        ``best/`` on improvement; ``preds.mat`` with the best predictions.
+        Returns (state, best_acc)."""
+        cfg = self.cfg
+        run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
+        for epoch in range(self.start_epoch, cfg.optim.epochs):
+            tr = self.train_epoch(epoch)
+            if (epoch + 1) % cfg.eval_every == 0 or epoch == cfg.optim.epochs - 1:
+                va, preds = self.validate(epoch)
+            else:
+                va, preds = {"loss": float("nan"), "acc": 0.0}, None
+            is_best = va["acc"] > self.best_acc
+            self.best_acc = max(self.best_acc, va["acc"])
+            self.logger.append([epoch, self.current_lr(epoch), tr["loss"], va["loss"],
+                                tr["acc"], va["acc"]])
+            self.ckpt.save(self.state, epoch, self.best_acc, is_best=is_best)
+            if is_best and preds is not None:
+                save_preds(preds, os.path.join(run_dir, "preds.mat"))
+            progress(
+                f"epoch {epoch}: train loss {tr['loss']:.5f} acc {tr['acc']:.3f} "
+                f"| val loss {va['loss']:.5f} acc {va['acc']:.3f} "
+                f"| {tr['images_per_sec']:.1f} img/s"
+                + (f" | agent {tr['agent_loss']:+.4f}" if "agent_loss" in tr else "")
+            )
+        # the reference leaves curve plots next to log.txt
+        try:
+            self.logger.plot()
+        except Exception as e:  # plotting must never kill a finished run
+            progress(f"[posetpu_torch] log plot failed: {e}")
+        return self.state, self.best_acc

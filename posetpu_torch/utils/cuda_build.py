@@ -1,11 +1,15 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's native sources at first use and load them with ctypes.
 
-Each ``.cu`` source exposes a plain C interface (no PyTorch headers), so
-``nvcc`` compiles it in seconds.  The shared library goes into
+Each source exposes a plain C interface (no PyTorch headers): the CUDA
+kernels (``.cu``) compile with ``nvcc`` in seconds, the host JPEG pool
+(``native/decode_pool.cpp``) with ``g++``.  The shared library goes into
 ``posetpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by
 a hash of the source text and the compiler flags: an edited source or a
-changed flag builds anew, an unchanged one is reused.  A failed build
-raises; nothing falls back to a plain version.
+changed flag builds anew, an unchanged one is reused.  Each build writes a
+file of its own (named by the process id) and moves it into place with
+``os.replace``, so processes that start the same first build at once each
+load a whole library.  A failed build raises; nothing falls back to a plain
+version.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_NVCC_TIMEOUT_S = 600
+_TIMEOUT_S = 600
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -47,42 +51,47 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(source: str) -> str:
-    """Where the library built from ``source`` lives."""
+def library_path(source: str, flags=NVCC_FLAGS, libs=()) -> str:
+    """Where the library built from ``source`` with ``flags`` (before the
+    source) and ``libs`` (after it) lives."""
     h = hashlib.sha256()
     with open(source, "rb") as f:
         h.update(f.read())
-    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update("\0".join(flags).encode())
+    if libs:
+        h.update(b"\1" + "\0".join(libs).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build(sources) -> dict[str, str]:
-    """Compile every source that has no library yet, one ``nvcc`` process
-    per source, all started together.  Returns {source: library path}.
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside each library as ``<library>.log``."""
-    paths = {s: library_path(s) for s in sources}
+def build(sources, *, compiler=None, flags=NVCC_FLAGS, libs=()) -> dict[str, str]:
+    """Compile every source that has no library yet, one compiler process
+    per source, all started together: ``compiler flags -o out source
+    libs``.  ``compiler`` defaults to ``nvcc``.  Returns {source: library
+    path}.  The compiler's report (for ``nvcc``, ``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside each library as ``<library>.log``."""
+    paths = {s: library_path(s, flags, libs) for s in sources}
     todo = [(s, p) for s, p in paths.items() if not os.path.exists(p)]
     if not todo:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    compiler = compiler or _nvcc()
     procs = []
     try:
         for src, lib in todo:
             tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+            cmd = [compiler, *flags, "-o", tmp, src, *libs]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
             procs.append((src, lib, tmp, proc))
         for src, lib, tmp, proc in procs:
-            out, _ = proc.communicate(timeout=_NVCC_TIMEOUT_S)
+            out, _ = proc.communicate(timeout=_TIMEOUT_S)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{out}")
-            with open(lib + ".log", "w") as f:
+                raise RuntimeError(f"{os.path.basename(compiler)} failed on {src}:\n{out}")
+            with open(f"{lib}.{os.getpid()}.log", "w") as f:
                 f.write(out)
+            os.replace(f"{lib}.{os.getpid()}.log", lib + ".log")
             os.replace(tmp, lib)  # atomic: a reader never sees half a library
     finally:
         for _, _, tmp, proc in procs:
@@ -94,8 +103,9 @@ def build(sources) -> dict[str, str]:
     return paths
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """The ctypes handle of ``source``'s library, built if needed."""
+def load_library(source: str, **build_kw) -> ctypes.CDLL:
+    """The ctypes handle of ``source``'s library, built if needed
+    (``build_kw`` as :func:`build` takes them)."""
     if source not in _loaded:
-        _loaded[source] = ctypes.CDLL(build([source])[source])
+        _loaded[source] = ctypes.CDLL(build([source], **build_kw)[source])
     return _loaded[source]

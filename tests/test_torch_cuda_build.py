@@ -114,3 +114,23 @@ def test_launch_function_is_looked_up_and_typed_once(monkeypatch):
         + [ctypes.c_void_p]
     )
     assert fn.restype is ctypes.c_int
+
+
+def test_build_takes_another_compiler_with_libraries_after_the_source(build_dir):
+    """The host pool's g++ build shares this builder: the compiler and its
+    flags are the caller's, the libraries follow the source (a linker reads
+    them in order), and both key the library's name."""
+    calls = build_dir / "calls.txt"
+    gxx = build_dir / "gxx"
+    gxx.write_text(FAKE_NVCC.format(calls=calls))
+    gxx.chmod(gxx.stat().st_mode | stat.S_IEXEC)
+    src = _source(build_dir / "pool.cpp", "// pool\n")
+    flags, libs = ("-O3", "-shared"), ("-ljpeg", "-lpthread")
+    paths = cuda_build.build([src], compiler=str(gxx), flags=flags, libs=libs)
+    line = calls.read_text().split()
+    assert line == [*flags, "-o", line[3], src, *libs]
+    assert os.path.basename(paths[src]).startswith("pool-")
+    assert paths[src] == cuda_build.library_path(src, flags, libs)
+    assert cuda_build.library_path(src, flags) != paths[src]
+    assert cuda_build.library_path(src) != cuda_build.library_path(src, flags)
+    assert open(paths[src]).read() == "built\n"

@@ -1,6 +1,7 @@
-"""posetpu_torch stands alone: it imports neither JAX nor the JAX package,
-and its entry points refuse to run on a machine without CUDA unless asked
-for the CPU."""
+"""posetpu_torch stands alone: it imports neither JAX nor the JAX package
+(nor flax, optax, orbax, grain or clu), no module imports Pillow at its top
+(so the native decode route works without it), and its entry points refuse
+to run on a machine without CUDA unless asked for the CPU."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ import posetpu_torch
 from posetpu_torch.models import hg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "posetpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "clu", "posetpu")
 
 
 def _port_modules():
@@ -32,10 +33,17 @@ def test_importing_every_module_loads_no_jax():
     assert {"posetpu_torch.aug.keyed", "posetpu_torch.train.state",
             "posetpu_torch.train.step", "posetpu_torch.models.agent",
             "posetpu_torch.models.batchnorm", "posetpu_torch.train.adversarial"} <= set(mods)
+    assert {"posetpu_torch.configs.config", "posetpu_torch.data.schema",
+            "posetpu_torch.data.datasets", "posetpu_torch.data.synthetic",
+            "posetpu_torch.native.bindings", "posetpu_torch.data.loader",
+            "posetpu_torch.utils.logger", "posetpu_torch.eval.pck",
+            "posetpu_torch.eval.export", "posetpu_torch.ckpt.manager",
+            "posetpu_torch.train.loop", "posetpu_torch.train.cli",
+            "posetpu_torch.eval.cli"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN + ('PIL',)!r})\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -66,6 +74,50 @@ def test_no_source_imports_jax_or_the_jax_package():
                 continue
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
+
+
+def test_no_module_imports_pillow_at_its_top():
+    """Pillow is imported inside the functions that decode or draw, never
+    in a module body (where an ``if`` or ``try`` at top level counts too)."""
+    for path in _python_files():
+        if os.path.basename(path) == "chip_smoke.py":
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        todo = list(tree.body)
+        while todo:
+            node = todo.pop()
+            if isinstance(node, (ast.If, ast.Try, ast.With)):
+                todo += [n for n in ast.iter_child_nodes(node) if isinstance(n, ast.stmt)]
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names if n.split(".")[0] == "PIL"], \
+                f"{path} imports Pillow at module level"
+
+
+def test_data_and_driver_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from posetpu_torch.data import make_batch_placer
+    from posetpu_torch.eval import cli as eval_cli
+    from posetpu_torch.train import cli as train_cli
+    from posetpu_torch.train.loop import Experiment
+    from posetpu_torch.configs import named_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_batch_placer()
+    assert callable(make_batch_placer("cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Experiment(named_config("hg2_mpii_mini"))
+    argv = ["--config", "hg2_mpii_mini", "--synthetic", "--checkpoint", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_cli.main(argv)
+    assert not os.listdir(tmp_path)  # refused before touching the run directory
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
