@@ -54,17 +54,44 @@ Phases, each printing one JSON line:
              exactly, and the routes agree (images within 2.5 LSB, metadata
              exactly)
   fit        posetpu_torch.train.cli.main at full hg8_mpii width, bf16,
-             batch 32 on the synthetic split (2 train steps and 1 padded
-             validation batch an epoch): 2 epochs, then --resume auto to 3,
-             then posetpu_torch.eval.cli.main; log rows, checkpoint layout,
-             the resumed update count and step, preds.mat, and the
-             rasterizer's launches (train steps + validation batches)
+             batch 32 on the synthetic split (2 train steps, each a CUDA
+             graph of one step, and 1 padded validation batch an epoch): 2
+             epochs, then --resume auto to 3, then posetpu_torch.eval.cli.main;
+             log rows, checkpoint layout, the resumed update count and step,
+             preds.mat, and the rasterizer's launches (train steps +
+             validation batches + each run's warm-up steps before its capture)
   fit_joint  one epoch each of hg8_mpii_asr and hg8_lsp_aho (a synthetic LSP
              split, 14 joints) through the same CLI; launches 2 per joint
              step + validation batches
+  dispatch   make_dispatch_step at full hg8_mpii width, bf16, batch 32, K = 4
+             train steps a CUDA graph: two eager runs of 4 steps and one
+             graphed dispatch from one state (the graph within twice the
+             eager runs' gap of each other), the capture's seconds and the
+             first dispatch's launches (warm-up steps + K) on a line of its
+             own, then 3 timed dispatches (img/s, peak memory, the
+             rasterizer's launches = steps replayed) and one under
+             torch.profiler (device busy ms a step, idle share)
+  dispatch_parity  hg2_mpii_mini at feats 8, f32, TF32 off, deterministic
+             algorithms: graphed dispatches of K = 2 (one after a state load,
+             which captures again) and a short eager group equal 7 eager
+             steps exactly (parameters, moments, statistics, metrics);
+             launches 7 eager, 7 + 2 captures x 2 warm-up steps graphed
+  fit_dispatch  the train CLI at full hg8_mpii width with --steps-per-dispatch
+             2 --loader-backend grain --loader-workers 4 --tensorboard
+             --profile: log rows, launches (the traced epoch's steps counted
+             once more, and the capture's warm-up steps), the trace file,
+             the event file
 
-Then the kernel summary line (launches from validate, and by path), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any failure
+The loader phase also times WorkerLoader at 0, 4 and 7 worker processes
+over the same JPEGs (its batches equal HostLoader's Pillow batches
+exactly), and its steady rate over an epoch of 320 (the 64 cycled), after
+the first batch; the host phase reports TensorBoard and /dev/shm.
+
+Then ``processes``: the worker loaders' server and resource tracker are
+stopped (the script waits for both), and anything else the run started
+that still runs is ended and fails the run.  Then the kernel summary line
+(launches from validate, and by path), the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.  Any failure
 raises (non-zero exit, no final line); without CUDA it exits non-zero at
 once.  Nothing falls back to the CPU or to a plain version.
 """
@@ -79,6 +106,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -98,7 +126,17 @@ from posetpu_torch.aug import (
 from posetpu_torch.aug.heatmap import rasterize_gaussians, rasterize_gaussians_plain
 from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.configs import named_config
-from posetpu_torch.data import HostLoader, MpiiDataset, make_batch_placer, make_synthetic_dataset
+from posetpu_torch.data import (
+    HostLoader,
+    MpiiDataset,
+    WorkerLoader,
+    make_batch_placer,
+    make_synthetic_dataset,
+)
+from posetpu_torch.data.worker_loader import (
+    START_METHOD as WORKER_START_METHOD,
+    stop_worker_server,
+)
 from posetpu_torch.eval import cli as eval_cli
 from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
@@ -110,7 +148,12 @@ from posetpu_torch.train.adversarial import (
 )
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train import cli as train_cli
-from posetpu_torch.train.step import make_eval_step, make_train_step
+from posetpu_torch.train.step import (
+    WARMUP_STEPS,
+    make_dispatch_step,
+    make_eval_step,
+    make_train_step,
+)
 from posetpu_torch.utils import cuda_build
 
 SEED = 0
@@ -1108,6 +1151,10 @@ LOADER_RES = (1280, 720)
 LOADER_IMAGES = 64
 LOADER_PAD = (768, 1280)
 LOADER_LSB = 2.5  # libjpeg against Pillow's IDCT rounding (tests/test_native.py)
+LOADER_WORKERS = (0, 4, 7)  # WorkerLoader's processes, beside the Pillow route
+# WorkerLoader's steady rate: one epoch of 10 batches over the same JPEGs,
+# timed after its first batch (which waits for the workers' start)
+LOADER_STEADY_IMAGES = 320
 # fit: the synthetic split's 64 train and 16 validation images at batch 32
 FIT_EPOCHS, FIT_RESUME_EPOCHS = 2, 3
 FIT_STEPS, FIT_VAL_BATCHES = 64 // BATCH, 1
@@ -1149,30 +1196,56 @@ def _route_probe():
     except Exception as e:  # no g++ or no libjpeg: the route is absent
         lines = str(e).strip().splitlines()
         native_error = next((ln for ln in lines if "error" in ln), lines[-1])[:200]
+    try:
+        import tensorboard
+
+        tb = tensorboard.__version__
+    except ImportError:
+        tb = None
+    shm = shutil.disk_usage("/dev/shm").total if os.path.isdir("/dev/shm") else None
     return dict(pillow=pillow, gxx=gxx, jpeglib_header=header, libjpeg=libjpeg,
                 nvjpeg_header=os.path.exists(os.path.join(cuda_home, "include", "nvjpeg.h")),
                 cpu_count=os.cpu_count(), matplotlib=mpl, routes=routes,
-                native_error=native_error)
+                native_error=native_error, tensorboard=tb, dev_shm_bytes=shm,
+                worker_start_method=WORKER_START_METHOD)
 
 
 def phase_host():
     info = _route_probe()
     check(info["routes"], "no decode route: neither Pillow nor the native pool")
     emit("host", **info)
-    return info["routes"]
+    return info["routes"], info["tensorboard"] is not None
 
 
-def _host_epoch(ds, route):
-    """One epoch of HostLoader batches decoded on the host only, with the
-    seconds each took."""
-    loader = HostLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, backend=route)
-    gen, out = loader._batches(loader._order()), []
+class _Cycled:
+    """``n`` samples that cycle through ``ds``'s, the same JPEGs: an epoch
+    long enough to time the workers' steady rate.  At module level, so the
+    workers can unpickle it."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+
+    def __len__(self):
+        return self.n
+
+    def image_path(self, i):
+        return self.ds.image_path(i % len(self.ds))
+
+    def meta(self, i):
+        return self.ds.meta(i % len(self.ds))
+
+
+def _host_batches(loader):
+    """One epoch of ``loader``'s batches on the host only, and the ms the
+    consumer waited for each (the workers' start falls in the first)."""
+    gen, got, host_ms = loader._batches(loader._order()), [], []
     while True:
         t0 = time.perf_counter()
         b = next(gen, None)
         if b is None:
-            return out
-        out.append((b, time.perf_counter() - t0))
+            return got, host_ms
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        got.append(b)
 
 
 def phase_loader(routes, workdir):
@@ -1190,8 +1263,8 @@ def phase_loader(routes, workdir):
                      os.path.join(root, "images"), split="train")
     results, host = [], {}
     for route in routes:
-        timed = _host_epoch(ds, route)
-        host[route] = [b for b, _ in timed]
+        host[route], decode_ms = _host_batches(
+            HostLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, backend=route))
         placer = make_batch_placer("cuda", timing=True)
         loader = HostLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, backend=route,
                             place=placer)
@@ -1215,9 +1288,10 @@ def phase_loader(routes, workdir):
         nbytes = sum(v.nbytes for v in host[route][0].values())
         copy_ms = placer.copy_ms()
         results.append({"route": route, "img_per_s": LOADER_IMAGES / seconds,
-                        "decode_ms_per_batch": [1e3 * t for _, t in timed],
+                        "decode_ms_per_batch": decode_ms,
                         "copy_ms_per_batch": copy_ms, "bytes_per_batch": nbytes,
                         "copy_gb_per_s": [nbytes / (ms * 1e6) for ms in copy_ms]})
+    workers = [_worker_epochs(ds, n, host["pil"]) for n in LOADER_WORKERS]
     agree = {}
     for route in routes[1:]:
         lsb = 0
@@ -1230,7 +1304,44 @@ def phase_loader(routes, workdir):
         check(lsb <= LOADER_LSB, f"{route} vs {routes[0]}: images {lsb} LSB apart")
         agree[route] = lsb
     emit("loader", images=LOADER_IMAGES, res=list(LOADER_RES), pad_hw=list(LOADER_PAD),
-         batch=BATCH, synth_seconds=make_s, routes=results, max_lsb_vs_first=agree)
+         batch=BATCH, synth_seconds=make_s, routes=results, max_lsb_vs_first=agree,
+         workers=workers)
+
+
+def _worker_epochs(ds, n, want):
+    """WorkerLoader with ``n`` processes: one epoch on the host only (ms a
+    batch as the consumer waits for it), one through the CUDA placer (img/s
+    over the epoch), both equal to the Pillow route's host batches ``want``
+    exactly; then one epoch of LOADER_STEADY_IMAGES on the host only, its
+    img/s over the batches after the first."""
+    got, host_ms = _host_batches(
+        WorkerLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, num_workers=n))
+    placer = make_batch_placer("cuda", timing=True)
+    loader = WorkerLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, num_workers=n,
+                          place=placer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = []
+    for b in loader:
+        b["image"].sum(dtype=torch.int64)  # a consumer on the compute stream
+        placed.append(b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(got) == len(placed) == len(want), f"{n} workers: {len(got)}, {len(placed)} batches")
+    for h, d, w in zip(got, placed, want):
+        for k, v in w.items():
+            check(np.array_equal(np.asarray(h[k]), v), f"{n} workers: host {k} differs from Pillow")
+            check(d[k].is_cuda and np.array_equal(d[k].cpu().numpy(), v),
+                  f"{n} workers: placed {k} differs from Pillow")
+    steady, steady_ms = _host_batches(WorkerLoader(
+        _Cycled(ds, LOADER_STEADY_IMAGES), BATCH, pad_hw=LOADER_PAD, seed=SEED,
+        num_workers=n))
+    check(len(steady) == LOADER_STEADY_IMAGES // BATCH, f"{n} workers: {len(steady)} batches")
+    del steady
+    return {"workers": n, "img_per_s": LOADER_IMAGES / seconds,
+            "host_ms_per_batch": host_ms, "copy_ms_per_batch": placer.copy_ms(),
+            "steady_images": LOADER_STEADY_IMAGES, "steady_host_ms_per_batch": steady_ms,
+            "steady_img_per_s": BATCH * (len(steady_ms) - 1) * 1e3 / sum(steady_ms[1:])}
 
 
 def _cli(main, argv):
@@ -1280,7 +1391,9 @@ def _check_run(label, run_dir, rows, steps_total):
 def phase_fit(workdir):
     """train.cli.main at full hg8_mpii width, bf16, batch 32 on the
     synthetic split: 2 epochs, then --resume auto to 3, then eval.cli.main.
-    The rasterizer launches once per train step and per validation batch."""
+    The rasterizer launches once per train step (a CUDA graph of one step,
+    K = 1) and per validation batch, and once per warm-up step before each
+    run's capture."""
     ckpt = os.path.join(workdir, "fit")
     common = ["--config", "hg8_mpii", "--synthetic", "--train-batch", str(BATCH),
               "--checkpoint", ckpt]
@@ -1290,7 +1403,8 @@ def phase_fit(workdir):
     rc, l1, out1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
     s1 = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
-    check(l1 == FIT_EPOCHS * per_epoch, f"fit launches {l1}, want {FIT_EPOCHS * per_epoch}")
+    want1 = FIT_EPOCHS * per_epoch + WARMUP_STEPS
+    check(l1 == want1, f"fit launches {l1}, want {want1}")
     _check_run("fit", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_STEPS)
     t0 = time.perf_counter()
     rc, l2, out2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
@@ -1298,7 +1412,7 @@ def phase_fit(workdir):
     s2 = time.perf_counter() - t0
     check(rc == 0, f"resumed train cli returned {rc}")
     extra = FIT_RESUME_EPOCHS - FIT_EPOCHS
-    check(l2 == extra * per_epoch, f"resumed fit launches {l2}")
+    check(l2 == extra * per_epoch + WARMUP_STEPS, f"resumed fit launches {l2}")
     # the resumed run restored count and step (4) and added its 2 steps
     vals, best = _check_run("fit resumed", run_dir, FIT_RESUME_EPOCHS,
                             FIT_RESUME_EPOCHS * FIT_STEPS)
@@ -1316,7 +1430,7 @@ def phase_fit(workdir):
          images_per_sec=_img_per_s(out1) + _img_per_s(out2), log=vals,
          best_written=best, eval_from="best" if best else "latest", pckh=pckh,
          launches={"train": l1, "resumed": l2, "eval": l3},
-         launches_per_epoch=per_epoch)
+         launches_per_epoch=per_epoch, warmup_steps=WARMUP_STEPS)
     return l1 + l2 + l3
 
 
@@ -1349,8 +1463,304 @@ def phase_fit_joint(workdir):
     return total
 
 
+# dispatch: K train steps a CUDA graph at full width, and the dispatches
+# timed after the one that captures
+DISPATCH_K, DISPATCH_TIMED = 4, 3
+# dispatch: the graph against eager steps in bf16 at full width.  Two eager
+# runs from one state differ only where a kernel's reduction order changes
+# from run to run (cuDNN's weight-gradient algorithms may add partial sums
+# with atomics); that gap is the spread of the eager result itself.  The
+# graph replays the same kernels on the same arguments, so it is one more
+# draw from that spread: by the triangle inequality its distance to one
+# eager run is at most its distance to the other plus theirs, two spreads.
+# When the eager runs agree bit for bit, the graph must too.
+GRAPH_GAP_FACTOR = 2.0
+# dispatch_parity: hg2 at feats 8, f32; graphed dispatches of K = 2 over 7
+# steps (2, 2, a state load, 2, then a short group of 1)
+PARITY_K, PARITY_STEPS = 2, 7
+# fit_dispatch: the train CLI with every dispatch option
+FIT_DISPATCH = ["--steps-per-dispatch", "2", "--loader-backend", "grain",
+                "--loader-workers", "4", "--tensorboard", "--profile"]
+
+
+def _stack(batches, dev="cuda"):
+    return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(dev)
+            for k in batches[0]}
+
+
+def _gap(a, b):
+    """Largest difference between two ``TrainState.snapshot()``s, over the
+    floating tensors."""
+    out = 0.0
+    for x, y in zip(a[0], b[0], strict=True):
+        if x.is_floating_point():
+            out = max(out, (x.float() - y.float()).abs().max().item())
+    return out
+
+
+def phase_dispatch(cfg):
+    """K = DISPATCH_K train steps a CUDA graph at the full hg8_mpii width,
+    bf16, batch 32, from one state: two eager runs of K steps
+    (make_train_step) and one graphed dispatch; the graph's gap to the first
+    eager run within GRAPH_GAP_FACTOR of the eager runs' own gap (parameters,
+    statistics and moments; losses).  Then DISPATCH_TIMED timed dispatches
+    with the launch counts reset just before (the rasterizer launches once
+    a replayed step), and one dispatch under torch.profiler."""
+    torch.manual_seed(SEED + 9)
+    model = hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+               num_feats=cfg.model.feats, depth=cfg.model.depth).cuda()
+    opt = make_optimizer(model.parameters(), cfg.optim,
+                         steps_per_epoch=MPII_TRAIN_SAMPLES // BATCH)
+    state = TrainState(model, opt)
+    K = DISPATCH_K
+    rng = np.random.RandomState(SEED + 10)
+    supers = [_stack([_train_batch(rng, BATCH, CANVAS, cfg.model.classes, (d * K + i) * BATCH)
+                      for i in range(K)]) for d in range(1 + DISPATCH_TIMED)]
+    eager = make_train_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, device="cuda")
+    eager(state, {k: v[0] for k, v in supers[-1].items()})  # cuDNN set-up, not compared
+    s0 = state.snapshot()
+    runs, eager_s = {}, []
+    for name in ("eager_a", "eager_b"):
+        state.restore_(s0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [eager(state, {k: v[i] for k, v in supers[0].items()}) for i in range(K)]
+        loss = torch.stack([m["loss"] for m in ms]).cpu()
+        eager_s.append(time.perf_counter() - t0)
+        runs[name] = (state.snapshot(), loss)
+    state.restore_(s0)
+    dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, steps=K,
+                                  device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    loss = dispatch(state, supers[0])["loss"].cpu()  # warms up, captures, replays
+    first = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    runs["graph"] = (state.snapshot(), loss)
+    emit("dispatch_capture", config=cfg.name, steps=K, seconds=dispatch.capture_seconds[0],
+         warmup_steps=WARMUP_STEPS, launches=first)
+    check(first == WARMUP_STEPS + K, f"first dispatch: {first} launches, want "
+          f"{WARMUP_STEPS} warm-up + {K} replayed")
+
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [dispatch(state, sb) for sb in supers[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_step(lambda: dispatch(state, supers[1]))
+    replay_ms = cuda_ms(dispatch.graph.replay, reps=1, samples=5)
+
+    eager_gap = _gap(runs["eager_a"][0], runs["eager_b"][0])
+    graph_gap = _gap(runs["eager_a"][0], runs["graph"][0])
+    eager_loss_gap = (runs["eager_a"][1] - runs["eager_b"][1]).abs().max().item()
+    graph_loss_gap = (runs["eager_a"][1] - runs["graph"][1]).abs().max().item()
+    losses = [m["loss"].tolist() for m in metrics]
+    emit("dispatch", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
+         batch=BATCH, steps_per_dispatch=K, dispatches=DISPATCH_TIMED, canvas=list(CANVAS),
+         dtype="bfloat16", seconds=seconds,
+         img_per_s=BATCH * K * DISPATCH_TIMED / seconds,
+         eager_img_per_s=[BATCH * K / t for t in eager_s],
+         device_busy_ms_per_step=prof["device_busy_ms"] / K,
+         replay_ms_per_step=replay_ms / K, idle_share=prof["idle_share"],
+         profile=prof, max_memory_allocated=peak, loss=losses,
+         acc=[m["acc"].tolist() for m in metrics], launches=launches,
+         captures=dispatch.captures, param_gap_eager=eager_gap, param_gap_graph=graph_gap,
+         loss_gap_eager=eager_loss_gap, loss_gap_graph=graph_loss_gap,
+         gap_factor=GRAPH_GAP_FACTOR)
+    check(dispatch.captures == 1, f"captures {dispatch.captures}")
+    check(launches["rasterize_gaussians"] == K * DISPATCH_TIMED,
+          f"rasterizer launches over {DISPATCH_TIMED} dispatches: {launches}")
+    steps = K * (2 + DISPATCH_TIMED) + 1
+    check(state.step == opt.count == steps, f"step {state.step}, count {opt.count}")
+    check(all(math.isfinite(x) for ls in losses for x in ls), f"dispatch losses {losses}")
+    check(graph_gap <= GRAPH_GAP_FACTOR * eager_gap,
+          f"graph vs eager {graph_gap}, eager vs eager {eager_gap}")
+    check(graph_loss_gap <= GRAPH_GAP_FACTOR * eager_loss_gap,
+          f"losses: graph vs eager {graph_loss_gap}, eager vs eager {eager_loss_gap}")
+    return launches["rasterize_gaussians"]
+
+
+def phase_dispatch_parity():
+    """hg2_mpii_mini at feats 8, 64² input, f32, TF32 off, deterministic
+    algorithms: PARITY_STEPS train steps eagerly, and as graphed
+    dispatches of PARITY_K (2, 2, then a state load, which captures again,
+    2, then a short group of 1, eager), from one state across both
+    schedule drops.  Parameters, statistics, moments, metrics and counts
+    must be equal exactly; the rasterizer launches once a step, and on the
+    graph's side also once for each warm-up step before each capture."""
+    cfg = named_config("hg2_mpii_mini")
+    cfg.model.feats = 8
+    cfg.model.bf16 = False
+    cfg.aug.inp_res = (64, 64)
+    cfg.aug.out_res = (16, 16)
+    cfg.optim.schedule = (1, 2)  # at 2 updates an epoch: drops at 2 and 4
+    K, B, J = PARITY_K, 8, cfg.model.classes
+    rng = np.random.RandomState(SEED + 12)
+    batches = [_train_batch(rng, B, (96, 128), J, 3000 + t * B) for t in range(PARITY_STEPS)]
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.manual_seed(SEED + 11)
+        base = hg(num_stacks=cfg.model.stacks, num_classes=J, num_feats=cfg.model.feats,
+                  dtype=torch.float32)
+        runs = {}
+        for how in ("eager", "graph"):
+            model = copy.deepcopy(base).cuda()
+            opt = make_optimizer(model.parameters(), cfg.optim, steps_per_epoch=2)
+            state = TrainState(model, opt)
+            kw = dict(seed=SEED, device="cuda")
+            cuda_kernels.reset_launches()
+            if how == "eager":
+                step = make_train_step(model, opt, cfg.aug, MPII_MEAN, **kw)
+                ms = [step(state, b) for b in batches]
+                metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+            else:
+                dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN, steps=K, **kw)
+                parts = [dispatch(state, _stack(batches[0:2])),
+                         dispatch(state, _stack(batches[2:4]))]
+                opt.load_state_dict(copy.deepcopy(opt.state_dict()))  # new moment tensors
+                parts += [dispatch(state, _stack(batches[4:6])),
+                          dispatch(state, _stack(batches[6:7]))]
+                metrics = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+                captures = dispatch.captures
+            torch.cuda.synchronize()
+            runs[how] = (state.snapshot(), {k: v.cpu() for k, v in metrics.items()},
+                         cuda_kernels.LAUNCHES["rasterize_gaussians"])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[:2]
+        torch.use_deterministic_algorithms(prev[2])
+    (se, me, le), (sg, mg, lg) = runs["eager"], runs["graph"]
+    gap = _gap(se, sg)
+    metric_gap = max((me[k] - mg[k]).abs().max().item() for k in me)
+    emit("dispatch_parity", batch=B, steps=PARITY_STEPS, steps_per_dispatch=K,
+         captures=captures, warmup_steps=WARMUP_STEPS, param_gap=gap,
+         metric_gap=metric_gap, loss=me["loss"].tolist(),
+         launches={"eager": le, "graph": lg})
+    check(captures == 2, f"captures {captures}: a state load must capture again")
+    check(se[1:] == sg[1:] == (PARITY_STEPS, PARITY_STEPS), f"counts {se[1:]} {sg[1:]}")
+    for a, b in zip(se[0], sg[0], strict=True):
+        check(torch.equal(a, b), f"graphed state differs from eager by {gap}")
+    for k in me:
+        check(torch.equal(me[k], mg[k]), f"graphed {k} differs from eager")
+    want = PARITY_STEPS + WARMUP_STEPS * captures
+    check(le == PARITY_STEPS and lg == want,
+          f"launches eager {le}, graph {lg} (want {PARITY_STEPS}, {want})")
+    return lg
+
+
+def phase_fit_dispatch(workdir, have_tensorboard):
+    """train.cli.main at full hg8_mpii width, bf16, batch 32 on the synthetic
+    split with every dispatch option (FIT_DISPATCH): the first epoch traced,
+    then FIT_EPOCHS epochs from the state before it.  Launches: each
+    epoch's train steps and validation batch, the traced epoch's train
+    steps once more, and the warm-up steps of the one capture (the traced
+    epoch's; the state is put back in place, so it is replayed after); the
+    trace file and, where tensorboard is installed, the event file."""
+    ckpt = os.path.join(workdir, "fit_dispatch")
+    run_dir = os.path.join(ckpt, "hg8_mpii")
+    t0 = time.perf_counter()
+    rc, launches, out = _cli(train_cli.main, [
+        "--config", "hg8_mpii", "--synthetic", "--train-batch", str(BATCH),
+        "--checkpoint", ckpt, "--epochs", str(FIT_EPOCHS), *FIT_DISPATCH])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"train cli returned {rc}")
+    want = FIT_EPOCHS * (FIT_STEPS + FIT_VAL_BATCHES) + FIT_STEPS + WARMUP_STEPS
+    vals, best = _check_run("fit_dispatch", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_STEPS)
+    trace_dir = os.path.join(run_dir, "trace")
+    traces = {n: os.path.getsize(os.path.join(trace_dir, n))
+              for n in (os.listdir(trace_dir) if os.path.isdir(trace_dir) else [])}
+    tb_dir = os.path.join(run_dir, "tb")
+    events = [n for n in (os.listdir(tb_dir) if os.path.isdir(tb_dir) else [])
+              if n.startswith("events.out.tfevents")]
+    emit("fit_dispatch", config="hg8_mpii", batch=BATCH, epochs=FIT_EPOCHS,
+         flags=FIT_DISPATCH, seconds=seconds, images_per_sec=_img_per_s(out), log=vals,
+         launches=launches, launches_want=want, traces=traces, tensorboard_events=events)
+    check(launches == want, f"fit_dispatch launches {launches}, want {want}")
+    check(traces and all(n > 0 for n in traces.values()), f"trace files {traces}")
+    check(bool(events) == have_tensorboard, f"tensorboard events {events}")
+    return launches
+
+
+def _processes():
+    """{pid: (state, ppid, process group, command line)} of every process
+    /proc lists."""
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # it ended meanwhile
+            continue
+        state, ppid, pgrp = stat[stat.rindex(")") + 2:].split()[:3]
+        out[int(name)] = (state, int(ppid), int(pgrp), cmd)
+    return out
+
+
+def _started(at_start):
+    """Processes this run started that still run: its descendants, and
+    multiprocessing's processes in its process group whose parent ended
+    (adopted by init), which were not there at its start."""
+    procs = _processes()
+    children = {}
+    for pid, (_, ppid, _, _) in procs.items():
+        children.setdefault(ppid, []).append(pid)
+    found, todo = set(), [os.getpid()]
+    while todo:
+        for c in children.get(todo.pop(), []):
+            if c not in found:
+                found.add(c)
+                todo.append(c)
+    found |= {pid for pid, (_, _, pgrp, cmd) in procs.items()
+              if pgrp == os.getpgrp() and "multiprocessing" in cmd and pid not in at_start}
+    return {pid: procs[pid][3] for pid in sorted(found) if procs[pid][0] != "Z"}
+
+
+def phase_processes(at_start):
+    """Stop the worker loaders' server and resource tracker (waiting for
+    both), then end whatever else this run started and still runs (SIGTERM,
+    then SIGKILL after 10 s); returns what had to be ended."""
+    stop_worker_server()
+    left = _started(at_start)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in _started(at_start):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 10
+        while _started(at_start) and time.monotonic() < deadline:
+            time.sleep(0.1)
+    return left
+
+
 def main():
+    # before any cuBLAS call: dispatch_parity turns deterministic algorithms on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = phase_device()
+    at_start = set(_processes())
+    try:
+        raster = _run_phases()
+    finally:
+        left = phase_processes(at_start)
+    emit("processes", left_running=left)
+    check(not left, f"processes still running after the phases: {left}")
+    print(json.dumps({"kernels": [raster]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def _run_phases():
+    """Every phase after ``device``; returns the kernel summary."""
     phase_build()
     raster = phase_kernels()
     cfg = named_config("hg8_mpii")
@@ -1370,12 +1780,16 @@ def main():
     del state, step
     phase_joint_parity()
 
-    routes = phase_host()
+    dispatch_parity_launches = phase_dispatch_parity()
+    dispatch_launches = phase_dispatch(cfg)
+
+    routes, have_tensorboard = phase_host()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_loader(routes, workdir)
         fit_launches = phase_fit(workdir)
         fit_joint_launches = phase_fit_joint(workdir)
+        fit_dispatch_launches = phase_fit_dispatch(workdir, have_tensorboard)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1385,15 +1799,11 @@ def main():
                                   "joint": joint_launches["rasterize_gaussians"],
                                   "joint_lsp": lsp_launches["rasterize_gaussians"],
                                   "fit": fit_launches,
-                                  "fit_joint": fit_joint_launches}
-    print(json.dumps({"kernels": [raster]}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+                                  "fit_joint": fit_joint_launches,
+                                  "dispatch": dispatch_launches,
+                                  "dispatch_parity": dispatch_parity_launches,
+                                  "fit_dispatch": fit_dispatch_launches}
+    return raster
 
 
 if __name__ == "__main__":

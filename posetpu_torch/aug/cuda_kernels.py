@@ -3,12 +3,16 @@
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs,
 launches its kernel on PyTorch's current stream without synchronising,
 raises if the launch was refused, and adds one to its count in
-:data:`LAUNCHES`.  The kernels build from ``aug/kernels/*.cu`` at first use
-(:mod:`posetpu_torch.utils.cuda_build`); nothing here runs at import.
+:data:`LAUNCHES`.  A launch recorded into a CUDA graph is counted when the
+graph replays (:func:`counted_as_replays`, :func:`add_replay`), since the
+capture itself runs nothing.  The kernels build from ``aug/kernels/*.cu``
+at first use (:mod:`posetpu_torch.utils.cuda_build`); nothing here runs
+at import.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -31,6 +35,30 @@ LAUNCHES = {"rasterize_gaussians": 0}
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def counted_as_replays():
+    """Around a CUDA graph's capture, and nothing else (a warm-up before it
+    runs its kernels, and they count): the wrappers count the launches they
+    record, but a capture runs nothing, so the counts go back to what they
+    were on exit.  Yields a dict that holds, on exit, the launches the
+    capture recorded by kernel; :func:`add_replay` adds them back once per
+    replay."""
+    before = dict(LAUNCHES)
+    captured = {}
+    try:
+        yield captured
+    finally:
+        for name in LAUNCHES:
+            captured[name] = LAUNCHES[name] - before[name]
+            LAUNCHES[name] = before[name]
+
+
+def add_replay(captured):
+    """Count one replay of a graph that recorded ``captured`` launches."""
+    for name, n in captured.items():
+        LAUNCHES[name] += n
 
 
 @functools.cache

@@ -52,12 +52,17 @@ def pcg_hash(x):
 def keyed_bits(seed, step, index, stream, count, first=0):
     """(B, count) int64 tensor of 32-bit words on ``index``'s device.
 
-    ``seed``, ``step`` and ``stream`` are Python ints; ``index`` (B,) holds
-    the samples' global dataset indices.  Column ``j`` holds draw
-    ``first + j`` of sample ``i``, a hash of (seed, step, index[i], stream,
-    first + j) alone.
+    ``seed`` and ``stream`` are Python ints; ``step`` is a Python int or a
+    0-d int64 tensor on ``index``'s device (a train step inside a CUDA
+    graph reads it there: a Python int would be baked into the capture),
+    and both give the same words.  ``index`` (B,) holds the samples'
+    global dataset indices.  Column ``j`` holds draw ``first + j`` of
+    sample ``i``, a hash of (seed, step, index[i], stream, first + j)
+    alone.
     """
-    head = pcg_hash((int(step) + pcg_hash(int(seed) & _M32)) & _M32)
+    if not isinstance(step, torch.Tensor):
+        step = int(step)
+    head = pcg_hash((step + pcg_hash(int(seed) & _M32)) & _M32)
     index = torch.as_tensor(index).to(torch.int64)
     per_sample = pcg_hash((index + head) & _M32)
     per_stream = pcg_hash((per_sample + int(stream)) & _M32)

@@ -9,10 +9,12 @@ between TPU code paths are gone: the port has one warp path (``warp_table``
 had no other meaning), and the target rasterizer is chosen by the device of
 its inputs (``raster_backend``).  The network has one residual block per
 level (``blocks`` is always 1).  The agent's ``fused_step`` chose between
-XLA program layouts and has no counterpart.  ``remat``, ``scan_stacks``,
-``num_devices``, ``steps_per_dispatch``, the grain loader and TensorBoard
-come with the slices that read them; so do their flags, which
-:func:`add_overrides` does not define (argparse rejects them).
+XLA program layouts and has no counterpart.  ``remat``, ``scan_stacks``
+and ``num_devices`` come with the slices that read them; so do their
+flags, which :func:`add_overrides` does not define (argparse rejects
+them).  ``loader_backend="grain"`` selects the port's worker-process
+loader (:class:`posetpu_torch.data.WorkerLoader`), so a reference command
+line runs unchanged.
 """
 
 from __future__ import annotations
@@ -96,6 +98,11 @@ class ExperimentConfig:
     # reference reads pixels).
     pad_hw: Optional[Tuple[int, int]] = None
     batch_size: int = 6  # reference batch 6 per GPU
+    # "host": HostLoader (decode thread, C++ pool or Pillow); "grain":
+    # WorkerLoader (Pillow in worker processes), the reference's value for
+    # its multi-process loader.  The same batch contract.
+    loader_backend: str = "host"
+    loader_workers: int = 0  # worker processes of "grain" (0: in-process)
     # run
     checkpoint_dir: str = "checkpoints"  # reference --checkpoint
     resume: str = ""  # reference --resume: a checkpoint path, or "auto"
@@ -106,6 +113,9 @@ class ExperimentConfig:
     synthetic: bool = False  # build a synthetic mini-split on the fly
     steps_per_epoch: Optional[int] = None  # cap (smoke tests)
     eval_every: int = 1
+    # train steps per dispatch: K > 1 replays one CUDA graph of K steps
+    steps_per_dispatch: int = 1
+    tensorboard: bool = False  # scalars under <checkpoint>/<name>/tb
 
 
 NAMED_CONFIGS = {
@@ -168,6 +178,9 @@ _FLAGS = {
     "--occ-nodes": ("agent.occ_nodes", int),
     "--agent-update-every": ("agent.update_every", int),
     "--pose-ref-weight": ("agent.pose_ref_weight", float),
+    "--loader-backend": ("loader_backend", str),  # host | grain
+    "--loader-workers": ("loader_workers", int),
+    "--steps-per-dispatch": ("steps_per_dispatch", int),
 }
 
 
@@ -177,6 +190,7 @@ def add_overrides(parser: argparse.ArgumentParser):
         parser.add_argument(flag, type=typ, default=None)
     parser.add_argument("--schedule", type=int, nargs="*", default=None)
     parser.add_argument("--synthetic", action="store_true", default=None)
+    parser.add_argument("--tensorboard", action="store_true", default=None)
     parser.add_argument("--no-color-jitter", action="store_true", default=None)
     return parser
 
@@ -195,6 +209,8 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
         cfg.optim.schedule = tuple(args.schedule)
     if getattr(args, "synthetic", None):
         cfg.synthetic = True
+    if getattr(args, "tensorboard", None):
+        cfg.tensorboard = True
     if getattr(args, "no_color_jitter", None):
         cfg.aug.color_jitter = False
     return cfg

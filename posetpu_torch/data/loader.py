@@ -1,6 +1,7 @@
 """Decode-only host loader — the port's own copy of
 ``posetpu/data/loader.py`` (``load_sample``, ``pad_batch``,
-``threaded_place_iter``, ``HostLoader``), with a CUDA batch placer.
+``group_stack``, ``threaded_place_iter``, ``HostLoader``), with a CUDA
+batch placer.
 
 The host does the one thing the device does not: variable-size JPEG
 decode.  Warp, jitter and targets run on the device
@@ -36,8 +37,9 @@ def _decode(path):
     return np.asarray(Image.open(path).convert("RGB"), np.uint8)
 
 
-def load_sample(dataset, i, pad_hw):
-    """Decode sample ``i`` and fit it into a (pad_h, pad_w) canvas.
+def load_sample(dataset, i, pad_hw, out=None):
+    """Decode sample ``i`` and fit it into a (pad_h, pad_w) canvas
+    (``out``, a (pad_h, pad_w, 3) uint8 array to fill, or a new one).
 
     Returns a dict of numpy arrays (image, valid_wh, center, scale, pts,
     vis, index, offset).  Images stay uint8 on the host; the device
@@ -61,7 +63,12 @@ def load_sample(dataset, i, pad_hw):
         off_x = min(max(int(c[0] + 0.5) - pad_w // 2, 0), max(W - pad_w, 0))
         img = img[off_y : off_y + pad_h, off_x : off_x + pad_w]
         H, W = img.shape[:2]
-    canvas = np.zeros((pad_h, pad_w, 3), np.uint8)
+    if out is None:
+        canvas = np.zeros((pad_h, pad_w, 3), np.uint8)
+    else:
+        canvas = out
+        canvas[H:] = 0
+        canvas[:H, W:] = 0
     canvas[:H, :W] = img
     return {
         "image": canvas,
@@ -108,14 +115,53 @@ def pad_batch(batch, size):
     return out
 
 
+def group_stack(src_iter, group, host_image=None):
+    """Stack every ``group`` consecutive batches into one superbatch whose
+    fields carry a leading (K, ...) group dim: the input of K train steps
+    in one dispatch (:func:`posetpu_torch.train.step.make_dispatch_step`).
+    The last group of an epoch may be smaller (K' < group).  With
+    ``host_image(shape)`` (a placer's pinned allocator) the images are
+    stacked into the tensor it returns, so the copy to the device reads
+    pinned memory."""
+    buf = []
+
+    def stack(items):
+        out = {}
+        for k in items[0]:
+            parts = [np.asarray(it[k]) for it in items]
+            if k == "image" and host_image is not None:
+                out[k] = host_image((len(items), *parts[0].shape))
+                np.stack(parts, out=out[k].numpy())
+            else:
+                out[k] = np.stack(parts)
+        return out
+
+    for b in src_iter:
+        buf.append(b)
+        if len(buf) == group:
+            yield stack(buf)
+            buf = []
+    if buf:
+        yield stack(buf)
+
+
+# seconds an early exit waits for the producer thread to stop: the batch it
+# is making (a batch of 32 MPII frames decodes in under 1 s) or a worker
+# loader's own timeout (worker_loader.WORKER_TIMEOUT), with room to spare
+JOIN_TIMEOUT = 300.0
+
+
 def threaded_place_iter(src_iter, place, prefetch=2):
     """Drive ``src_iter`` from a background thread and apply ``place``
     (the copy to the device) there, so decode, collate and the copy overlap
     the training step.  The queue is abandon-safe: a consumer that exits
     early (a ``steps_per_epoch`` cap, a test's ``break``, the generator's
-    collection) releases the producer thread and drops the prefetched
-    batches, which with ``place`` hold device memory.  An exception in the
-    producer is raised in the consumer."""
+    collection) stops the producer, waits for it to close ``src_iter``
+    (which releases what the source holds, such as worker processes) and
+    drops the prefetched batches, which with ``place`` hold device memory.
+    The wait is the batch the producer is making, and at most
+    ``JOIN_TIMEOUT`` seconds: a producer stuck longer (a hung source)
+    raises.  An exception in the producer is raised in the consumer."""
     q = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
@@ -136,8 +182,13 @@ def threaded_place_iter(src_iter, place, prefetch=2):
             _put(None)
         except BaseException as e:
             _put(e)
+        finally:
+            close = getattr(src_iter, "close", None)
+            if close is not None:
+                close()
 
-    threading.Thread(target=produce, daemon=True).start()
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
     try:
         while True:
             item = q.get()
@@ -148,6 +199,7 @@ def threaded_place_iter(src_iter, place, prefetch=2):
             yield item
     finally:
         stop.set()
+        producer.join(JOIN_TIMEOUT)
         try:
             while True:
                 q.get_nowait()
@@ -156,6 +208,9 @@ def threaded_place_iter(src_iter, place, prefetch=2):
             # shutdown artifact (stdlib queue's own `raise Empty` breaks
             # once module globals are cleared): the drain is best-effort
             pass
+        if producer.is_alive():
+            raise RuntimeError(f"the loader's producer thread did not stop within "
+                               f"{JOIN_TIMEOUT:.0f} s of an early exit (a hung source?)")
 
 
 class _CpuPlacer:
@@ -252,6 +307,11 @@ class HostLoader:
     into the (pinned) tensor it returns, and one with ``ready(placed)`` has
     it called on each placed batch in the consuming thread before the batch
     is yielded.
+
+    ``group``: None (the default) yields (B, ...) batches; an int K >= 1
+    stacks every K batches into one (K, B, ...) superbatch
+    (:func:`group_stack`) before ``place``, K = 1 included, and the images
+    then go into the placer's pinned buffer at the stacking.
     """
 
     def __init__(
@@ -265,6 +325,7 @@ class HostLoader:
         prefetch=2,
         backend="auto",
         place=None,
+        group=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -274,6 +335,9 @@ class HostLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.place = place
+        if group is not None and group < 1:
+            raise ValueError(f"group must be None or >= 1, got {group}")
+        self.group = group
         self.epoch = 0
         self._decoder = None
         if backend not in ("auto", "native", "pil"):
@@ -288,10 +352,15 @@ class HostLoader:
                     raise
         self.backend = "native" if self._decoder is not None else "pil"
 
+    def _host_image(self):
+        return getattr(self.place, "host_image", None)
+
     def _image_buffer(self, n):
-        """(host array to decode into, what the batch carries as "image")."""
+        """(host array to decode into, what the batch carries as "image").
+        Grouped batches decode into plain memory: their group is stacked
+        into the pinned buffer."""
         shape = (n, *self.pad_hw, 3)
-        alloc = getattr(self.place, "host_image", None)
+        alloc = self._host_image() if self.group is None else None
         if alloc is None:
             arr = np.empty(shape, np.uint8)
             return arr, arr
@@ -374,11 +443,14 @@ class HostLoader:
     def __iter__(self):
         order = self._order()
         self.epoch += 1
+        src = self._batches(order)
+        if self.group is not None:
+            src = group_stack(src, self.group, host_image=self._host_image())
         place = self.place if self.place is not None else (lambda b: b)
         ready = getattr(self.place, "ready", None)
-        # decode, collate and the copy run in the producer thread; the
-        # consumer only orders its stream after each ready batch
-        it = threaded_place_iter(self._batches(order), place, prefetch=self.prefetch)
+        # decode, collate, stacking and the copy run in the producer
+        # thread; the consumer only orders its stream after each ready batch
+        it = threaded_place_iter(src, place, prefetch=self.prefetch)
         try:
             for item in it:
                 yield item if ready is None else ready(item)

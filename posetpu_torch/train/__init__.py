@@ -1,5 +1,5 @@
-"""Loss, train, validation and joint adversarial steps, train state and
-optimizer."""
+"""Loss, train, validation and joint adversarial steps, K train steps per
+dispatch (a CUDA graph on the card), train state and optimizer."""
 
 from posetpu_torch.train.adversarial import (
     JointState,
@@ -15,7 +15,9 @@ from posetpu_torch.train.state import (
     make_optimizer,
 )
 from posetpu_torch.train.step import (
+    make_dispatch_step,
     make_eval_step,
+    make_train_body,
     make_train_step,
     per_sample_stacked_mse,
     stacked_mse,
@@ -30,7 +32,9 @@ __all__ = [
     "TrainState",
     "lr_schedule",
     "make_optimizer",
+    "make_dispatch_step",
     "make_eval_step",
+    "make_train_body",
     "make_train_step",
     "per_sample_stacked_mse",
     "stacked_mse",

@@ -3,10 +3,16 @@
 
 It builds the data, the network (and the agent), the optimizers and the
 steps from an ExperimentConfig, then runs epochs of train and validate,
-logs the reference's txt columns, checkpoints (best on validation
+logs the reference's txt columns (and, with ``cfg.tensorboard``, the
+reference's TensorBoard scalars), checkpoints (best on validation
 improvement), resumes, and writes the validation predictions
-(``preds.mat``).  Data parallelism, steps per dispatch and TensorBoard wait
-for their slices.
+(``preds.mat``).  ``cfg.loader_backend`` picks the loader ("host":
+:class:`HostLoader`; "grain": :class:`WorkerLoader`, decode in
+``cfg.loader_workers`` processes).  The pose-only train step runs
+``cfg.steps_per_dispatch`` = K steps a dispatch
+(:func:`posetpu_torch.train.step.make_dispatch_step`), on CUDA as one
+CUDA graph, K = 1 included; the joint (agent) step runs eagerly, one step
+a batch.  Data parallelism waits for its slice.
 """
 
 from __future__ import annotations
@@ -28,12 +34,13 @@ from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.data.datasets import LspDataset, MpiiDataset
 from posetpu_torch.data.loader import HostLoader, make_batch_placer, pad_batch
 from posetpu_torch.data.synthetic import make_synthetic_dataset
+from posetpu_torch.data.worker_loader import WorkerLoader
 from posetpu_torch.eval.decode import pck_from_counts
 from posetpu_torch.eval.export import save_preds
 from posetpu_torch.models import hg
 from posetpu_torch.train.adversarial import JointState, agent_from_config, make_joint_step
 from posetpu_torch.train.state import TrainState, make_optimizer
-from posetpu_torch.train.step import make_eval_step, make_train_step
+from posetpu_torch.train.step import make_dispatch_step, make_eval_step
 from posetpu_torch.utils.device import resolve_device
 from posetpu_torch.utils.logger import AverageMeter, Logger
 
@@ -69,24 +76,42 @@ def build_dataset(cfg, split="train"):
     return cls(cfg.annotations, cfg.images_dir, split=split)
 
 
+# the standard deviation of a unit normal truncated to [-2, 2], by which
+# jax.nn.initializers.variance_scaling divides its std
+_TRUNC_STD = 0.87962566103423978
+
+
 def seeded_init_(module, seed):
     """Draw every conv and linear layer's weights afresh from an explicit
-    ``torch.Generator`` seeded with ``seed``, by torch's own default rule
-    (kaiming-uniform with a = sqrt(5); bias uniform in +-1/sqrt(fan_in)),
-    in module order.  BatchNorm keeps its unit scale and zero shift."""
+    ``torch.Generator`` seeded with ``seed``, by flax's default rule
+    (``jax.nn.initializers.lecun_normal()``: a normal of variance
+    1/fan_in truncated at two standard deviations, its std divided by
+    ``_TRUNC_STD`` so the cut keeps the variance), in module order.
+    ``fan_in`` is in_channels/groups * kh * kw for a conv and in_features
+    for a linear layer.  Every bias is zero; BatchNorm keeps its unit scale
+    and zero shift."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
                 w = torch.empty(m.weight.shape)
-                nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=g)
+                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
                 m.weight.copy_(w)
                 if m.bias is not None:
-                    fan_in = m.weight[0].numel()
-                    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
-                    m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound,
-                                                                    generator=g))
+                    m.bias.zero_()
     return module
+
+
+def loader_class(cfg):
+    """(loader class, its extra arguments) for ``cfg.loader_backend``: the
+    reference's values, "host" or "grain"."""
+    if cfg.loader_backend == "grain":
+        return WorkerLoader, {"num_workers": cfg.loader_workers}
+    if cfg.loader_backend == "host":
+        return HostLoader, {}
+    raise ValueError(f"unknown loader_backend {cfg.loader_backend!r} "
+                     "(expected 'host' or 'grain')")
 
 
 class Experiment:
@@ -100,23 +125,33 @@ class Experiment:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.eval_only = eval_only
+        self.K = max(1, int(cfg.steps_per_dispatch))
+        if self.K > 1 and cfg.agent.enabled:
+            raise ValueError(
+                "steps_per_dispatch > 1 needs a graphed train step; the joint "
+                "(agent) step has no CUDA graph yet (one per update_every "
+                "branch is later work): keep steps_per_dispatch=1"
+            )
+        loader_cls, loader_kw = loader_class(cfg)
         self.train_ds = build_dataset(cfg, "train")
         self.val_ds = build_dataset(cfg, "valid")
         self.mean, self.std = self.train_ds.mean_std()
         self.std = None  # the reference normalizes by mean subtraction only
         self._check_pad_hw()
 
-        self.loader = HostLoader(
+        self.loader = loader_cls(
             self.train_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), seed=cfg.seed,
             # decode into pinned memory and copy on a stream of its own while
-            # the previous step runs
+            # the previous step runs; K batches stacked per dispatch of the
+            # pose-only step, single batches for the joint step
             place=make_batch_placer(self.device),
+            group=None if cfg.agent.enabled else self.K, **loader_kw,
         )
         # validation batches stay on the host: pad_batch pads the ragged
         # last batch in numpy before the eval step copies it
-        self.val_loader = HostLoader(
+        self.val_loader = loader_cls(
             self.val_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), shuffle=False,
-            drop_last=False,
+            drop_last=False, **loader_kw,
         )
         self.steps_per_epoch = cfg.steps_per_epoch or len(self.loader)
 
@@ -140,9 +175,9 @@ class Experiment:
             )
         else:
             self.state = pose_state
-            self.train_step = make_train_step(
+            self.train_step = make_dispatch_step(
                 self.model, opt, cfg.aug, self.mean, self.std, seed=cfg.seed,
-                device=self.device,
+                steps=self.K, device=self.device,
             )
         self.eval_step = make_eval_step(self.model, cfg.aug, self.mean, self.std,
                                         device=self.device)
@@ -156,6 +191,15 @@ class Experiment:
             # reproducibility: the exact resolved config next to the log
             with open(os.path.join(run_dir, "config.json"), "w") as f:
                 json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        self.tb = None
+        if cfg.tensorboard and not eval_only:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                raise ImportError("--tensorboard writes through "
+                                  "torch.utils.tensorboard, which needs the "
+                                  "tensorboard package; it is not installed") from e
+            self.tb = SummaryWriter(os.path.join(run_dir, "tb"))
         self.start_epoch = 0
         self.best_acc = 0.0
         if cfg.init_pose_from:
@@ -164,8 +208,10 @@ class Experiment:
             self._resume(cfg.resume)
 
     def close(self):
-        """Close the log file."""
+        """Close the log file and the TensorBoard writer."""
         self.logger.close()
+        if self.tb is not None:
+            self.tb.close()
 
     def _worst_case_box(self):
         """Side of the largest person's worst-case crop-source footprint:
@@ -238,24 +284,53 @@ class Experiment:
         # from the restored step.
         self.start_epoch = last_epoch + 1
 
+    def _train_states(self):
+        st = self.state
+        return [st.pose, st.agent] if hasattr(st, "pose") else [st]
+
+    def snapshot(self):
+        """A copy of everything a train epoch changes: each train state's
+        (:meth:`TrainState.snapshot`), the joint step count and the
+        loader's epoch."""
+        return ([ts.snapshot() for ts in self._train_states()], self.state.step,
+                self.loader.epoch)
+
+    def restore(self, snap):
+        """Put a :meth:`snapshot` back, the tensors *in place*
+        (:meth:`TrainState.restore_`)."""
+        saved, step, epoch = snap
+        for ts, s in zip(self._train_states(), saved, strict=True):
+            ts.restore_(s)
+        self.state.step = step
+        self.loader.epoch = epoch
+
     # ---- epoch loops ----
 
     def train_epoch(self, epoch):
-        """One epoch (at most ``steps_per_epoch`` steps).  Every step's
-        metrics stay device tensors and are read once at the end: a read per
-        step would wait for the device and stall the enqueue."""
+        """One epoch (at most ``steps_per_epoch`` steps).  For the pose-only
+        step each loader item is a (k, B, ...) superbatch of k <= K steps,
+        the last one trimmed where it would cross the cap, and its metrics
+        come back as (k,) tensors; for the joint step an item is one batch.
+        Every step's metrics stay device tensors and are read once at the
+        end: a read per step would wait for the device and stall the
+        enqueue."""
         device_metrics = []
         t0 = time.time()
-        seen = 0
+        seen = steps = 0
         for batch in self.loader:
+            k = 1 if self.loader.group is None else batch["index"].shape[0]
+            if steps + k > self.steps_per_epoch:  # only a group can cross it
+                k = self.steps_per_epoch - steps
+                batch = {n: v[:k] for n, v in batch.items()}
             device_metrics.append(self.train_step(self.state, batch))
-            seen += batch["image"].shape[0]
-            if len(device_metrics) >= self.steps_per_epoch:
+            seen += k * batch["index"].shape[-1]
+            steps += k
+            if steps >= self.steps_per_epoch:
                 break
         out = {}
         if device_metrics:
             # one read of every metric: also the honest end-of-epoch barrier
-            stacked = {k: torch.stack([m[k].float() for m in device_metrics]).cpu()
+            stacked = {k: torch.cat([m[k].float().reshape(-1) for m in device_metrics]).cpu()
                        for k in device_metrics[0]}
             for k, v in stacked.items():
                 meter = AverageMeter()
@@ -264,7 +339,7 @@ class Experiment:
                 out[k] = meter.avg
         dt = time.time() - t0
         out["images_per_sec"] = seen / dt if dt > 0 else 0.0
-        out["steps"] = len(device_metrics)
+        out["steps"] = steps
         return out
 
     @torch.no_grad()
@@ -324,6 +399,8 @@ class Experiment:
             self.best_acc = max(self.best_acc, va["acc"])
             self.logger.append([epoch, self.current_lr(epoch), tr["loss"], va["loss"],
                                 tr["acc"], va["acc"]])
+            if self.tb is not None:
+                self._write_scalars(epoch, tr, va if preds is not None else None)
             self.ckpt.save(self.state, epoch, self.best_acc, is_best=is_best)
             if is_best and preds is not None:
                 save_preds(preds, os.path.join(run_dir, "preds.mat"))
@@ -338,4 +415,21 @@ class Experiment:
             self.logger.plot()
         except Exception as e:  # plotting must never kill a finished run
             progress(f"[posetpu_torch] log plot failed: {e}")
+        if self.tb is not None:
+            self.tb.flush()
         return self.state, self.best_acc
+
+    def _write_scalars(self, epoch, tr, va):
+        """The reference's TensorBoard scalars of one epoch, at step
+        ``epoch``; ``va`` None when no validation ran."""
+        scalars = {"train/loss": tr["loss"], "train/acc": tr["acc"],
+                   "train/images_per_sec": tr["images_per_sec"],
+                   "lr": self.current_lr(epoch)}
+        for k in ("agent_loss", "advantage", "entropy"):
+            if k in tr:
+                scalars[f"train/{k}"] = tr[k]
+        if va is not None:
+            scalars["val/loss"] = va["loss"]
+            scalars["val/acc"] = va["acc"]
+        for name, v in scalars.items():
+            self.tb.add_scalar(name, v, epoch)

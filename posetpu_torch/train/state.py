@@ -30,11 +30,42 @@ class TrainState:
     """What a train step reads and advances: the model (parameters and
     BatchNorm statistics), its optimizer (RMSprop moments and the update
     count) and the number of train steps taken, which keys the
-    augmentation draws."""
+    augmentation draws.  ``step`` and the optimizer's ``count`` are Python
+    ints, the record that checkpoints save; a graphed dispatch
+    (:func:`posetpu_torch.train.step.make_dispatch_step`) mirrors them in
+    device tensors and advances the ints by the steps each replay ran."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+    def tensors(self):
+        """Every tensor a train step updates in place, in a fixed order:
+        parameters, buffers (BatchNorm statistics) and the optimizer's
+        moments, which are made first (zero) where no update has made them
+        yet, so the list is the same before and after a step."""
+        self.optimizer.init_moments()
+        out = list(self.model.parameters()) + list(self.model.buffers())
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                st = self.optimizer.state[p]
+                out += [st[k] for k in sorted(st)]
+        return out
+
+    def snapshot(self):
+        """(clones of :meth:`tensors`, the optimizer's count, ``step``)."""
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in self.tensors()]
+        return saved, self.optimizer.count, self.step
+
+    def restore_(self, snap):
+        """Put a :meth:`snapshot` back *in place* (``copy_``): a captured
+        CUDA graph holds the addresses of these tensors."""
+        saved, count, step = snap
+        with torch.no_grad():
+            for t, v in zip(self.tensors(), saved, strict=True):
+                t.copy_(v)
+        self.optimizer.count, self.step = count, step
 
 
 def lr_schedule(optim_cfg, steps_per_epoch):
@@ -43,18 +74,32 @@ def lr_schedule(optim_cfg, steps_per_epoch):
     epoch in ``schedule``, over optimizer updates
     (``int(e) * steps_per_epoch``).
 
-    Returns ``count -> lr`` as a Python float holding the float32 value
-    optax's ``piecewise_constant_schedule`` computes, rounding for rounding:
+    Returns ``count -> lr``, the float32 value optax's
+    ``piecewise_constant_schedule`` computes, rounding for rounding:
     ``v = v*ind + (1-ind)*scale*v`` with ``ind = max(0, sign(b - count))``.
+    For a Python int ``count`` the value is a Python float; for a 0-d int64
+    tensor it is a 0-d float32 tensor on the count's device, computed there
+    by the same float32 operations (a train step inside a CUDA graph reads
+    its count on the device).
     """
-    boundaries = {
-        int(e) * steps_per_epoch: optim_cfg.gamma for e in optim_cfg.schedule
-    }
+    boundaries = sorted(
+        {int(e) * steps_per_epoch: optim_cfg.gamma for e in optim_cfg.schedule}.items()
+    )
     f32 = np.float32
 
+    def on_device(count):
+        v = torch.full((), float(f32(optim_cfg.lr)), dtype=torch.float32,
+                       device=count.device)
+        for threshold, scale in boundaries:
+            ind = torch.clamp(torch.sign(threshold - count), min=0).to(torch.float32)
+            v = v * ind + ((1.0 - ind) * float(f32(scale))) * v
+        return v
+
     def schedule(count):
+        if isinstance(count, torch.Tensor):
+            return on_device(count)
         v = f32(optim_cfg.lr)
-        for threshold, scale in sorted(boundaries.items()):
+        for threshold, scale in boundaries:
             ind = f32(max(0.0, float(np.sign(threshold - int(count)))))
             v = f32(v * ind) + f32(f32(f32(1.0) - ind) * f32(scale)) * v
         return float(v)
@@ -88,11 +133,33 @@ class OptaxRMSprop(torch.optim.Optimizer):
             st["trace"] = torch.zeros_like(p, memory_format=torch.preserve_format)
         return st
 
+    def init_moments(self):
+        """Make every parameter's zero moments now (they are otherwise made
+        at its first update): a CUDA graph's capture needs them to exist
+        at fixed addresses before it starts."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._moments(p, group["momentum"])
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("OptaxRMSprop takes no closure")
-        neg_lr = -self.schedule(self.count)
+        self._update(-self.schedule(self.count))
+        self.count += 1
+
+    @torch.no_grad()
+    def step_at(self, count):
+        """One update with the schedule read at ``count``, a 0-d int64
+        tensor on the parameters' device, which then advances by one in
+        place: the update a CUDA graph can replay.  ``self.count``, the
+        host's record, is the caller's to advance."""
+        self._update(-self.schedule(count))
+        count.add_(1)
+
+    def _update(self, neg_lr):
+        """optax's update with ``neg_lr`` = -lr (a float, or a 0-d float32
+        tensor on the parameters' device)."""
         for group in self.param_groups:
             d, mu, wd = group["decay"], group["momentum"], group["weight_decay"]
             params = [p for p in group["params"] if p.grad is not None]
@@ -117,7 +184,6 @@ class OptaxRMSprop(torch.optim.Optimizer):
                 torch._foreach_add_(traces, upd)
                 upd = traces
             torch._foreach_add_(params, upd)
-        self.count += 1
 
     def load_carried(self, model, carried):
         """Take optimizer state carried from optax

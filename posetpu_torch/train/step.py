@@ -3,15 +3,42 @@
 ``make_train_step``, ``make_eval_step``).
 
 The port's network returns (B, K, H, W) heatmaps, so the losses take
-targets in that layout (the reference's take NHWC).  ``axis_name`` (data
-parallelism), ``fuse_steps`` (K steps per XLA dispatch) and remat wait for
-their slices.
+targets in that layout (the reference's take NHWC).
+
+:func:`make_dispatch_step` is the counterpart of ``fuse_steps``: K train
+steps in one dispatch, on CUDA as one captured ``torch.cuda.CUDAGraph``.
+Its body (:func:`make_train_body`) is ``make_train_step``'s math with the
+train step's ``step`` and the optimizer's update ``count`` held in device
+tensors (:class:`DeviceCounters`), since a capture would bake Python values
+in.  The rules of the graph:
+
+- the Python ints in ``TrainState.step`` and ``OptaxRMSprop.count`` stay
+  the record (checkpoints save them); the device counters are set from
+  them before every dispatch and advance inside the graph, and the host
+  advances the ints by K after each replay, without a sync;
+- the capture is made at the first full dispatch, after any state load
+  (``--resume``, ``--init-pose-from``), and again whenever a parameter,
+  buffer or moment tensor has been replaced since (``load_state_dict`` of
+  an optimizer replaces its moments);
+- the side-stream warm-up before a capture applies real updates, so the
+  parameters, buffers and moments are saved first and put back *in place*
+  after it (:meth:`TrainState.snapshot
+  <posetpu_torch.train.state.TrainState.snapshot>`, ``restore_``; the
+  graph holds their addresses); its kernel launches ran and count, while
+  the capture's count once per replay;
+- anything that loads state into a captured step's tensors loads it in
+  place (``copy_``).
+
+``axis_name`` (data parallelism) and remat wait for their slices.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from posetpu_torch.aug import cuda_kernels
 from posetpu_torch.aug.color import sample_jitter_scales
 from posetpu_torch.aug.pipeline import (
     augment_batch,
@@ -57,6 +84,52 @@ def _normalization(mean, std, dev):
     return mean_t, std_t
 
 
+def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev):
+    """``run(step, batch, update) -> metrics``: one train step's math with
+    the draws keyed on ``step`` (an int or a 0-d device tensor) and
+    ``update()`` applying the optimizer."""
+    model.to(dev)
+    mean_t, std_t = _normalization(mean, std, dev)
+
+    def run(step, batch, update):
+        b = _to_device(batch, dev)
+        # module-level names: tests substitute the reference's draws
+        params = sample_aug_params_ps(
+            seed, step, b["index"],
+            scale_factor=aug_cfg.scale_factor, rot_factor=aug_cfg.rot_factor,
+            rot_prob=aug_cfg.rot_prob, flip_prob=aug_cfg.flip_prob,
+            scale_mode=aug_cfg.scale_mode,
+        )
+        jitter = (sample_jitter_scales(seed, step, b["index"])
+                  if aug_cfg.color_jitter else None)
+        with torch.no_grad():
+            aug = augment_batch(
+                b["image"], b["valid_wh"], b["center"], b["scale"],
+                b["pts"], b["vis"], params,
+                inp_res=tuple(aug_cfg.inp_res), out_res=tuple(aug_cfg.out_res),
+                sigma=aug_cfg.sigma, mean=mean_t, std=std_t,
+                dataset=aug_cfg.dataset, jitter_scales=jitter, device=dev,
+            )
+        model.train()
+        outs = model(aug["input"])
+        loss = stacked_mse(
+            outs, aug["target"], aug["target_weight"] if mask_loss else None
+        )
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        update()
+        hit, cnt = pck_counts(outs[-1].detach(), aug["target"])
+        return {"loss": loss.detach(), "acc": pck_from_counts(hit, cnt)[0]}
+
+    return run
+
+
+def _check_state(state, model, optimizer):
+    if state.model is not model or state.optimizer is not optimizer:
+        raise ValueError("the state holds another model or optimizer "
+                         "than this train step was built for")
+
+
 def make_train_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
                     mask_loss=False, device="cuda"):
     """Build the baseline train step (no agent): draw augmentation, augment
@@ -78,45 +151,162 @@ def make_train_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     The model moves to ``device`` (default CUDA; raises without it unless
     ``device="cpu"``).
     """
-    dev = resolve_device(device)
-    model.to(dev)
-    mean_t, std_t = _normalization(mean, std, dev)
+    run = _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss,
+                      resolve_device(device))
 
     def train_step(state, batch):
-        if state.model is not model or state.optimizer is not optimizer:
-            raise ValueError("the state holds another model or optimizer "
-                             "than this train step was built for")
-        b = _to_device(batch, dev)
-        # module-level names: tests substitute the reference's draws
-        params = sample_aug_params_ps(
-            seed, state.step, b["index"],
-            scale_factor=aug_cfg.scale_factor, rot_factor=aug_cfg.rot_factor,
-            rot_prob=aug_cfg.rot_prob, flip_prob=aug_cfg.flip_prob,
-            scale_mode=aug_cfg.scale_mode,
-        )
-        jitter = (sample_jitter_scales(seed, state.step, b["index"])
-                  if aug_cfg.color_jitter else None)
-        with torch.no_grad():
-            aug = augment_batch(
-                b["image"], b["valid_wh"], b["center"], b["scale"],
-                b["pts"], b["vis"], params,
-                inp_res=tuple(aug_cfg.inp_res), out_res=tuple(aug_cfg.out_res),
-                sigma=aug_cfg.sigma, mean=mean_t, std=std_t,
-                dataset=aug_cfg.dataset, jitter_scales=jitter, device=dev,
-            )
-        model.train()
-        outs = model(aug["input"])
-        loss = stacked_mse(
-            outs, aug["target"], aug["target_weight"] if mask_loss else None
-        )
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        hit, cnt = pck_counts(outs[-1].detach(), aug["target"])
+        _check_state(state, model, optimizer)
+        metrics = run(state.step, batch, optimizer.step)
         state.step += 1
-        return {"loss": loss.detach(), "acc": pck_from_counts(hit, cnt)[0]}
+        return metrics
 
     return train_step
+
+
+class DeviceCounters:
+    """A train state's ``step`` and its optimizer's update ``count`` as 0-d
+    int64 tensors on ``device``, for a step that a CUDA graph replays."""
+
+    def __init__(self, device):
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+
+    def load(self, state):
+        """Set both from the state's ints (two fills, no sync)."""
+        self.step.fill_(int(state.step))
+        self.count.fill_(int(state.optimizer.count))
+
+
+def make_train_body(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
+                    mask_loss=False, device="cuda"):
+    """:func:`make_train_step`'s math with its counters on the device:
+    ``body(counters, batch) -> metrics`` keys the draws on
+    ``counters.step``, reads the schedule at ``counters.count``
+    (:meth:`OptaxRMSprop.step_at
+    <posetpu_torch.train.state.OptaxRMSprop.step_at>`) and advances both
+    by one in place.  It syncs with the host nowhere, so a CUDA graph can
+    capture it.  The state's Python ints are the caller's to advance.
+    Draws, updates and metrics equal ``make_train_step``'s exactly."""
+    run = _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss,
+                      resolve_device(device))
+
+    def body(counters, batch):
+        metrics = run(counters.step, batch, lambda: optimizer.step_at(counters.count))
+        counters.step.add_(1)
+        return metrics
+
+    return body
+
+
+# body steps run on a side stream before a capture (cuBLAS and cuDNN
+# handles, the kernel's library, lazily made constants); their updates are
+# undone, and their kernel launches count as the launches they are
+WARMUP_STEPS = 2
+
+
+class GraphedSteps:
+    """``dispatch(state, superbatch) -> metrics``: K train steps over a
+    (K, B, ...) superbatch in one dispatch, each metric a (K,) tensor
+    (:func:`make_dispatch_step`)."""
+
+    def __init__(self, body, model, optimizer, steps, dev):
+        self.body, self.model, self.optimizer = body, model, optimizer
+        self.steps, self.dev = steps, dev
+        self.counters = DeviceCounters(dev)
+        self.graph = None
+        self.captures = 0  # captures made (one per state load)
+        self.capture_seconds = []
+
+    def __call__(self, state, superbatch):
+        _check_state(state, self.model, self.optimizer)
+        b = _to_device(superbatch, self.dev)
+        k = b["image"].shape[0]
+        if not 1 <= k <= self.steps:
+            raise ValueError(f"a superbatch of {k} steps for a dispatch of {self.steps}")
+        self.counters.load(state)
+        if self.dev.type == "cuda" and k == self.steps:
+            out = self._replay(state, b)
+        else:
+            # the CPU route, and the short last group of an epoch: the
+            # same body, eagerly
+            ms = [self.body(self.counters, {n: v[i] for n, v in b.items()})
+                  for i in range(k)]
+            out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
+        state.step += k
+        self.optimizer.count += k
+        return out
+
+    def _replay(self, state, b):
+        ptrs = [t.data_ptr() for t in state.tensors()]
+        if self.graph is None or ptrs != self._captured_ptrs:
+            self._capture(state, b)
+        for n, v in b.items():
+            self.static_in[n].copy_(v)
+        self.graph.replay()
+        cuda_kernels.add_replay(self.captured)
+        # the next replay writes the same outputs
+        return {n: v.clone() for n, v in self.static_out.items()}
+
+    def _capture(self, state, b):
+        t0 = time.perf_counter()
+        self.graph = None
+        saved = state.snapshot()
+        self.static_in = {n: v.clone() for n, v in b.items()}
+        cur = torch.cuda.current_stream(self.dev)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for i in range(WARMUP_STEPS):
+                self.body(self.counters,
+                          {n: v[i % self.steps] for n, v in self.static_in.items()})
+        cur.wait_stream(side)
+        state.restore_(saved)
+        self.counters.load(state)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's prefetch thread goes on pinning and
+        # copying on its own stream while this thread captures
+        with cuda_kernels.counted_as_replays() as captured:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                ms = [self.body(self.counters, {n: v[i] for n, v in self.static_in.items()})
+                      for i in range(self.steps)]
+                self.static_out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
+        self.graph, self.captured = graph, captured
+        self._captured_ptrs = [t.data_ptr() for t in state.tensors()]
+        self.captures += 1
+        torch.cuda.synchronize(self.dev)
+        self.capture_seconds.append(time.perf_counter() - t0)
+
+
+def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
+                       mask_loss=False, steps=2, device="cuda"):
+    """K = ``steps`` train steps per dispatch — the counterpart of
+    ``fuse_steps`` with ``HostLoader(group=K)``.
+
+    Returns a :class:`GraphedSteps` ``dispatch(state, superbatch) ->
+    metrics``: every ``superbatch`` field carries a leading (k, ...) dim
+    (k <= K stacked loader batches, :func:`posetpu_torch.data.group_stack`),
+    each metric comes back as a (k,) device tensor, and ``state.step`` and
+    the optimizer's ``count`` advance by k.  K steps equal K
+    :func:`make_train_step` calls on the same batches exactly.
+
+    On CUDA a full superbatch runs as one ``torch.cuda.CUDAGraph`` of K
+    :func:`make_train_body` steps over a static (K, B, ...) buffer: the
+    superbatch is copied into it on the current stream, the graph replays,
+    the rasterizer's launches are counted once per replay
+    (:func:`posetpu_torch.aug.cuda_kernels.add_replay`).  The capture is
+    made at the first full dispatch and after every state load (module
+    docstring); a capture or replay that fails raises, and nothing falls
+    back to eager steps.  A short superbatch (an epoch's last group) runs
+    as eager body steps.  On the CPU every dispatch runs the body k times
+    eagerly.
+    """
+    dev = resolve_device(device)
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    body = make_train_body(model, optimizer, aug_cfg, mean, std, seed=seed,
+                           mask_loss=mask_loss, device=dev)
+    return GraphedSteps(body, model, optimizer, steps, dev)
 
 
 def make_eval_step(model, aug_cfg, mean, std=None, *, device="cuda"):

@@ -5,7 +5,11 @@ checkpoints and logs; a resumed run restores parameters, statistics,
 RMSprop moments, the update count and the step exactly, appends to the log
 and starts at the next epoch; ``init_pose_from`` takes the pose weights
 only; the joint driver runs an epoch; ``current_lr`` and the ``pad_hw``
-auto-sizing equal the reference's.  All equalities here are exact."""
+auto-sizing equal the reference's; a run with the dispatch options
+(``--loader-backend grain --loader-workers 2 --steps-per-dispatch 2
+--tensorboard --profile``) writes the log rows and final weights of a run
+without them, its TensorBoard scalars equal the log's columns, and its
+trace directory holds a trace.  All equalities here are exact."""
 
 import json
 import os
@@ -25,6 +29,17 @@ from posetpu_torch.train import cli
 from posetpu_torch.train.loop import Experiment
 
 SMALL = ["--stacks", "1", "--features", "8", "--train-batch", "4"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread for this module's CPU training: the suite runs
+    several test processes at once, and torch's oversubscribed OpenMP pool
+    made these small steps tens of times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -205,10 +220,8 @@ def test_fresh_weights_come_from_the_seed(split, tmp_path):
 
 
 def test_unknown_and_left_out_flags_are_rejected():
-    for flag in ("--blocks", "--num-devices", "--steps-per-dispatch", "--scan-stacks",
-                 "--agent-step", "--raster-backend", "--warp-table", "--loader-backend",
-                 "--loader-workers", "--tensorboard", "--profile", "--no-probe",
-                 "--cpu-devices"):
+    for flag in ("--blocks", "--num-devices", "--scan-stacks", "--agent-step",
+                 "--raster-backend", "--warp-table", "--no-probe", "--cpu-devices"):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args([flag, "1"])
     args = cli.build_parser().parse_args(["--schedule", "3", "5", "--no-color-jitter",
@@ -233,3 +246,72 @@ def test_synthetic_split_is_made_once_and_keyed_by_seed(tmp_path, monkeypatch):
     assert len(ds) == 16 and len(build_dataset(cfg, "train")) == 64
     assert isinstance(ds, MpiiDataset)
     assert not [n for n in os.listdir(tmp_path) if n.endswith(".tmp")]
+
+
+DISPATCH_FLAGS = ["--loader-backend", "grain", "--loader-workers", "2",
+                  "--steps-per-dispatch", "2", "--tensorboard", "--profile"]
+
+
+@pytest.fixture(scope="module")
+def dispatched(split, trained, tmp_path_factory):
+    """The ``trained`` run again with every dispatch option."""
+    ckpt = str(tmp_path_factory.mktemp("exp_dispatch"))
+    _, argv = trained
+    argv = [a for a in argv]
+    argv[argv.index("--checkpoint") + 1] = ckpt
+    assert cli.main(argv + DISPATCH_FLAGS) == 0
+    return ckpt
+
+
+def test_dispatch_options_keep_the_log_and_the_weights(trained, dispatched):
+    src, _ = trained
+    want = open(os.path.join(_run_dir(src), "log.txt")).read()
+    assert open(os.path.join(_run_dir(dispatched), "log.txt")).read() == want
+    a = CheckpointManager(_run_dir(src)).load()["state"]
+    b = CheckpointManager(_run_dir(dispatched)).load()["state"]
+    assert a["count"] == b["count"] == a["step"] == b["step"] == 4
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+    for i, st in a["optimizer"]["state"].items():
+        assert torch.equal(st["nu"], b["optimizer"]["state"][i]["nu"]), i
+    trace = os.path.join(_run_dir(dispatched), "trace")
+    assert [n for n in os.listdir(trace) if n.endswith(".json")]
+    cfg = json.load(open(os.path.join(_run_dir(dispatched), "config.json")))
+    assert (cfg["loader_backend"], cfg["loader_workers"], cfg["steps_per_dispatch"],
+            cfg["tensorboard"]) == ("grain", 2, 2, True)
+
+
+def test_tensorboard_scalars_equal_the_log_columns(dispatched):
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(os.path.join(_run_dir(dispatched), "tb"))
+    acc.Reload()
+    tags = set(acc.Tags()["scalars"])
+    assert tags == {"train/loss", "train/acc", "train/images_per_sec", "lr",
+                    "val/loss", "val/acc"}
+    rows = [ln.split("\t") for ln in
+            open(os.path.join(_run_dir(dispatched), "log.txt")).read().splitlines()[1:]]
+    cols = {"lr": 1, "train/loss": 2, "val/loss": 3, "train/acc": 4, "val/acc": 5}
+    for tag, col in cols.items():
+        events = acc.Scalars(tag)
+        assert [e.step for e in events] == [0, 1], tag
+        # the log prints %.6f; the event holds the value as float32
+        assert [f"{e.value:.6f}" for e in events] == [r[col] for r in rows], tag
+    assert all(e.value > 0 for e in acc.Scalars("train/images_per_sec"))
+
+
+def test_new_flags_land_in_the_config_and_a_bad_backend_raises(split, tmp_path):
+    from posetpu_torch.configs import apply_overrides
+
+    args = cli.build_parser().parse_args(["--loader-backend", "grain", "--loader-workers",
+                                          "7", "--steps-per-dispatch", "4", "--tensorboard",
+                                          "--profile"])
+    cfg = apply_overrides(named_config("hg8_mpii"), args)
+    assert (cfg.loader_backend, cfg.loader_workers, cfg.steps_per_dispatch,
+            cfg.tensorboard) == ("grain", 7, 4, True)
+    assert args.profile
+    plain = named_config("hg8_mpii")
+    assert (plain.loader_backend, plain.loader_workers, plain.steps_per_dispatch,
+            plain.tensorboard) == ("host", 0, 1, False)
+    with pytest.raises(ValueError, match="loader_backend"):
+        Experiment(_cfg(split, str(tmp_path), loader_backend="native"), device="cpu")

@@ -39,7 +39,8 @@ def test_importing_every_module_loads_no_jax():
             "posetpu_torch.utils.logger", "posetpu_torch.eval.pck",
             "posetpu_torch.eval.export", "posetpu_torch.ckpt.manager",
             "posetpu_torch.train.loop", "posetpu_torch.train.cli",
-            "posetpu_torch.eval.cli"} <= set(mods)
+            "posetpu_torch.eval.cli", "posetpu_torch.data.worker_loader",
+            "posetpu_torch.utils.profiling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
