@@ -82,6 +82,25 @@ Phases, each printing one JSON line:
              once more, and the capture's warm-up steps), the trace file,
              the event file
 
+  dp_nccl1   NCCL at world size 1 in this process: make_dispatch_step with
+             the group, K = 2, hg2 feats 8, f32, TF32 off, deterministic:
+             every all-reduce of the captured steps issued while the stream
+             captures, and the result equal to the group-less graph's bit
+             for bit (parameters, statistics, moments, metrics)
+  dp_gloo2   two gloo ranks sharing the card (CUDA tensors), each with half
+             of a global batch of 8: the train, joint and eval steps
+             against one process on the same batch and weights, in f32 at
+             hg2 feats 8 (TF32 off; the averaged pose gradients against
+             the float64 gradients of the same loss) and in bf16 at full
+             hg8 width (by the ratio to the one process's bf16-vs-f32 gap);
+             the ranks end equal
+  dp_config  hg8_mpii_384_dp8 at full width (8 stacks, 128 features, 384²
+             crops, 96² heatmaps, the agent, bf16, global batch 48) through
+             Experiment with num_devices 1 on the synthetic split: epochs
+             of joint steps and a validation pass (launches 2 a step and 1
+             a validation batch), then timed steps on one placed batch
+             (img/s, CUDA-event ms, device busy ms, idle share, peak memory)
+
 The loader phase also times WorkerLoader at 0, 4 and 7 worker processes
 over the same JPEGs (its batches equal HostLoader's Pillow batches
 exactly), and its steady rate over an epoch of 320 (the 64 cycled), after
@@ -141,6 +160,16 @@ from posetpu_torch.eval import cli as eval_cli
 from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.models import hg
+from posetpu_torch.models.batchnorm import BatchNorm2d, convert_cross_replica_
+from posetpu_torch.parallel import (
+    RankPool,
+    free_port,
+    gather_rows,
+    init_process_group,
+    ranks_equal,
+    shard_slice,
+)
+from posetpu_torch.parallel.launch import to_numpy
 from posetpu_torch.train.adversarial import (
     JointState,
     agent_from_config,
@@ -153,6 +182,7 @@ from posetpu_torch.train.step import (
     make_dispatch_step,
     make_eval_step,
     make_train_step,
+    stacked_mse,
 )
 from posetpu_torch.utils import cuda_build
 
@@ -174,7 +204,10 @@ RASTER_OPS_PER_ELEMENT = 15
 # 134 MB of output is beyond the 50 MB L2, and the joint step's pair of
 # crops (adversarial + reference) for MPII's 16 joints and LSP's 14
 RASTER_SHAPES = ((BATCH, 16, 64, 64), (512, 16, 64, 64), (2 * BATCH, 16, 64, 64),
-                 (2 * BATCH, 14, 64, 64))
+                 (2 * BATCH, 14, 64, 64), (48, 16, 96, 96), (96, 16, 96, 96))
+# hg8_mpii_384_dp8's shapes on one card: its eval batch of 48 at 96x96
+# heatmaps and its joint step's pair of crops (48 adversarial + 48 reference)
+DP8_RASTER = ((48, 16, (96, 96)), (96, 16, (96, 96)))
 # CPU exp against the card's expf, for the targets of the parity phase; the
 # kernel itself is held to its plain version on the card exactly
 RASTER_TOL = 1e-6
@@ -313,9 +346,9 @@ def phase_build():
          ptxas=ptxas)
 
 
-def _raster_inputs(B, K, seed):
+def _raster_inputs(B, K, seed, side=64):
     rng = np.random.RandomState(seed)
-    pts = rng.randint(-10, 74, (B, K, 2)).astype(np.float32)
+    pts = rng.randint(-10, side + 10, (B, K, 2)).astype(np.float32)
     vis = rng.randint(0, 2, (B, K)).astype(np.float32)
     return torch.from_numpy(pts).cuda(), torch.from_numpy(vis).cuda()
 
@@ -354,8 +387,9 @@ def _raster_bound(B, K, H, W, in_window):
 
 def phase_kernels():
     """The rasterizer against its plain version, exactly, on random points
-    at two widths and on edge points at three map sizes (odd, 16-byte rows
-    and the main path's 64x64), for sigma 1, 1.5 and 2.  Then the kernel,
+    at the main paths' shapes (and hg8_mpii_384_dp8's 96x96 maps at 48
+    and 96 rows) and on edge points at four map sizes (odd, 16-byte rows,
+    the main path's 64x64 and 96x96), for sigma 1, 1.5 and 2.  Then the kernel,
     the plain version and the card's write floor (``zero_`` of an output of
     the same size) timed at each of RASTER_SHAPES."""
     cases, max_err = [], 0.0
@@ -381,7 +415,9 @@ def phase_kernels():
         # 3*5 rows: not a block multiple; 2*BATCH: the joint step's pairs
         for B, K in ((BATCH, 16), (3, 5), (2 * BATCH, 16), (2 * BATCH, 14)):
             compare("random", *_raster_inputs(B, K, SEED + B), (64, 64), sigma)
-        for res in ((17, 13), (64, 48), (64, 64)):
+        for B, K, res in DP8_RASTER:
+            compare("random", *_raster_inputs(B, K, SEED + B, res[0]), res, sigma)
+        for res in ((17, 13), (64, 48), (64, 64), (96, 96)):
             for frac in (False, True):
                 compare("edges+0.5" if frac else "edges",
                         *_edge_inputs(res, frac), res, sigma)
@@ -389,7 +425,7 @@ def phase_kernels():
     shapes = []
     for B, K, H, W in RASTER_SHAPES:
         res = (H, W)
-        pts, vis = _raster_inputs(B, K, SEED)
+        pts, vis = _raster_inputs(B, K, SEED, H)
         in_window = int((rasterize_gaussians_plain(pts, vis, res, 1.0)[0] != 0).sum())
         ms = cuda_ms(lambda: rasterize_gaussians(pts, vis, res, 1.0))
         plain_ms = cuda_ms(lambda: rasterize_gaussians_plain(pts, vis, res, 1.0))
@@ -949,8 +985,8 @@ def _recording():
         rec[out.device.type]["losses"].append(out.detach())
         return out
 
-    def normalize(gap, baseline):
-        out = orig["normalize_advantage"](gap, baseline)
+    def normalize(gap, baseline, group=None):
+        out = orig["normalize_advantage"](gap, baseline, group)
         rec[gap.device.type].update(gap=gap, adv=out)
         return out
 
@@ -1684,6 +1720,637 @@ def phase_fit_dispatch(workdir, have_tensorboard):
     return launches
 
 
+# ---- data parallelism (posetpu_torch.parallel)
+
+# dp_config: hg8_mpii_384_dp8 at full width on this one card (num_devices 1):
+# one warm-up epoch, then DP_CONFIG_EPOCHS epochs and one validation pass
+# (the synthetic split's 64 train images make one batch of 48 an epoch),
+# then DP_CONFIG_TIMED joint steps on one placed batch, timed by CUDA events
+DP_CONFIG_EPOCHS, DP_CONFIG_TIMED = 2, 3
+# dp_gloo2: two gloo ranks sharing the card, each with half of a global
+# batch of DP_GLOO_BATCH, against one process on the same batch and weights
+DP_GLOO_WORLD, DP_GLOO_BATCH = 2, 8
+# the ranks' f32 pose gradients against float64: the cross-replica norm
+# takes flax's one-pass variance E[x²] - E[x]², whose float32 cancellation
+# moves the reference's own gradients by up to 3.9e-3 from its float64
+# ones (tests/torch_joint_harness.py); on the card (H100 80GB HBM3, 700 W)
+# the ranks' train-step gradients read 5.94e-3 from float64 and the one
+# process's 5.98e-3 (hg2 feats 8, TF32 off: cuDNN's float32 algorithms).
+# The first bound, train_parity's TRAIN_GRAD_ATOL (4e-3), failed on that
+# reading.  No ratio to the one process's own gap bounds it: in the joint
+# step the ranks read 4.2e-4 from float64 where cuDNN's two-pass norm read
+# 2.9e-5, the one-pass cancellation that the reference's statistics share.
+# JOINT_GRAD_ATOL's allowance for such region-wide roundings:
+DP_GRAD_ATOL = JOINT_GRAD_ATOL
+# rasterizer launches of one step of each kind
+DP_RASTER_LAUNCHES = {"train": 1, "joint": JOINT_RASTER_LAUNCHES, "eval": 1}
+# dp_gloo2 in bf16 at full width: the two-rank step against the one-process
+# step, as ROADMAP's precision rule holds bf16 (tests/test_torch_hourglass.py):
+# the mean gap within DP_RATIO times the one process's own bf16-vs-f32 gap
+DP_RATIO = 2.0
+# dp_nccl1: graphed dispatches of K = 2 at world size 1, hg2 feats 8, f32
+NCCL_K, NCCL_DISPATCHES = 2, 3
+
+
+def phase_dp_config(workdir):
+    """hg8_mpii_384_dp8 (8 stacks, 128 features, 384² crops, 96² heatmaps,
+    the agent, bf16, global batch 48) through Experiment with num_devices
+    1 on the synthetic split: a warm-up epoch, DP_CONFIG_EPOCHS epochs and
+    one validation pass with the launch counts reset just before (2 a joint
+    step, 1 a validation batch), then DP_CONFIG_TIMED joint steps on one
+    placed batch timed with CUDA events and one under torch.profiler."""
+    from posetpu_torch.train.loop import Experiment
+
+    cfg = named_config("hg8_mpii_384_dp8")
+    check((cfg.model.stacks, cfg.model.feats, cfg.batch_size, tuple(cfg.aug.inp_res),
+           tuple(cfg.aug.out_res), cfg.agent.enabled, cfg.num_devices, cfg.model.bf16)
+          == (8, 128, 48, (384, 384), (96, 96), True, 8, True), f"config {cfg}")
+    cfg.num_devices = 1
+    cfg.synthetic = True
+    cfg.checkpoint_dir = os.path.join(workdir, "dp_config")
+    torch.cuda.empty_cache()
+    exp = Experiment(cfg, device="cuda")
+    try:
+        check(exp.world == 1 and exp.group is None, "one rank")
+        check(exp.state.agent.model.input_downscale == 2, "the agent's input downscale")
+        exp.train_epoch(0)  # warm-up: cuDNN and cuBLAS set-up at 384²
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        epochs = [exp.train_epoch(1 + e) for e in range(DP_CONFIG_EPOCHS)]
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        val, preds = exp.validate(DP_CONFIG_EPOCHS)
+        val_s = time.perf_counter() - t0
+        launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        peak = torch.cuda.max_memory_allocated()
+        steps = sum(e["steps"] for e in epochs)
+        val_batches = -(-len(exp.val_ds) // cfg.batch_size)
+        check(launches == DP_RASTER_LAUNCHES["joint"] * steps + val_batches,
+              f"dp_config launches {launches} ({steps} steps, {val_batches} val batches)")
+        for e in epochs:
+            for k in ("loss", "acc", "agent_loss", "advantage", "entropy"):
+                check(math.isfinite(e[k]), f"dp_config {k} {e[k]}")
+        check(math.isfinite(val["loss"]) and -1.0 <= val["acc"] <= 1.0, f"val {val}")
+        check(preds.shape == (len(exp.val_ds), cfg.model.classes, 2)
+              and np.isfinite(preds).all(), f"preds {preds.shape}")
+
+        it = iter(exp.loader)
+        batch = next(it)
+        it.close()
+        B = batch["index"].shape[0]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(DP_CONFIG_TIMED):
+            exp.train_step(exp.state, batch)
+        end.record()
+        end.synchronize()
+        step_s = (time.perf_counter() - t0) / DP_CONFIG_TIMED
+        event_ms = start.elapsed_time(end) / DP_CONFIG_TIMED
+        prof = _profile_step(lambda: exp.train_step(exp.state, batch))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    finally:
+        exp.close()
+    emit("dp_config", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
+         batch=B, inp_res=list(cfg.aug.inp_res), out_res=list(cfg.aug.out_res),
+         num_devices=cfg.num_devices, dtype="bfloat16", pad_hw=list(cfg.pad_hw),
+         epochs=DP_CONFIG_EPOCHS, steps=steps, train_seconds=train_s,
+         epoch_img_per_s=[e["images_per_sec"] for e in epochs], val_seconds=val_s,
+         val_loss=val["loss"], val_acc=val["acc"],
+         loss=[e["loss"] for e in epochs], agent_loss=[e["agent_loss"] for e in epochs],
+         timed_steps=DP_CONFIG_TIMED, img_per_s=B / step_s, step_ms_events=event_ms,
+         device_busy_ms_per_step=prof["device_busy_ms"], idle_share=prof["idle_share"],
+         profile=prof, max_memory_allocated=peak, launches=launches)
+    return launches
+
+
+def _dp_model(cfg, state_np, dev, group):
+    model = hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+               num_feats=cfg.model.feats, depth=cfg.model.depth,
+               dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_np.items()})
+    return convert_cross_replica_(model.to(dev), group)
+
+
+@contextlib.contextmanager
+def _policy(record=None, draws=None):
+    """Record the joint step's draws (``record``, a dict), or make it take
+    ``draws`` (by global sample index) in place of its own."""
+    real = adversarial.sample_policy
+
+    def recording(seed, step, index, logits, *args):
+        out = real(seed, step, index, logits, *args)
+        extras, adv, ref, jitter = out
+        record.update(index=index.cpu(), extras={k: v.cpu() for k, v in extras.items()},
+                      adv=[t.cpu() for t in adv], ref=[t.cpu() for t in ref],
+                      jitter=None if jitter is None else jitter.cpu())
+        return out
+
+    def replaying(seed, step, index, logits, *args):
+        row = {int(i): j for j, i in enumerate(draws["index"])}
+        r = torch.as_tensor([row[int(i)] for i in index.tolist()])
+        t = lambda a: torch.as_tensor(a)[r].to(index.device)  # noqa: E731
+        jitter = None if draws["jitter"] is None else t(draws["jitter"])
+        params = adversarial.AugParams
+        return ({k: t(v) for k, v in draws["extras"].items()},
+                params(*map(t, draws["adv"])), params(*map(t, draws["ref"])), jitter)
+
+    adversarial.sample_policy = recording if record is not None else replaying
+    try:
+        yield
+    finally:
+        adversarial.sample_policy = real
+
+
+def _dp_step(job, group, rank, world, dev):
+    """One step of ``job["kind"]`` ("train", "joint" or "eval") from the
+    job's weights on this rank's rows of its global batch (all of it with
+    no group); what it computed, where it left the networks, and the
+    rasterizer's launches."""
+    cfg, kind = job["cfg"], job["kind"]
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = job["tf32"]
+    try:
+        model = _dp_model(cfg, job["pose"], dev, group)
+        local = shard_slice(job["batch"], rank, world)
+        cuda_kernels.reset_launches()
+        nets = {"pose": model}
+        out = {}
+        if kind == "eval":
+            step = make_eval_step(model, cfg.aug, MPII_MEAN, group=group, device=dev)
+            seen = {}
+            hook = model.score[-1].register_forward_hook(
+                lambda mod, args, y: seen.__setitem__("heatmaps", y.detach().float()))
+            m, preds = step(local)
+            hook.remove()
+            out["preds"] = gather_rows(preds, group)
+            out["heatmaps"] = gather_rows(seen["heatmaps"], group)
+        elif kind == "train":
+            opt = make_optimizer(model.parameters(), cfg.optim, steps_per_epoch=1)
+            step = make_train_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, group=group,
+                                   device=dev)
+            with _crops(model, out if job["crops"] else None):
+                m = step(TrainState(model, opt), local)
+        else:
+            state, kw = _joint_state(cfg, dev, SEED, widths=job["widths"], steps_per_epoch=1)
+            state.pose = TrainState(model, make_optimizer(model.parameters(), cfg.optim,
+                                                          steps_per_epoch=1))
+            agent = state.agent.model
+            agent.load_state_dict({k: torch.from_numpy(v) for k, v in job["agent"].items()})
+            convert_cross_replica_(agent, group)
+            nets["agent"] = agent
+            step = make_joint_step(model, agent, state.pose.optimizer, state.agent.optimizer,
+                                   cfg.aug, MPII_MEAN, seed=SEED, group=group, device=dev,
+                                   **kw)
+            record = {} if job["draws"] is None else None
+            with _policy(record, job["draws"]), _crops(model, out if job["crops"] else None):
+                m = step(state, local)
+            out["draws"] = record
+        out.update(metrics={k: v.float() for k, v in m.items()},
+                   launches=cuda_kernels.LAUNCHES["rasterize_gaussians"])
+        for name, net in nets.items():
+            out[name] = {"grads": {n: p.grad.float() for n, p in net.named_parameters()
+                                   if p.grad is not None},
+                         "stats": {k: v for k, v in net.state_dict().items()
+                                   if "running" in k}}
+        return to_numpy(out)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def _crops(model, out):
+    """With ``out`` (a dict), record in it the crops and targets of the
+    pose network's train-mode pass (``crops``): the last train-mode input
+    and the target of the last loss call after it."""
+    if out is None:
+        yield
+        return
+    import posetpu_torch.train.step as step_module
+
+    losses = {"train": (step_module, "stacked_mse"),
+              "joint": (adversarial, "per_sample_stacked_mse")}
+    real = {k: getattr(mod, name) for k, (mod, name) in losses.items()}
+    seen = {}
+
+    def pre(mod, args):
+        if mod.training:
+            seen["input"] = args[0].detach()
+
+    def wrap(fn):
+        def loss(outs, target, *a):
+            seen["target"] = target.detach()
+            return fn(outs, target, *a)
+        return loss
+
+    hook = model.register_forward_pre_hook(pre)
+    for k, (mod, name) in losses.items():
+        setattr(mod, name, wrap(real[k]))
+    try:
+        yield
+    finally:
+        hook.remove()
+        for k, (mod, name) in losses.items():
+            setattr(mod, name, real[k])
+    out["crops"] = (seen["input"], seen["target"])
+
+
+def _grads64(job, dev):
+    """The pose loss's gradients in float64 on the card, on the crops and
+    targets the one-process step trained on (``crops``): the reference
+    that the small f32 comparison holds the ranks' averaged gradients to."""
+    cfg = job["cfg"]
+    model = hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+               num_feats=cfg.model.feats, depth=cfg.model.depth, dtype=torch.float32)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in job["pose"].items()})
+    model = model.double().to(dev).train()
+    inp, tgt = (torch.as_tensor(a, device=dev, dtype=torch.float64) for a in job["crops"])
+    stacked_mse(model(inp), tgt).backward()
+    return to_numpy({n: p.grad for n, p in model.named_parameters()})
+
+
+def _bucket_numel(cfg):
+    """Parameters of ``cfg``'s pose network: its gradient bucket's length."""
+    return sum(p.numel() for p in hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+                                     num_feats=cfg.model.feats,
+                                     depth=cfg.model.depth).parameters())
+
+
+def _all_reduce_ms(group, numel, dev, reps=5):
+    """Milliseconds of one ``all_reduce_mean_`` of a float32 gradient
+    bucket of ``numel`` on ``dev`` (host clock to a synchronize, after a
+    warm-up; the median of ``reps``)."""
+    from posetpu_torch.parallel import all_reduce_mean_
+
+    grads = [torch.ones(numel, device=dev)]
+    all_reduce_mean_(grads, group)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        all_reduce_mean_(grads, group)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _dp_rank_all_reduce(ctx, numel):
+    return _all_reduce_ms(ctx.group, numel, ctx.device)
+
+
+def _dp_rank(ctx, job):
+    """:func:`_dp_step` on a rank of the dp_gloo2 pool."""
+    return _dp_step(job, ctx.group, ctx.rank, ctx.world, ctx.device)
+
+
+def _dp_job(kind, cfg, tf32, seed, widths=(8, 16)):
+    """Seeded weights (pose network, and the agent for a joint step) and a
+    global batch of DP_GLOO_BATCH for one dp_gloo2 comparison."""
+    torch.manual_seed(seed)
+    pose = hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+              num_feats=cfg.model.feats, depth=cfg.model.depth, dtype=torch.float32)
+    job = {"kind": kind, "cfg": cfg, "tf32": tf32, "widths": widths, "draws": None,
+           "crops": False, "pose": to_numpy(pose.state_dict())}
+    if kind == "joint":
+        state, _ = _joint_state(cfg, "cpu", seed + 1, widths=widths, steps_per_epoch=1)
+        job["agent"] = to_numpy(state.agent.model.state_dict())
+    rng = np.random.RandomState(seed + 2)
+    res = tuple(2 * r for r in cfg.aug.inp_res)
+    if kind == "eval":
+        b = _eval_batch(rng, DP_GLOO_BATCH, res, cfg.model.classes)
+        b["mask"][-3:] = 0.0  # a ragged last batch, padded
+    else:
+        b = _train_batch(rng, DP_GLOO_BATCH, res, cfg.model.classes, 5000 + seed)
+    job["batch"] = b
+    return job
+
+
+def _mean_gap(a, b):
+    keys = sorted(b)
+    return float(np.mean(np.concatenate([np.abs(a[k] - b[k]).ravel() for k in keys])))
+
+
+def _max_gap_np(a, b):
+    return max(float(np.abs(a[k] - b[k]).max()) for k in b)
+
+
+def _dp_f32_checks(label, kind, got, want, g64):
+    """A small f32 step on two ranks against one process (train_parity's
+    and joint_parity's derived bounds), and its pose gradients against the
+    float64 gradients of the same loss on the same crops (``g64``).
+    Returns (gaps, failures).
+
+    The one process's float32 gradients are no reference for the ranks':
+    its BatchNorm takes a two-pass variance where the cross-replica norm
+    takes flax's one-pass E[x²] - E[x]², and on the CPU the one process's
+    lie 1.1e-2 to 6.7e-2 from float64 on such steps where the ranks' lie
+    4.1e-4.  The ranks' pose gradients are held to float64 within
+    DP_GRAD_ATOL (below).  The agent's gradients are held to the one
+    process's within JOINT_GRAD_ATOL."""
+    bad = []
+    for k, w in want["metrics"].items():
+        g = got["metrics"][k]
+        if k == "pck_cnt":  # from the targets alone
+            if not np.array_equal(g, w):
+                bad.append(f"{label}: {k}")
+            continue
+        # a joint more or less near an argmax tie
+        tol = {"acc": 0.1, "pck_hit": 1.0}.get(k, PARITY_ATOL + PARITY_RTOL * np.abs(w))
+        if not np.all(np.abs(g - w) <= tol):
+            bad.append(f"{label}: {k} {g} vs {w}")
+    if kind == "eval":
+        gap = _max_gap_np({"h": got["heatmaps"]}, {"h": want["heatmaps"]})
+        if not np.allclose(got["heatmaps"], want["heatmaps"], atol=PARITY_ATOL,
+                           rtol=PARITY_RTOL):
+            bad.append(f"{label}: heatmaps {gap}")
+        if got["preds"].shape != want["preds"].shape or not np.isfinite(got["preds"]).all():
+            bad.append(f"{label}: preds {got['preds'].shape}")
+        return {"heatmaps": gap}, bad
+    gaps = {"pose_grad_one_vs_f64": _max_gap_np(want["pose"]["grads"], g64)}
+    for net in ("pose", "agent") if kind == "joint" else ("pose",):
+        ref, tol = (g64, DP_GRAD_ATOL) if net == "pose" else (want[net]["grads"], JOINT_GRAD_ATOL)
+        gaps[f"{net}_grad"] = _max_gap_np(got[net]["grads"], ref)
+        if gaps[f"{net}_grad"] > tol:
+            bad.append(f"{label}: {net} gradients {gaps[f'{net}_grad']} (bound {tol})")
+        for k, w in want[net]["stats"].items():
+            g = got[net]["stats"][k]
+            if not np.all(np.abs(g - w) <= TRAIN_STATS_ATOL + TRAIN_STATS_RTOL * np.abs(w)):
+                bad.append(f"{label}: {net} {k}")
+        gaps[f"{net}_stats"] = _max_gap_np(got[net]["stats"], want[net]["stats"])
+    return gaps, bad
+
+
+def _dp_bf16_checks(label, kind, got, want16, want32):
+    """A full-width bf16 step on two ranks against one process, by the
+    ratio of their mean gap to the one process's bf16-vs-f32 gap.
+    Returns (gaps, failures)."""
+    pairs = [("heatmaps", {"h": got["heatmaps"]}, {"h": want16["heatmaps"]},
+              {"h": want32["heatmaps"]})] if kind == "eval" else [
+        (f"{net}_grad", got[net]["grads"], want16[net]["grads"], want32[net]["grads"])
+        for net in (("pose", "agent") if kind == "joint" else ("pose",))]
+    gaps, bad = {}, []
+    for name, g, w16, w32 in pairs:
+        dp, prec = _mean_gap(g, w16), _mean_gap(w16, w32)
+        gaps[name] = {"dp_vs_one": dp, "bf16_vs_f32": prec}
+        if not (prec > 0 and dp <= DP_RATIO * prec):
+            bad.append(f"{label}: {name} {gaps[name]}")
+    return gaps, bad
+
+
+def phase_dp_gloo2(dev="cuda"):
+    """Two gloo ranks on this one card (CUDA tensors), each with half of a
+    global batch: the eager train step, the joint step (its draws taken
+    from the one-process step, by sample index) and the eval step (a
+    padded ragged batch; predictions gathered), each against one process
+    on the same batch and weights.  hg2 at feats 8 in f32 with TF32 off,
+    within train_parity's and joint_parity's bounds; then hg8 at full width
+    in bf16, by the ratio to the one process's bf16-vs-f32 gap.  Every rank
+    ends with the same metrics and statistics, and launches the rasterizer
+    once a train or eval step and twice a joint step."""
+    small = named_config("hg2_mpii_mini")
+    small.model.feats, small.model.bf16 = 8, False
+    small.aug.inp_res, small.aug.out_res = (64, 64), (16, 16)
+    small.agent.enabled, small.agent.occ_nodes = True, 6
+    small.agent.occ_levels = (1, 2)
+    full = named_config("hg8_mpii_asr")
+    launches = [0] * DP_GLOO_WORLD
+    out, bad = {}, []
+    t0 = time.perf_counter()
+    # the ranks share the card (``dev="cpu"`` rehearses the phase on the CPU)
+    devices = "cuda:0" if dev == "cuda" else dev
+    with RankPool(DP_GLOO_WORLD, devices=devices, backend="gloo") as pool:
+        start_s = time.perf_counter() - t0
+        for kind in ("train", "joint", "eval"):
+            job = _dp_job(kind, small, tf32=False, seed=SEED + 30)
+            job["crops"] = kind != "eval"
+            one = _dp_step(job, None, 0, 1, dev)
+            job.update(draws=one.get("draws"), crops=False)
+            g64 = _grads64(dict(job, crops=one["crops"]), dev) if kind != "eval" else None
+            ranks = pool.run(_dp_rank, job)
+            if not ranks_equal([{k: r[k] for k in r if k != "draws"} for r in ranks]):
+                bad.append(f"dp_gloo2 f32 {kind}: the ranks differ")
+            want = DP_RASTER_LAUNCHES[kind] if dev == "cuda" else 0  # the CPU's plain version
+            if not (all(r["launches"] == want for r in ranks) and one["launches"] == want):
+                bad.append(f"dp_gloo2 f32 {kind} launches {[r['launches'] for r in ranks]}")
+            launches = [n + r["launches"] for n, r in zip(launches, ranks)]
+            gaps, failed = _dp_f32_checks(f"dp_gloo2 f32 {kind}", kind, ranks[0], one, g64)
+            bad += failed
+            out[f"f32_{kind}"] = {
+                "gaps": gaps,
+                "loss": [float(one["metrics"]["loss"]), float(ranks[0]["metrics"]["loss"])]}
+
+            job = _dp_job(kind, full, tf32=True, seed=SEED + 40,
+                          widths=(32, 64, 128, 256))
+            one16 = _dp_step(job, None, 0, 1, dev)
+            job["draws"] = one16.get("draws")
+            job32 = dict(job, cfg=copy.deepcopy(full), tf32=False)
+            job32["cfg"].model.bf16 = False
+            one32 = _dp_step(job32, None, 0, 1, dev)
+            ranks = pool.run(_dp_rank, job)
+            if not ranks_equal([{k: r[k] for k in r if k != "draws"} for r in ranks]):
+                bad.append(f"dp_gloo2 bf16 {kind}: the ranks differ")
+            launches = [n + r["launches"] for n, r in zip(launches, ranks)]
+            gaps, failed = _dp_bf16_checks(f"dp_gloo2 bf16 {kind}", kind, ranks[0], one16,
+                                           one32)
+            bad += failed
+            out[f"bf16_{kind}"] = {
+                "gaps": gaps,
+                "loss": [float(one16["metrics"]["loss"]), float(ranks[0]["metrics"]["loss"]),
+                         float(one32["metrics"]["loss"])]}
+        seconds = time.perf_counter() - t0
+        numel = _bucket_numel(full)
+        all_reduce = pool.run(_dp_rank_all_reduce, numel) if dev == "cuda" else None
+    want = 2 * sum(DP_RASTER_LAUNCHES.values()) if dev == "cuda" else 0
+    emit("dp_gloo2", world=DP_GLOO_WORLD, backend="gloo", device="cuda:0 (shared)",
+         global_batch=DP_GLOO_BATCH, small="hg2 feats 8 f32 TF32 off",
+         full=f"hg8 feats 128 bf16 {tuple(full.aug.inp_res)}", ratio=DP_RATIO,
+         pool_start_seconds=start_s, seconds=seconds, launches_per_rank=launches,
+         collectives={"bucket_numel": numel, "bucket_bytes": 4 * numel,
+                      "all_reduce_ms_per_rank": all_reduce}, failures=bad, **out)
+    check(not bad, "; ".join(bad))
+    check(launches == [want] * DP_GLOO_WORLD, f"dp_gloo2 launches {launches}, want {want}")
+    return sum(launches)
+
+
+def _kernel_names(run, part):
+    """Device kernels of one ``run()`` under torch.profiler whose names
+    hold ``part`` (any case), with their calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and part in e.name.lower():
+            names[e.name[:90]] = names.get(e.name[:90], 0) + 1
+    return names
+
+
+def _cross_replica_norms_(model, group):
+    """Give every norm of ``model`` ``group``, also a group of one rank
+    (which :func:`convert_cross_replica_` leaves local): the norms then take
+    their statistics by the cross-replica route, all-reduces included.
+    Returns how many norms there are."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.group = group
+    return len(norms)
+
+
+def _dp_norm_cost(group):
+    """hg8_mpii (bf16, batch BATCH) graphed at K = 1 under ``group``: one
+    step with the norms local, one with every norm on the cross-replica
+    route (plain float32 ops and two all-reduces a norm), each captured
+    once and its replay timed with CUDA events."""
+    cfg = named_config("hg8_mpii")
+    rng = np.random.RandomState(SEED + 53)
+    sb = _stack([_train_batch(rng, BATCH, CANVAS, cfg.model.classes, 9000)])
+    torch.manual_seed(SEED + 52)
+    base = hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+              num_feats=cfg.model.feats, depth=cfg.model.depth)
+    out = {}
+    for how in ("local", "cross"):
+        model = copy.deepcopy(base).cuda()
+        norms = _cross_replica_norms_(model, group) if how == "cross" else 0
+        opt = make_optimizer(model.parameters(), cfg.optim,
+                             steps_per_epoch=MPII_TRAIN_SAMPLES // BATCH)
+        state = TrainState(model, opt)
+        dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, steps=1,
+                                      group=group, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = dispatch(state, sb)["loss"].item()  # warms up, captures, replays
+        out[how] = {"norms": norms, "step_ms": cuda_ms(dispatch.graph.replay, reps=1, samples=5),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "first_loss": loss, "captures": dispatch.captures}
+        del dispatch, state, opt, model
+        torch.cuda.empty_cache()
+    out["cost_ms_per_step"] = out["cross"]["step_ms"] - out["local"]["step_ms"]
+    return out
+
+
+def phase_dp_nccl1():
+    """NCCL at world size 1 in this process: make_dispatch_step(group=...)
+    with K = NCCL_K, hg2 at feats 8, f32, TF32 off, deterministic
+    algorithms, NCCL_DISPATCHES dispatches from one state, four ways: the
+    group-less graph ("plain"); the group's graph ("nccl", its norms local
+    as at one rank, so equal to "plain" bit for bit); the group's graph
+    with every norm forced onto the cross-replica route ("norms": each
+    norm's differentiable all-reduce captured, the backward ones issued
+    from autograd's thread); and the same eagerly ("norms_eager", equal to
+    "norms" bit for bit).  Every all-reduce of a captured step must be
+    issued while the stream captures (so it replays inside the graph); a
+    replay under torch.profiler lists its NCCL kernels.  Then the forced
+    norms' cost at hg8_mpii width (:func:`_dp_norm_cost`)."""
+    import torch.distributed as dist
+
+    cfg = named_config("hg2_mpii_mini")
+    cfg.model.feats, cfg.model.bf16 = 8, False
+    cfg.aug.inp_res, cfg.aug.out_res = (64, 64), (16, 16)
+    B, J = 8, cfg.model.classes
+    rng = np.random.RandomState(SEED + 50)
+    supers = [_stack([_train_batch(rng, B, (96, 128), J, 7000 + (d * NCCL_K + i) * B)
+                      for i in range(NCCL_K)]) for d in range(NCCL_DISPATCHES)]
+    group = init_process_group(0, 1, "cuda:0", backend="nccl", port=free_port())
+    calls = {}
+    real = dist.all_reduce
+
+    def counted(tensor, *args, **kw):
+        key = "capturing" if torch.cuda.is_current_stream_capturing() else "eager"
+        calls[how][key] += 1
+        return real(tensor, *args, **kw)
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.manual_seed(SEED + 51)
+        base = hg(num_stacks=cfg.model.stacks, num_classes=J, num_feats=cfg.model.feats,
+                  dtype=torch.float32)
+        runs, dispatches = {}, {}
+        for how in ("plain", "nccl", "norms", "norms_eager"):
+            model = copy.deepcopy(base).cuda()
+            norms = _cross_replica_norms_(model, group) if how.startswith("norms") else 0
+            opt = make_optimizer(model.parameters(), cfg.optim, steps_per_epoch=2)
+            state = TrainState(model, opt)
+            kw = dict(seed=SEED, group=None if how == "plain" else group, device="cuda")
+            cuda_kernels.reset_launches()
+            calls[how] = {"capturing": 0, "eager": 0, "norms": norms}
+            dist.all_reduce = counted
+            try:
+                if how == "norms_eager":
+                    step = make_train_step(model, opt, cfg.aug, MPII_MEAN, **kw)
+                    ms = [step(state, {k: v[i] for k, v in sb.items()})
+                          for sb in supers for i in range(NCCL_K)]
+                    metrics = {k: torch.stack([m[k] for m in ms]).cpu() for k in ms[0]}
+                else:
+                    dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN,
+                                                  steps=NCCL_K, **kw)
+                    ms = [dispatch(state, sb) for sb in supers]
+                    metrics = {k: torch.cat([m[k] for m in ms]).cpu() for k in ms[0]}
+                    dispatches[how] = dispatch
+            finally:
+                dist.all_reduce = real
+            torch.cuda.synchronize()
+            runs[how] = (state.snapshot(), metrics,
+                         cuda_kernels.LAUNCHES["rasterize_gaussians"])
+        replay = _profile_step(dispatches["nccl"].graph.replay)
+        nccl_kernels = _kernel_names(dispatches["norms"].graph.replay, "nccl")
+        numel = _bucket_numel(named_config("hg8_mpii"))
+        all_reduce_ms = _all_reduce_ms(group, numel, torch.device("cuda:0"))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[:2]
+        torch.use_deterministic_algorithms(prev[2])
+    try:
+        norm_cost = _dp_norm_cost(group)
+    finally:
+        dist.destroy_process_group()
+    steps = NCCL_K * NCCL_DISPATCHES
+    norms = calls["norms"]["norms"]
+    emit("dp_nccl1", world=1, backend="nccl", steps_per_dispatch=NCCL_K,
+         dispatches=NCCL_DISPATCHES, batch=B,
+         captures={k: d.captures for k, d in dispatches.items()},
+         all_reduce_calls=calls, param_gap_nccl=_gap(runs["plain"][0], runs["nccl"][0]),
+         param_gap_norms_eager=_gap(runs["norms"][0], runs["norms_eager"][0]),
+         param_gap_norms_vs_local=_gap(runs["plain"][0], runs["norms"][0]),
+         loss=runs["nccl"][1]["loss"].tolist(),
+         launches={k: r[2] for k, r in runs.items()},
+         collectives={"bucket_numel": numel, "bucket_bytes": 4 * numel,
+                      "all_reduce_ms": all_reduce_ms, "hg8_norms": norm_cost},
+         replay_nccl_kernels=nccl_kernels, replay_profile=replay)
+    check(all(d.captures == 1 for d in dispatches.values()), f"captures {dispatches}")
+    # each captured step: one gradient bucket and one metric bucket, and a
+    # forced norm's one all-reduce forward and one backward
+    check(calls["nccl"]["capturing"] == 2 * NCCL_K, f"all-reduce calls {calls}")
+    check(norms > 0 and calls["norms"]["capturing"] == (2 + 2 * norms) * NCCL_K,
+          f"all-reduce calls {calls}")
+    check(calls["norms_eager"] == {"capturing": 0, "eager": (2 + 2 * norms) * steps,
+                                   "norms": norms}, f"all-reduce calls {calls}")
+    for a, b in (("plain", "nccl"), ("norms_eager", "norms")):
+        (sa, ma, _), (sb_, mb, _) = runs[a], runs[b]
+        check(sa[1:] == sb_[1:] == (steps, steps), f"counts {a} {sa[1:]}, {b} {sb_[1:]}")
+        for x, y in zip(sa[0], sb_[0], strict=True):
+            check(torch.equal(x, y), f"{b} differs from {a} by {_gap(sa, sb_)}")
+        for k in ma:
+            check(torch.equal(ma[k], mb[k]), f"{b}'s {k} differs from {a}'s")
+    want = steps + WARMUP_STEPS
+    got = {k: r[2] for k, r in runs.items()}
+    check(got == {"plain": want, "nccl": want, "norms": want, "norms_eager": steps},
+          f"launches {got}, want {want} a graph and {steps} eagerly")
+    for how in ("local", "cross"):
+        c = norm_cost[how]
+        check(c["captures"] == 1 and math.isfinite(c["first_loss"]),
+              f"hg8 {how} norms: {c}")
+    return runs["nccl"][2]
+
+
 def _processes():
     """{pid: (state, ppid, process group, command line)} of every process
     /proc lists."""
@@ -1782,6 +2449,8 @@ def _run_phases():
 
     dispatch_parity_launches = phase_dispatch_parity()
     dispatch_launches = phase_dispatch(cfg)
+    dp_nccl1_launches = phase_dp_nccl1()
+    dp_gloo2_launches = phase_dp_gloo2()
 
     routes, have_tensorboard = phase_host()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1790,6 +2459,7 @@ def _run_phases():
         fit_launches = phase_fit(workdir)
         fit_joint_launches = phase_fit_joint(workdir)
         fit_dispatch_launches = phase_fit_dispatch(workdir, have_tensorboard)
+        dp_config_launches = phase_dp_config(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1802,7 +2472,10 @@ def _run_phases():
                                   "fit_joint": fit_joint_launches,
                                   "dispatch": dispatch_launches,
                                   "dispatch_parity": dispatch_parity_launches,
-                                  "fit_dispatch": fit_dispatch_launches}
+                                  "fit_dispatch": fit_dispatch_launches,
+                                  "dp_nccl1": dp_nccl1_launches,
+                                  "dp_gloo2": dp_gloo2_launches,
+                                  "dp_config": dp_config_launches}
     return raster
 
 

@@ -15,6 +15,7 @@ Ported so far: the serving path (:class:`posetpu_torch.infer.PosePredictor`),
 the validation, train and joint adversarial steps (:mod:`posetpu_torch.train`),
 the data layer and host loader (:mod:`posetpu_torch.data`) with its C++ JPEG
 pool (:mod:`posetpu_torch.native`), the epoch driver
-(:class:`posetpu_torch.train.loop.Experiment`) and the command lines
-``python -m posetpu_torch.train.cli`` and ``python -m posetpu_torch.eval.cli``.
+(:class:`posetpu_torch.train.loop.Experiment`), the command lines
+``python -m posetpu_torch.train.cli`` and ``python -m posetpu_torch.eval.cli``,
+and data parallelism across GPUs (:mod:`posetpu_torch.parallel`).
 """

@@ -18,6 +18,10 @@ restarts the schedule nor repeats the draws of step 0.
 Writes go to a directory of the process's own and are moved into place
 with ``os.replace``: a crash mid-save leaves the last good checkpoint
 readable.  Loading the JAX package's orbax checkpoints is not covered here.
+
+Under data parallelism every rank holds the same state: rank 0 alone
+writes, and every rank of the group waits for it at a barrier, so a rank
+that loads next reads a finished file.  Every rank loads.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import os
 import shutil
 
 import torch
+
+from posetpu_torch.parallel.dp import barrier, group_rank
 
 _FILE = "state.pt"
 
@@ -86,11 +92,15 @@ def _write(payload, final):
 
 class CheckpointManager:
     """Save and restore with the reference's ``checkpoint`` +
-    ``model_best`` behaviour."""
+    ``model_best`` behaviour.  With a data-parallel ``group`` only its
+    rank 0 writes (the directory too); :meth:`save` ends at a barrier."""
 
-    def __init__(self, directory, max_to_keep=3):
+    def __init__(self, directory, max_to_keep=3, group=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.group = group
+        self.writes = group_rank(group) == 0
+        if self.writes:
+            os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
 
     def _path(self, epoch):
@@ -103,14 +113,17 @@ class CheckpointManager:
     def save(self, state, epoch, best_acc, is_best=False):
         """Write epoch ``epoch``'s checkpoint, copy it to ``best/`` when
         ``is_best``, and keep the newest ``max_to_keep`` (never the one just
-        written)."""
-        payload = {"state": state_dict(state), "epoch": int(epoch),
-                   "best_acc": float(best_acc)}
+        written).  Under a group, rank 0 writes and every rank returns once
+        it has."""
         path = self._path(epoch)
-        _write(payload, path)
-        if is_best:
-            _write(payload, self.best_path)
-        self._gc(keep=os.path.basename(path))
+        if self.writes:
+            payload = {"state": state_dict(state), "epoch": int(epoch),
+                       "best_acc": float(best_acc)}
+            _write(payload, path)
+            if is_best:
+                _write(payload, self.best_path)
+            self._gc(keep=os.path.basename(path))
+        barrier(self.group)
         return path
 
     def _finished(self, root):

@@ -2,17 +2,19 @@
 the port runs so far — the port's own copy of
 ``posetpu/configs/config.py`` (``ModelConfig``, ``AugConfig``,
 ``OptimConfig``, ``AgentConfig`` and the ``hg2_mpii_mini``, ``hg8_mpii``,
-``hg8_mpii_asr`` and ``hg8_lsp_aho`` entries of ``named_config``).
+``hg8_mpii_asr``, ``hg8_lsp_aho`` and ``hg8_mpii_384_dp8`` entries of
+``named_config``).
 
 Only the fields the ported slices read are here.  Knobs that selected
 between TPU code paths are gone: the port has one warp path (``warp_table``
 had no other meaning), and the target rasterizer is chosen by the device of
 its inputs (``raster_backend``).  The network has one residual block per
 level (``blocks`` is always 1).  The agent's ``fused_step`` chose between
-XLA program layouts and has no counterpart.  ``remat``, ``scan_stacks``
-and ``num_devices`` come with the slices that read them; so do their
-flags, which :func:`add_overrides` does not define (argparse rejects
-them).  ``loader_backend="grain"`` selects the port's worker-process
+XLA program layouts and has no counterpart.  ``remat`` and
+``scan_stacks`` come with the slices that read them; so do their flags,
+which :func:`add_overrides` does not define (argparse rejects them).
+``num_devices`` (``--num-devices``) is the number of data-parallel ranks,
+one process a GPU (:mod:`posetpu_torch.parallel`).  ``loader_backend="grain"`` selects the port's worker-process
 loader (:class:`posetpu_torch.data.WorkerLoader`), so a reference command
 line runs unchanged.
 """
@@ -116,6 +118,9 @@ class ExperimentConfig:
     # train steps per dispatch: K > 1 replays one CUDA graph of K steps
     steps_per_dispatch: int = 1
     tensorboard: bool = False  # scalars under <checkpoint>/<name>/tb
+    # data-parallel ranks, one process a GPU; None: every visible GPU on
+    # CUDA, one process on the CPU.  batch_size is the global batch
+    num_devices: Optional[int] = None
 
 
 NAMED_CONFIGS = {
@@ -140,6 +145,15 @@ NAMED_CONFIGS = {
         model=ModelConfig(stacks=8, classes=14),
         aug=AugConfig(dataset="lsp"),
         agent=AgentConfig(enabled=True, occ_nodes=22),
+    ),
+    # 384x384 inputs, 8-stack + agent, data parallel over 8 GPUs
+    "hg8_mpii_384_dp8": ExperimentConfig(
+        "hg8_mpii_384_dp8",
+        model=ModelConfig(stacks=8),
+        aug=AugConfig(inp_res=(384, 384), out_res=(96, 96)),
+        agent=AgentConfig(enabled=True),
+        batch_size=48,
+        num_devices=8,
     ),
 }
 
@@ -181,6 +195,7 @@ _FLAGS = {
     "--loader-backend": ("loader_backend", str),  # host | grain
     "--loader-workers": ("loader_workers", int),
     "--steps-per-dispatch": ("steps_per_dispatch", int),
+    "--num-devices": ("num_devices", int),
 }
 
 

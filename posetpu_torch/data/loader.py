@@ -16,6 +16,11 @@ while the device runs batch N.  :func:`make_batch_placer` builds the
 then orders the consumer's stream after that event before it yields the
 batch.
 
+Under data parallelism (``shard=(rank, world)``) every rank shuffles
+with the same seed and cuts the same global batches, then decodes only its
+own rows (the reference's ``P(axis)`` placement, made on the host): the
+keyed draws see the global dataset indices a single process would.
+
 Pillow is imported by :func:`_decode` only, so the native route works on a
 machine without it.
 """
@@ -28,6 +33,7 @@ import threading
 import numpy as np
 import torch
 
+from posetpu_torch.parallel.dp import check_batch, shard_slice
 from posetpu_torch.utils.device import resolve_device
 
 
@@ -100,7 +106,7 @@ def pad_batch(batch, size):
     reduces with masked sums so padded rows count nowhere.  Callers trim
     per-sample outputs (preds) back to the true count.
     """
-    n = batch["image"].shape[0]
+    n = next(iter(batch.values())).shape[0]
     if n > size:
         raise ValueError(f"batch of {n} larger than pad target {size}")
     mask = np.zeros((size,), np.float32)
@@ -312,6 +318,21 @@ class HostLoader:
     stacks every K batches into one (K, B, ...) superbatch
     (:func:`group_stack`) before ``place``, K = 1 included, and the images
     then go into the placer's pinned buffer at the stacking.
+
+    ``pad``: with ``drop_last`` False (validation), pad the ragged last
+    batch to ``batch_size`` by :func:`pad_batch` on its dataset indices
+    (the last sample repeated, decoded again) and give every batch its
+    (B,) ``mask``, so every batch has the one shape the eval step runs at.
+
+    ``shard``: None, or ``(rank, world)`` for data parallelism.
+    ``batch_size`` stays the global batch; every rank orders the epoch
+    alike (``seed + epoch``), cuts the same global batches (padded first
+    when ``pad``) and decodes rows ``[rank*B/W, (rank+1)*B/W)`` of each
+    (:func:`~posetpu_torch.parallel.dp.shard_slice`, the reference's
+    ``P(axis)``; with ``group`` the stacked superbatch is then the
+    reference's ``P(None, axis)``), mask included, so ``len()`` is the same
+    on every rank.  A sharded loader that keeps its last batch must
+    ``pad``: a ragged batch does not cut into equal slices.
     """
 
     def __init__(
@@ -326,9 +347,17 @@ class HostLoader:
         backend="auto",
         place=None,
         group=None,
+        pad=False,
+        shard=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.pad = pad and not drop_last
+        if shard is not None and not (drop_last or pad):
+            raise ValueError("a sharded loader that keeps its last batch must pad it")
+        self.shard = None if shard is None else tuple(shard)
+        # rows a yielded batch holds: this rank's share of the global batch
+        self.rows = batch_size if shard is None else check_batch(batch_size, shard[1])
         self.pad_hw = pad_hw
         self.shuffle = shuffle
         self.seed = seed
@@ -430,15 +459,30 @@ class HostLoader:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         return idx
 
+    def _selections(self, order):
+        """(dataset indices this process decodes, mask or None) of each
+        batch of the epoch: the global batch, padded when ``pad``, or this
+        rank's rows of it."""
+        B = self.batch_size
+        for b in range(len(self)):
+            sel = {"index": order[b * B : (b + 1) * B]}
+            if self.pad:
+                sel = pad_batch(sel, B)
+            if self.shard is not None:
+                sel = shard_slice(sel, *self.shard)
+            yield sel["index"], sel.get("mask")
+
     def _batches(self, order):
         """Plain generator of collated batches for one epoch: decode runs
         wherever it is driven from (the prefetch thread)."""
-        for b in range(len(self)):
-            sel = order[b * self.batch_size : (b + 1) * self.batch_size]
+        for sel, mask in self._selections(order):
             if self._decoder is not None:
-                yield self._native_batch(sel)
+                out = self._native_batch(sel)
             else:
-                yield self._pil_batch(sel)
+                out = self._pil_batch(sel)
+            if mask is not None:
+                out["mask"] = mask
+            yield out
 
     def __iter__(self):
         order = self._order()

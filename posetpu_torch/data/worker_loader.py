@@ -14,7 +14,7 @@ one core's worth for a batch of 32 MPII frames, more than 7 workers decode.)
 The batch
 contract is ``HostLoader``'s: the same fields, ``__len__``, ``drop_last``,
 ``shuffle``, ``epoch``, ``place`` (the pinned copy on the placer's stream),
-``ready`` and ``group``.
+``ready``, ``group``, ``pad`` and ``shard``.
 
 The epoch order is ``HostLoader._order``'s (``RandomState(seed +
 epoch)``), not grain's ``IndexSampler`` order, so ``WorkerLoader(
@@ -100,10 +100,11 @@ class WorkerLoader(HostLoader):
     (0: in the prefetch thread, as ``HostLoader(backend="pil")``)."""
 
     def __init__(self, dataset, batch_size, pad_hw=(512, 512), shuffle=True, seed=0,
-                 drop_last=True, prefetch=2, place=None, group=None, num_workers=0):
+                 drop_last=True, prefetch=2, place=None, group=None, pad=False,
+                 shard=None, num_workers=0):
         super().__init__(dataset, batch_size, pad_hw=pad_hw, shuffle=shuffle,
                          seed=seed, drop_last=drop_last, prefetch=prefetch,
-                         backend="pil", place=place, group=group)
+                         backend="pil", place=place, group=group, pad=pad, shard=shard)
         if num_workers < 0:
             raise ValueError(f"num_workers must be >= 0, got {num_workers}")
         self.num_workers = num_workers
@@ -111,20 +112,21 @@ class WorkerLoader(HostLoader):
 
     def _prefetch_factor(self):
         # a batch's worth of samples in flight across the workers
-        return max(2, -(-self.batch_size // self.num_workers)) if self.num_workers else None
+        return max(2, -(-self.rows // self.num_workers)) if self.num_workers else None
 
     def _slot_buffers(self):
         """The ring of batch buffers the workers decode into, made once.
         The DataLoader hands out a new task only as it returns a sample, so
         at most ``ahead = prefetch_factor * num_workers`` samples are out
         beyond the last one returned: while batch b's slot is copied out,
-        the workers write batches b+1 .. b+ceil(ahead / batch_size), and a
-        ring of 1 + ceil(ahead / batch_size) slots never gives them b's.
+        the workers write batches b+1 .. b+ceil(ahead / rows), and a
+        ring of 1 + ceil(ahead / rows) slots never gives them b's (``rows``
+        is the batch this process decodes: its rank's share).
         Without workers nothing runs ahead: one slot."""
         ahead = self._prefetch_factor() * self.num_workers if self.num_workers else 0
         if self._slots is None:
-            n = 1 + -(-ahead // self.batch_size)
-            self._slots = torch.empty((n, self.batch_size, *self.pad_hw, 3),
+            n = 1 + -(-ahead // self.rows)
+            self._slots = torch.empty((n, self.rows, *self.pad_hw, 3),
                                       dtype=torch.uint8)
             if self.num_workers:
                 self._slots.share_memory_()
@@ -149,17 +151,20 @@ class WorkerLoader(HostLoader):
         buffer when it has one).  The workers stop when the epoch ends or
         is closed early."""
         slots = self._slot_buffers()
-        B, nb = self.batch_size, len(self)
-        tasks = [(b % len(slots), j, int(i)) for b in range(nb)
-                 for j, i in enumerate(order[b * B:(b + 1) * B])]
+        sels = list(self._selections(order))
+        tasks = [(b % len(slots), j, int(i)) for b, (sel, _) in enumerate(sels)
+                 for j, i in enumerate(sel)]
         samples = iter(self._data_loader(tasks, slots))
         try:
-            for b in range(nb):
-                n = min(B, len(tasks) - b * B)
+            for b, (sel, mask) in enumerate(sels):
+                n = len(sel)
                 items = [next(samples) for _ in range(n)]
                 arr, image = self._image_buffer(n)
                 np.copyto(arr, slots[b % len(slots), :n].numpy())
-                yield {"image": image, **_collate(items)}
+                out = {"image": image, **_collate(items)}
+                if mask is not None:
+                    out["mask"] = mask
+                yield out
         finally:
             shutdown = getattr(samples, "_shutdown_workers", None)
             if shutdown is not None:

@@ -10,7 +10,8 @@ JSON), 1.2 x |head_top - upper_neck| from the keypoints stands in.
     posetpu-torch-eval --config hg2_mpii_mini --checkpoint DIR [--best]
         [--synthetic] [--cpu]
 
-(or ``python -m posetpu_torch.eval.cli``).  Runs on CUDA unless ``--cpu``.
+(or ``python -m posetpu_torch.eval.cli``).  Runs on CUDA unless ``--cpu``,
+in one process: a data-parallel config's ``num_devices`` is not read.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ def main(argv=None):
 
     cfg = apply_overrides(named_config(args.config), args)
     cfg.resume = ""  # restored below
+    cfg.num_devices = None  # one process evaluates
     exp = Experiment(cfg, eval_only=True, device="cpu" if args.cpu else "cuda")
     try:
         path = exp.ckpt.best_path if args.best else None

@@ -153,7 +153,9 @@ class AugAgent(nn.Module):
     bf16, and the convs, BatchNorms and ``hidden`` run under bf16 autocast
     with float32 parameters and statistics, as the reference computes; the
     heads are float32 either way.  BatchNorm in train mode follows flax
-    (:func:`posetpu_torch.models.batchnorm.flax_train_forward`).
+    (:func:`posetpu_torch.models.batchnorm.flax_train_forward`); under data
+    parallelism it takes the process group through
+    :func:`posetpu_torch.models.batchnorm.convert_cross_replica_`.
 
     The agent is made on ``device`` (default CUDA; raises without it unless
     ``device="cpu"``).

@@ -1,4 +1,5 @@
-"""flax's train-mode BatchNorm statistics on torch's ``BatchNorm2d``.
+"""flax's train-mode BatchNorm statistics on torch's ``BatchNorm2d``, on
+one process or across the ranks of a data-parallel group.
 
 flax (``momentum=0.9``, eps 1e-5) averages the *biased* batch variance into
 its running variance; torch (``momentum=0.1``) takes the unbiased one.
@@ -6,6 +7,17 @@ its running variance; torch (``momentum=0.1``) takes the unbiased one.
 taken over, and :func:`flax_train_forward` corrects torch's update after a
 train-mode forward.  Every network of the port that mirrors a flax
 BatchNorm in train mode runs its forward through it.
+
+Across ranks (:func:`convert_cross_replica_`, the reference's
+``nn.BatchNorm(axis_name=...)``) a norm computes flax 0.12's
+``_compute_stats`` with ``use_fast_variance=True`` itself: each rank's
+float32 mean and mean of squares per channel, averaged over the ranks in
+one differentiable all-reduce of a (2, C) stack, ``var = max(mu2 - mu²,
+0)``, and the running statistics ``0.9 r + 0.1 stat`` with that biased
+global variance.  It updates its running statistics itself, so
+:func:`flax_train_forward` leaves it out and the correction is applied
+exactly once.  It is written in plain torch ops, which run on the CPU as
+on the card (torch's ``SyncBatchNorm`` refuses CPU tensors).
 """
 
 from __future__ import annotations
@@ -13,19 +25,64 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from posetpu_torch.parallel.dp import all_reduce_sum, group_size
+
+# flax's BatchNorm momentum (torch's ``momentum`` is 1 minus it)
+FLAX_MOMENTUM = 0.9
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """torch's BatchNorm2d that records, in train mode, how many values
     each channel's batch statistics were taken over (B*H*W of its last
-    input), for :func:`flax_train_forward`.  Parameters, buffers and
-    state-dict names are torch's."""
+    input), for :func:`flax_train_forward`.  With ``group`` set
+    (:func:`convert_cross_replica_`) its train-mode statistics are taken
+    across that group's ranks.  Parameters, buffers and state-dict names
+    are torch's."""
 
     batch_count = None
+    group = None
 
     def forward(self, x):
-        if self.training:
-            self.batch_count = x.numel() // x.shape[1]
+        if not self.training:
+            return super().forward(x)
+        if self.group is not None:
+            return self._cross_replica(x)
+        self.batch_count = x.numel() // x.shape[1]
         return super().forward(x)
+
+    def _cross_replica(self, x):
+        """flax's ``_compute_stats`` (fast variance, pmean of the (2, C)
+        moments) and ``_normalize``, in float32 (or wider), cast to ``x``'s
+        dtype."""
+        # at least float32, as flax promotes (a float64 reference stays so)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3)
+        moments = torch.stack([xf.mean(dims), (xf * xf).mean(dims)])
+        moments = all_reduce_sum(moments, self.group) / group_size(self.group)
+        mu, mu2 = moments[0], moments[1]
+        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        with torch.no_grad():
+            m = FLAX_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mu)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mu[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def convert_cross_replica_(model, group):
+    """Make every :class:`BatchNorm2d` of ``model`` take its train-mode
+    statistics across the ranks of ``group``, in place (as
+    ``SyncBatchNorm.convert_sync_batchnorm`` does, without new modules: the
+    parameters, buffers and state-dict names stay).  A group of one rank
+    (or None) leaves the norms as they are: their statistics are the
+    local batch's already.  Returns ``model``."""
+    g = group if group_size(group) > 1 else None
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = g
+    return model
 
 
 def flax_train_forward(norms, forward, x):
@@ -37,8 +94,12 @@ def flax_train_forward(norms, forward, x):
     per channel, so ``rv_t*(1-1/n) + m*rv/n`` is flax's value: one copy of
     each C-sized ``rv`` before the forward and three ``_foreach`` calls over
     all BatchNorms after it.  Each norm must see exactly one input in
-    ``forward``.
+    ``forward``.  A cross-replica norm (``group`` set) takes flax's
+    update itself and is left out.
     """
+    norms = [bn for bn in norms if bn.group is None]
+    if not norms:
+        return forward(x)
     # ``.data``: autograd saved the buffers with the forward (a train-mode
     # backward reads the saved batch statistics, never these), and an
     # update it tracked would fail that check

@@ -15,7 +15,9 @@ BatchNorm: eps 1e-5; flax ``momentum=0.9`` is torch ``momentum=0.1``.
 In train mode the running variances follow flax, which averages in the
 *biased* batch variance where torch takes the unbiased one
 (:mod:`posetpu_torch.models.batchnorm`).  Eval mode is torch's BatchNorm
-as it is.
+as it is.  Under data parallelism the network takes its process group
+through :func:`posetpu_torch.models.batchnorm.convert_cross_replica_`, as
+the reference's modules take ``axis_name``.
 """
 
 from __future__ import annotations

@@ -16,7 +16,14 @@ One joint minimax step, eagerly on one device:
 
 The reference builds this same math twice (``make_joint_step`` and
 ``make_joint_step_split``) for XLA's compile times; the port has only
-``make_joint_step``.  Data parallelism (``axis_name``) waits for its slice.
+``make_joint_step``.
+
+Data parallelism (the reference's ``axis_name``): with ``group`` each rank
+runs the step on its slice of the global batch; the pose and agent
+gradients are averaged over the ranks before their updates, the advantage
+is standardized with the moments of the global batch, and the metrics are
+reduced (:func:`make_joint_step`).  The draws are keyed on the global
+sample index, so W ranks draw what one process draws at the global batch.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from posetpu_torch.models.agent import (
     sample_occlusion_tree,
     scale_bin_table,
 )
+from posetpu_torch.parallel.dp import mean_grads_, reduce_metrics
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train.step import (
     _normalization,
@@ -186,14 +194,19 @@ def entropy(logits):
     return sum(ents) / len(ents)
 
 
-def normalize_advantage(adv, baseline):
+def normalize_advantage(adv, baseline, group=None):
     """``"batch_mean"``: standardize with the batch's biased moments,
     ``(adv - m) / (sqrt(max(E[adv²] - m², 0)) + 1e-6)``; ``"sign"``: its
-    sign; any other value leaves it as it is, as the reference does."""
+    sign; any other value leaves it as it is, as the reference does.  With
+    ``group`` the moments m and E[adv²] are averaged over the ranks before
+    the std (equal slices make them the global batch's): the mean of the
+    ranks' stds is not the global std."""
     adv = adv.detach()
     if baseline == "batch_mean":
         m = adv.mean()
         m2 = (adv * adv).mean()
+        if group is not None:
+            (m, m2), _ = reduce_metrics(group, means=(m, m2))
         s = torch.sqrt(torch.clamp(m2 - m * m, min=0.0)) + 1e-6
         adv = (adv - m) / s
     elif baseline == "sign":
@@ -240,6 +253,7 @@ def make_joint_step(
     ref_baseline=True,
     update_every=1,
     pose_ref_weight=0.0,
+    group=None,
     device="cuda",
 ):
     """Build the joint minimax step.
@@ -264,6 +278,14 @@ def make_joint_step(
     - ``occ_boxes`` (N, 4) turns on grid occlusion (tree or flat); "parts"
       is on when the agent has occlusion heads.  ``occ_mode`` and
       ``occ_levels`` default to the agent's own.
+    - ``group`` (data parallelism): ``batch`` is this rank's slice of the
+      global batch.  The pose and agent gradients are averaged over the
+      ranks, ``normalize_advantage`` takes the global moments, ``loss``,
+      ``agent_loss``, ``entropy`` and ``advantage`` are averaged and the
+      PCK hits and counts summed.  Every rank takes the same
+      ``update_every`` branch (the step count is the same on all).  The
+      models' BatchNorms take the group through
+      :func:`posetpu_torch.models.batchnorm.convert_cross_replica_`.
 
     The models move to ``device`` (default CUDA; raises without it unless
     ``device="cpu"``).
@@ -364,6 +386,8 @@ def make_joint_step(
             loss = l_sample.mean()
         pose_opt.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            mean_grads_(pose_model.parameters(), group)
         pose_opt.step()
 
         # reward: harder-than-reference draws get a positive advantage
@@ -374,23 +398,28 @@ def make_joint_step(
         elif not ref_baseline:
             l_ref = l_adv.mean() * torch.ones_like(l_adv)
         gap = l_adv - l_ref
-        adv = normalize_advantage(gap, baseline)
+        adv = normalize_advantage(gap, baseline, group=group)
         agent_loss = -(adv * policy_logp(logits, extras)).mean()
         if do_update:
             agent_opt.zero_grad(set_to_none=True)
             agent_loss.backward()
+            if group is not None:
+                mean_grads_(agent_model.parameters(), group)
             agent_opt.step()
             state.agent.step += 1
 
         hit, cnt = pck_counts(outs[-1][:B].detach().float(), tgt_a)
+        means = [loss.detach(), agent_loss.detach(), gap.mean(), entropy(drawn)]
+        if group is not None:
+            means, (hit, cnt) = reduce_metrics(group, means=means, sums=(hit, cnt))
         state.pose.step += 1
         state.step += 1
         return {
-            "loss": loss.detach(),
+            "loss": means[0],
             "acc": pck_from_counts(hit, cnt)[0],
-            "agent_loss": agent_loss.detach(),
-            "advantage": gap.mean(),
-            "entropy": entropy(drawn),
+            "agent_loss": means[1],
+            "advantage": means[2],
+            "entropy": means[3],
         }
 
     return joint_step

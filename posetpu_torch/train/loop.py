@@ -1,5 +1,6 @@
 """Experiment driver — the counterpart of ``posetpu/train/loop.py``
-(``build_dataset``, ``Experiment``), on one device.
+(``build_dataset``, ``Experiment``), on one device or as one rank of a
+data-parallel run.
 
 It builds the data, the network (and the agent), the optimizers and the
 steps from an ExperimentConfig, then runs epochs of train and validate,
@@ -12,7 +13,18 @@ improvement), resumes, and writes the validation predictions
 ``cfg.steps_per_dispatch`` = K steps a dispatch
 (:func:`posetpu_torch.train.step.make_dispatch_step`), on CUDA as one
 CUDA graph, K = 1 included; the joint (agent) step runs eagerly, one step
-a batch.  Data parallelism waits for its slice.
+a batch.
+
+Data parallelism: ``Experiment(cfg, rank=r, world=W)`` is rank r of W
+processes already joined in the default process group
+(:func:`posetpu_torch.parallel.init_process_group`; the train command line
+starts them).  ``cfg.batch_size`` is the global batch, which W must
+divide.  Each rank's loaders decode its rows of every global batch, its
+networks take their BatchNorm statistics across the ranks, and its steps
+reduce gradients and metrics over them; so the run computes what one
+process computes at the global batch.  Rank 0 alone writes the run
+directory (``config.json``, ``log.txt``, TensorBoard, checkpoints,
+``preds.mat``); every rank loads.
 """
 
 from __future__ import annotations
@@ -32,12 +44,20 @@ import torch.nn as nn
 
 from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.data.datasets import LspDataset, MpiiDataset
-from posetpu_torch.data.loader import HostLoader, make_batch_placer, pad_batch
+from posetpu_torch.data.loader import HostLoader, make_batch_placer
 from posetpu_torch.data.synthetic import make_synthetic_dataset
 from posetpu_torch.data.worker_loader import WorkerLoader
 from posetpu_torch.eval.decode import pck_from_counts
 from posetpu_torch.eval.export import save_preds
 from posetpu_torch.models import hg
+from posetpu_torch.models.batchnorm import convert_cross_replica_
+from posetpu_torch.parallel.dp import (
+    barrier,
+    broadcast_state_,
+    check_batch,
+    gather_rows,
+    resolve_num_devices,
+)
 from posetpu_torch.train.adversarial import JointState, agent_from_config, make_joint_step
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train.step import make_dispatch_step, make_eval_step
@@ -114,17 +134,48 @@ def loader_class(cfg):
                      "(expected 'host' or 'grain')")
 
 
-class Experiment:
-    """Everything needed to run or resume one config on one device."""
+def _process_group(rank, world):
+    """The default group for rank ``rank`` of ``world`` (None for one
+    process), checked against the group this process joined."""
+    if world == 1:
+        return None
+    import torch.distributed as dist
 
-    def __init__(self, cfg, eval_only=False, device="cuda"):
+    if not dist.is_initialized():
+        raise RuntimeError(f"rank {rank} of {world}: join the process group first "
+                           "(posetpu_torch.parallel.init_process_group)")
+    if (dist.get_rank(), dist.get_world_size()) != (rank, world):
+        raise ValueError(f"rank {rank} of {world}, but this process is rank "
+                         f"{dist.get_rank()} of {dist.get_world_size()}")
+    return dist.group.WORLD
+
+
+class Experiment:
+    """Everything needed to run or resume one config on one device, or
+    as one rank of a data-parallel run."""
+
+    def __init__(self, cfg, eval_only=False, device="cuda", rank=0, world=1):
         """``eval_only``: built for offline evaluation; the run directory's
         files are not changed (log.txt opens in resume mode, config.json is
         not rewritten).  ``device`` defaults to CUDA and raises without it
-        unless ``"cpu"``."""
+        unless ``"cpu"``; a rank passes its own (``cuda:<local rank>``).
+        ``rank``/``world``: this process's place in the default process
+        group (module docstring).  ``cfg.num_devices``, when set, must be
+        ``world``, and no more than the visible devices."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.eval_only = eval_only
+        if cfg.num_devices is not None:
+            n_dev = resolve_num_devices(cfg.num_devices, self.device.type)
+            if n_dev != world:
+                raise ValueError(
+                    f"config requests num_devices={n_dev}, but this process is "
+                    f"rank {rank} of {world}: start the ranks with "
+                    f"posetpu-torch-train --num-devices {n_dev}")
+        check_batch(cfg.batch_size, world)
+        self.rank, self.world = rank, world
+        self.group = _process_group(rank, world)
+        self.is_main = rank == 0
         self.K = max(1, int(cfg.steps_per_dispatch))
         if self.K > 1 and cfg.agent.enabled:
             raise ValueError(
@@ -133,6 +184,8 @@ class Experiment:
                 "branch is later work): keep steps_per_dispatch=1"
             )
         loader_cls, loader_kw = loader_class(cfg)
+        if self.group is not None:
+            loader_kw["shard"] = (rank, world)
         self.train_ds = build_dataset(cfg, "train")
         self.val_ds = build_dataset(cfg, "valid")
         self.mean, self.std = self.train_ds.mean_std()
@@ -147,11 +200,12 @@ class Experiment:
             place=make_batch_placer(self.device),
             group=None if cfg.agent.enabled else self.K, **loader_kw,
         )
-        # validation batches stay on the host: pad_batch pads the ragged
-        # last batch in numpy before the eval step copies it
+        # validation batches stay on the host until the eval step copies
+        # them; the loader pads the ragged last batch to the global batch
+        # (before it takes the rank's rows) and gives each batch its mask
         self.val_loader = loader_cls(
             self.val_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), shuffle=False,
-            drop_last=False, **loader_kw,
+            drop_last=False, pad=True, **loader_kw,
         )
         self.steps_per_epoch = cfg.steps_per_epoch or len(self.loader)
 
@@ -161,6 +215,9 @@ class Experiment:
                depth=m.depth, dtype=torch.bfloat16 if m.bf16 else torch.float32),
             cfg.seed,
         )
+        # every rank draws the same weights; the broadcast makes it so
+        broadcast_state_(convert_cross_replica_(self.model.to(self.device), self.group),
+                         self.group)
         opt = make_optimizer(self.model.parameters(), cfg.optim, self.steps_per_epoch)
         pose_state = TrainState(self.model, opt)
         if cfg.agent.enabled:
@@ -168,22 +225,39 @@ class Experiment:
                 cfg, steps_per_epoch=self.steps_per_epoch, device="cpu"
             )
             seeded_init_(agent, cfg.seed + 1)
+            broadcast_state_(convert_cross_replica_(agent.to(self.device), self.group),
+                             self.group)
             self.state = JointState(pose_state, TrainState(agent, agent_opt))
             self.train_step = make_joint_step(
                 self.model, agent, opt, agent_opt, cfg.aug, self.mean, self.std,
-                seed=cfg.seed, device=self.device, **joint_kw,
+                seed=cfg.seed, group=self.group, device=self.device, **joint_kw,
             )
         else:
             self.state = pose_state
             self.train_step = make_dispatch_step(
                 self.model, opt, cfg.aug, self.mean, self.std, seed=cfg.seed,
-                steps=self.K, device=self.device,
+                steps=self.K, group=self.group, device=self.device,
             )
         self.eval_step = make_eval_step(self.model, cfg.aug, self.mean, self.std,
-                                        device=self.device)
+                                        group=self.group, device=self.device)
 
         run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
-        self.ckpt = CheckpointManager(run_dir)
+        self.ckpt = CheckpointManager(run_dir, group=self.group)
+        self.logger = None
+        self.tb = None
+        if self.is_main:
+            self._open_run_dir(run_dir)
+        barrier(self.group)
+        self.start_epoch = 0
+        self.best_acc = 0.0
+        if cfg.init_pose_from:
+            self._init_pose_from(cfg.init_pose_from)
+        if cfg.resume:
+            self._resume(cfg.resume)
+
+    def _open_run_dir(self, run_dir):
+        """The log, ``config.json`` and TensorBoard writer (rank 0)."""
+        cfg, eval_only = self.cfg, self.eval_only
         self.logger = Logger(os.path.join(run_dir, "log.txt"),
                              resume=bool(cfg.resume) or eval_only)
         self.logger.set_names(Logger.DEFAULT_NAMES)
@@ -191,7 +265,6 @@ class Experiment:
             # reproducibility: the exact resolved config next to the log
             with open(os.path.join(run_dir, "config.json"), "w") as f:
                 json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
-        self.tb = None
         if cfg.tensorboard and not eval_only:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -200,16 +273,11 @@ class Experiment:
                                   "torch.utils.tensorboard, which needs the "
                                   "tensorboard package; it is not installed") from e
             self.tb = SummaryWriter(os.path.join(run_dir, "tb"))
-        self.start_epoch = 0
-        self.best_acc = 0.0
-        if cfg.init_pose_from:
-            self._init_pose_from(cfg.init_pose_from)
-        if cfg.resume:
-            self._resume(cfg.resume)
 
     def close(self):
         """Close the log file and the TensorBoard writer."""
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()
         if self.tb is not None:
             self.tb.close()
 
@@ -270,7 +338,7 @@ class Experiment:
         """Load a baseline run's pose network (parameters and statistics;
         its ``best/`` checkpoint, else its latest) into this run's pose
         network.  The optimizer starts fresh, as the reference's does."""
-        src = CheckpointManager(path)
+        src = CheckpointManager(path, group=self.group)
         best = src.best_path
         sd = src.load(best if os.path.isdir(best) else None)["state"]
         self.model.load_state_dict(sd.get("pose", sd)["model"])
@@ -323,7 +391,7 @@ class Experiment:
                 k = self.steps_per_epoch - steps
                 batch = {n: v[:k] for n, v in batch.items()}
             device_metrics.append(self.train_step(self.state, batch))
-            seen += k * batch["index"].shape[-1]
+            seen += k * batch["index"].shape[-1] * self.world
             steps += k
             if steps >= self.steps_per_epoch:
                 break
@@ -347,32 +415,40 @@ class Experiment:
         """Loss and acc over the validation split, every batch padded to
         the batch size (one shape, as CUDA graphs will need), PCK from the
         split's global hit/count sums (returned too, as ``pck_hit`` and
-        ``pck_cnt``), predictions trimmed to the real rows."""
-        sums, preds, hits, cnts, n_total = {}, [], [], [], 0
+        ``pck_cnt``), predictions trimmed to the real rows.  Under data
+        parallelism the metrics are global already and each batch's
+        predictions and mask are gathered from the ranks in global order,
+        so every rank returns the whole split's."""
+        sums, preds, masks, hits, cnts = {}, [], [], [], []
         for batch in self.val_loader:
-            n = batch["image"].shape[0]
-            metrics, p = self.eval_step(pad_batch(batch, self.cfg.batch_size))
+            metrics, p = self.eval_step(batch)
+            mask = torch.as_tensor(batch["mask"], device=p.device)
+            p, mask = gather_rows(p, self.group), gather_rows(mask, self.group)
             hits.append(metrics["pck_hit"])
             cnts.append(metrics["pck_cnt"])
             for k, v in metrics.items():
                 if k not in ("pck_hit", "pck_cnt"):
-                    sums.setdefault(k, []).append((v, n))
-            preds.append(p[:n])
-            n_total += n
+                    sums.setdefault(k, []).append(v)
+            preds.append(p)
+            masks.append(mask)
         out = {}
+        ns = torch.stack([m.sum() for m in masks]).cpu().tolist() if masks else []
         for k, vs in sums.items():
-            vals = torch.stack([v.float() for v, _ in vs]).cpu().tolist()
+            vals = torch.stack([v.float() for v in vs]).cpu().tolist()
             meter = AverageMeter()
-            for x, (_, n) in zip(vals, vs):
-                meter.update(x, n=n)
+            for x, n in zip(vals, ns):
+                meter.update(x, n=int(n))
             out[k] = meter.avg
         if cnts:
             hit = torch.stack(hits).double().sum(0).cpu()
             cnt = torch.stack(cnts).double().sum(0).cpu()
             out["acc"] = float(pck_from_counts(hit, cnt)[0])
             out["pck_hit"], out["pck_cnt"] = hit.numpy(), cnt.numpy()
-        preds = (torch.cat(preds).cpu().numpy() if preds
-                 else np.zeros((0, 0, 2), np.float32))
+        if preds:
+            real = torch.cat(masks).cpu() > 0  # padding trails each batch
+            preds = torch.cat(preds).cpu()[real].numpy()
+        else:
+            preds = np.zeros((0, 0, 2), np.float32)
         return out, preds
 
     def current_lr(self, epoch):
@@ -397,11 +473,13 @@ class Experiment:
                 va, preds = {"loss": float("nan"), "acc": 0.0}, None
             is_best = va["acc"] > self.best_acc
             self.best_acc = max(self.best_acc, va["acc"])
+            self.ckpt.save(self.state, epoch, self.best_acc, is_best=is_best)
+            if not self.is_main:
+                continue
             self.logger.append([epoch, self.current_lr(epoch), tr["loss"], va["loss"],
                                 tr["acc"], va["acc"]])
             if self.tb is not None:
                 self._write_scalars(epoch, tr, va if preds is not None else None)
-            self.ckpt.save(self.state, epoch, self.best_acc, is_best=is_best)
             if is_best and preds is not None:
                 save_preds(preds, os.path.join(run_dir, "preds.mat"))
             progress(
@@ -410,6 +488,9 @@ class Experiment:
                 f"| {tr['images_per_sec']:.1f} img/s"
                 + (f" | agent {tr['agent_loss']:+.4f}" if "agent_loss" in tr else "")
             )
+        barrier(self.group)  # rank 0's last log row and preds are written
+        if not self.is_main:
+            return self.state, self.best_acc
         # the reference leaves curve plots next to log.txt
         try:
             self.logger.plot()

@@ -29,7 +29,18 @@ in.  The rules of the graph:
 - anything that loads state into a captured step's tensors loads it in
   place (``copy_``).
 
-``axis_name`` (data parallelism) and remat wait for their slices.
+Data parallelism (the reference's ``axis_name``): every step takes
+``group``, a ``torch.distributed`` process group whose ranks each hold
+their slice of the global batch (:mod:`posetpu_torch.parallel`).  The train
+math averages the gradients over the ranks in one flat bucket before the
+update (``pmean``), averages the loss and sums the PCK hits and counts
+before their ratio; the eval step sums its masked sums and counts.  The
+collectives are plain calls, so the graphed step captures them: under NCCL
+the all-reduce runs inside the CUDA graph.  A gloo collective cannot be
+captured, so :func:`make_dispatch_step` on CUDA refuses a gloo group.
+The models' BatchNorms take the same group
+(:func:`posetpu_torch.models.batchnorm.convert_cross_replica_`).  Remat
+waits for its slice.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from posetpu_torch.aug.pipeline import (
     sample_aug_params_ps,
 )
 from posetpu_torch.eval.decode import final_preds, pck_counts, pck_from_counts
+from posetpu_torch.parallel.dp import is_gloo, mean_grads_, reduce_metrics
 from posetpu_torch.utils.device import resolve_device
 
 
@@ -84,10 +96,11 @@ def _normalization(mean, std, dev):
     return mean_t, std_t
 
 
-def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev):
+def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev, group):
     """``run(step, batch, update) -> metrics``: one train step's math with
     the draws keyed on ``step`` (an int or a 0-d device tensor) and
-    ``update()`` applying the optimizer."""
+    ``update()`` applying the optimizer; with a ``group``, the gradients
+    and metrics reduced over its ranks."""
     model.to(dev)
     mean_t, std_t = _normalization(mean, std, dev)
 
@@ -117,9 +130,15 @@ def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev):
         )
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            mean_grads_(model.parameters(), group)
         update()
+        loss = loss.detach()
         hit, cnt = pck_counts(outs[-1].detach(), aug["target"])
-        return {"loss": loss.detach(), "acc": pck_from_counts(hit, cnt)[0]}
+        if group is not None:
+            # global PCK: the ratio of the summed counts, not a mean of ratios
+            (loss,), (hit, cnt) = reduce_metrics(group, means=(loss,), sums=(hit, cnt))
+        return {"loss": loss, "acc": pck_from_counts(hit, cnt)[0]}
 
     return run
 
@@ -131,7 +150,7 @@ def _check_state(state, model, optimizer):
 
 
 def make_train_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
-                    mask_loss=False, device="cuda"):
+                    mask_loss=False, group=None, device="cuda"):
     """Build the baseline train step (no agent): draw augmentation, augment
     on the device, forward in train mode, summed-stack MSE, backward, one
     optimizer update, train PCK from the last stack.
@@ -148,11 +167,16 @@ def make_train_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     ``target_weight`` of each joint.  ``metrics`` (``loss``, ``acc``) stay
     device tensors: the step never waits for the device.
 
+    With ``group`` (data parallelism) ``batch`` is this rank's slice of
+    the global batch, and the gradients, loss and PCK counts are reduced
+    over the group's ranks (module docstring): W ranks at B/W rows each
+    compute the step of one process at B.
+
     The model moves to ``device`` (default CUDA; raises without it unless
     ``device="cpu"``).
     """
     run = _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss,
-                      resolve_device(device))
+                      resolve_device(device), group)
 
     def train_step(state, batch):
         _check_state(state, model, optimizer)
@@ -178,7 +202,7 @@ class DeviceCounters:
 
 
 def make_train_body(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
-                    mask_loss=False, device="cuda"):
+                    mask_loss=False, group=None, device="cuda"):
     """:func:`make_train_step`'s math with its counters on the device:
     ``body(counters, batch) -> metrics`` keys the draws on
     ``counters.step``, reads the schedule at ``counters.count``
@@ -186,9 +210,10 @@ def make_train_body(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     <posetpu_torch.train.state.OptaxRMSprop.step_at>`) and advances both
     by one in place.  It syncs with the host nowhere, so a CUDA graph can
     capture it.  The state's Python ints are the caller's to advance.
-    Draws, updates and metrics equal ``make_train_step``'s exactly."""
+    Draws, updates and metrics equal ``make_train_step``'s exactly, with
+    ``group`` as there."""
     run = _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss,
-                      resolve_device(device))
+                      resolve_device(device), group)
 
     def body(counters, batch):
         metrics = run(counters.step, batch, lambda: optimizer.step_at(counters.count))
@@ -279,7 +304,7 @@ class GraphedSteps:
 
 
 def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
-                       mask_loss=False, steps=2, device="cuda"):
+                       mask_loss=False, steps=2, group=None, device="cuda"):
     """K = ``steps`` train steps per dispatch — the counterpart of
     ``fuse_steps`` with ``HostLoader(group=K)``.
 
@@ -300,16 +325,24 @@ def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     back to eager steps.  A short superbatch (an epoch's last group) runs
     as eager body steps.  On the CPU every dispatch runs the body k times
     eagerly.
+
+    With ``group`` each superbatch is this rank's (K, B/W, ...) slice
+    (``P(None, axis)``) and the body reduces as :func:`make_train_step`
+    does; on CUDA the graph captures its all-reduces, which needs NCCL: a
+    gloo group raises here.
     """
     dev = resolve_device(device)
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
+    if dev.type == "cuda" and is_gloo(group):
+        raise ValueError("a CUDA graph cannot capture a gloo collective: the "
+                         "graphed step on CUDA needs an NCCL group")
     body = make_train_body(model, optimizer, aug_cfg, mean, std, seed=seed,
-                           mask_loss=mask_loss, device=dev)
+                           mask_loss=mask_loss, group=group, device=dev)
     return GraphedSteps(body, model, optimizer, steps, dev)
 
 
-def make_eval_step(model, aug_cfg, mean, std=None, *, device="cuda"):
+def make_eval_step(model, aug_cfg, mean, std=None, *, group=None, device="cuda"):
     """Build the validation step: neutral crop, forward, train-time PCK and
     the full decode back to source coords.
 
@@ -321,6 +354,11 @@ def make_eval_step(model, aug_cfg, mean, std=None, *, device="cuda"):
     without it unless ``device="cpu"``); arrays may be numpy or tensors and
     move there too.  The step runs under ``torch.no_grad()`` with the model
     in ``eval()`` and restores the model's mode afterwards.
+
+    With ``group`` the batch is this rank's slice; ``pck_hit``,
+    ``pck_cnt``, the masked loss sum and the real-row count are summed over
+    the ranks before ``loss`` and ``acc`` (the reference's ``psum``), and
+    ``preds`` stay this rank's rows.
     """
     dev = resolve_device(device)
     model.to(dev)
@@ -351,7 +389,13 @@ def make_eval_step(model, aug_cfg, mean, std=None, *, device="cuda"):
         )
         hit, cnt = pck_counts(scores, aug["target"], sample_mask=mask)
         loss_sum = (per_sample_stacked_mse(outs, aug["target"]) * mask).sum()
-        loss = loss_sum / torch.clamp(mask.sum(), min=1.0)
+        n = mask.sum()
+        if group is not None:
+            _, sums = reduce_metrics(group, sums=(hit, cnt, loss_sum, n))
+            counts = hit.dtype
+            hit, cnt, loss_sum, n = sums
+            hit, cnt = hit.to(counts), cnt.to(counts)
+        loss = loss_sum / torch.clamp(n, min=1.0)
         metrics = {
             "loss": loss,
             "acc": pck_from_counts(hit, cnt)[0],

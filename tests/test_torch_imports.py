@@ -40,7 +40,8 @@ def test_importing_every_module_loads_no_jax():
             "posetpu_torch.eval.export", "posetpu_torch.ckpt.manager",
             "posetpu_torch.train.loop", "posetpu_torch.train.cli",
             "posetpu_torch.eval.cli", "posetpu_torch.data.worker_loader",
-            "posetpu_torch.utils.profiling"} <= set(mods)
+            "posetpu_torch.utils.profiling", "posetpu_torch.parallel",
+            "posetpu_torch.parallel.dp", "posetpu_torch.parallel.launch"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -63,6 +64,8 @@ def _python_files():
 def test_no_source_imports_jax_or_the_jax_package():
     files = _python_files()
     assert len(files) > 10
+    assert {os.path.join(REPO, "posetpu_torch", "parallel", n)
+            for n in ("__init__.py", "dp.py", "launch.py")} <= set(files)
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -408,8 +408,8 @@ def record(monkeypatch):
         rec["losses"].append(out.detach().clone())
         return out
 
-    def rec_norm(gap, baseline):
-        out = norm(gap, baseline)
+    def rec_norm(gap, baseline, group=None):
+        out = norm(gap, baseline, group)
         rec["gap"], rec["adv"] = gap.detach().clone(), out.clone()
         return out
 
