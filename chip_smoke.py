@@ -61,7 +61,8 @@ Phases, each printing one JSON line:
              preds.mat, and the rasterizer's launches (train steps +
              validation batches + each run's warm-up steps before its capture)
   fit_joint  one epoch each of hg8_mpii_asr and hg8_lsp_aho (a synthetic LSP
-             split, 14 joints) through the same CLI; launches 2 per joint
+             split, 14 joints) through the same CLI, each joint step a CUDA
+             graph of one step; launches 2 per joint step and per warm-up
              step + validation batches
   dispatch   make_dispatch_step at full hg8_mpii width, bf16, batch 32, K = 4
              train steps a CUDA graph: two eager runs of 4 steps and one
@@ -82,11 +83,34 @@ Phases, each printing one JSON line:
              once more, and the capture's warm-up steps), the trace file,
              the event file
 
+  joint_dispatch_parity  make_joint_dispatch_step at hg2 feats 8, f32, TF32
+             off, deterministic algorithms: three graphed dispatches of K = 2
+             equal 6 make_joint_step calls bit for bit (both networks,
+             moments, statistics, every step and count, metrics) for scale
+             and rotation, tree occlusion on 14 joints, body parts,
+             update_every=3 (three update patterns, three graphs; the one
+             without an update leaves the agent as it was) and
+             pose_ref_weight=0.3; a state load captures again
+  joint_dispatch  make_joint_dispatch_step with hg8_mpii_asr at full width,
+             bf16, batch 32, K = 4: two eager runs and the graph from one
+             state (the graph within twice the eager runs' gap), the
+             capture's seconds and memory, 3 timed dispatches (graphed and
+             eager img/s, launches 2 a replayed step), one under
+             torch.profiler (busy ms a step, idle share); then hg8_lsp_aho
+             at K = 1
+  fit_joint_dispatch  the train CLI with hg8_mpii_asr, batch 16,
+             --steps-per-dispatch 2 capped at 3 steps an epoch (a graphed
+             dispatch and a trimmed one), the worker loader, TensorBoard and
+             --profile, 2 epochs, then --resume auto to 3: log rows,
+             checkpoints (the agent's step and count), launches, trace and
+             event files
+
   dp_nccl1   NCCL at world size 1 in this process: make_dispatch_step with
              the group, K = 2, hg2 feats 8, f32, TF32 off, deterministic:
              every all-reduce of the captured steps issued while the stream
              captures, and the result equal to the group-less graph's bit
-             for bit (parameters, statistics, moments, metrics)
+             for bit (parameters, statistics, moments, metrics); the same
+             for the joint graph (4 all-reduces a captured step)
   dp_gloo2   two gloo ranks sharing the card (CUDA tensors), each with half
              of a global batch of 8: the train, joint and eval steps
              against one process on the same batch and weights, in f32 at
@@ -96,10 +120,11 @@ Phases, each printing one JSON line:
              the ranks end equal
   dp_config  hg8_mpii_384_dp8 at full width (8 stacks, 128 features, 384²
              crops, 96² heatmaps, the agent, bf16, global batch 48) through
-             Experiment with num_devices 1 on the synthetic split: epochs
-             of joint steps and a validation pass (launches 2 a step and 1
-             a validation batch), then timed steps on one placed batch
-             (img/s, CUDA-event ms, device busy ms, idle share, peak memory)
+             Experiment with num_devices 1 and --steps-per-dispatch 2 on the
+             synthetic split: epochs of joint steps and a validation pass
+             (launches 2 a step and 1 a validation batch), then graphed
+             dispatches of 2 steps on one placed batch (img/s, CUDA-event
+             ms, device busy ms, idle share, peak memory, capture seconds)
 
 The loader phase also times WorkerLoader at 0, 4 and 7 worker processes
 over the same JPEGs (its batches equal HostLoader's Pillow batches
@@ -173,6 +198,7 @@ from posetpu_torch.parallel.launch import to_numpy
 from posetpu_torch.train.adversarial import (
     JointState,
     agent_from_config,
+    make_joint_dispatch_step,
     make_joint_step,
 )
 from posetpu_torch.train.state import TrainState, make_optimizer
@@ -1472,8 +1498,9 @@ def phase_fit(workdir):
 
 def phase_fit_joint(workdir):
     """One epoch each of hg8_mpii_asr and hg8_lsp_aho through the train
-    CLI at full width, batch 32: 2 rasterizer launches per joint step and
-    1 per validation batch."""
+    CLI at full width, batch 32, each joint step a CUDA graph of one step
+    (K = 1): 2 rasterizer launches per joint step and per warm-up step
+    before the capture, and 1 per validation batch."""
     total, runs = 0, []
     for name in ("hg8_mpii_asr", "hg8_lsp_aho"):
         ckpt = os.path.join(workdir, name)
@@ -1483,7 +1510,7 @@ def phase_fit_joint(workdir):
             "--checkpoint", ckpt, "--epochs", "1"])
         seconds = time.perf_counter() - t0
         check(rc == 0, f"{name}: train cli returned {rc}")
-        want = JOINT_RASTER_LAUNCHES * FIT_STEPS + FIT_VAL_BATCHES
+        want = JOINT_RASTER_LAUNCHES * (FIT_STEPS + WARMUP_STEPS) + FIT_VAL_BATCHES
         check(launches == want, f"{name}: launches {launches}, want {want}")
         run_dir = os.path.join(ckpt, name)
         vals, best = _check_run(name, run_dir, 1, FIT_STEPS)
@@ -1519,16 +1546,43 @@ FIT_DISPATCH = ["--steps-per-dispatch", "2", "--loader-backend", "grain",
                 "--loader-workers", "4", "--tensorboard", "--profile"]
 
 
+@contextlib.contextmanager
+def _exact_f32():
+    """TF32 off and deterministic algorithms (main() sets
+    CUBLAS_WORKSPACE_CONFIG before any cuBLAS call)."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[:2]
+        torch.use_deterministic_algorithms(prev[2])
+
+
+def _graph_replay(dispatch):
+    """The replay of a dispatch step's one captured graph."""
+    (g,) = dispatch.graphs.values()
+    return g.graph.replay
+
+
 def _stack(batches, dev="cuda"):
     return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(dev)
             for k in batches[0]}
 
 
+def _snap_tensors(snap):
+    """The tensors of a ``TrainState.snapshot()`` or a
+    ``JointState.snapshot()`` (the pose state's, then the agent's)."""
+    return snap[0] if isinstance(snap[0], list) else snap[0][0] + snap[1][0]
+
+
 def _gap(a, b):
-    """Largest difference between two ``TrainState.snapshot()``s, over the
-    floating tensors."""
+    """Largest difference between two ``TrainState.snapshot()``s or two
+    ``JointState.snapshot()``s, over the floating tensors."""
     out = 0.0
-    for x, y in zip(a[0], b[0], strict=True):
+    for x, y in zip(_snap_tensors(a), _snap_tensors(b), strict=True):
         if x.is_floating_point():
             out = max(out, (x.float() - y.float()).abs().max().item())
     return out
@@ -1585,7 +1639,7 @@ def phase_dispatch(cfg):
     launches = dict(cuda_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     prof = _profile_step(lambda: dispatch(state, supers[1]))
-    replay_ms = cuda_ms(dispatch.graph.replay, reps=1, samples=5)
+    replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
 
     eager_gap = _gap(runs["eager_a"][0], runs["eager_b"][0])
     graph_gap = _gap(runs["eager_a"][0], runs["graph"][0])
@@ -1634,11 +1688,7 @@ def phase_dispatch_parity():
     K, B, J = PARITY_K, 8, cfg.model.classes
     rng = np.random.RandomState(SEED + 12)
     batches = [_train_batch(rng, B, (96, 128), J, 3000 + t * B) for t in range(PARITY_STEPS)]
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-            torch.are_deterministic_algorithms_enabled())
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    torch.use_deterministic_algorithms(True)
-    try:
+    with _exact_f32():
         torch.manual_seed(SEED + 11)
         base = hg(num_stacks=cfg.model.stacks, num_classes=J, num_feats=cfg.model.feats,
                   dtype=torch.float32)
@@ -1665,9 +1715,6 @@ def phase_dispatch_parity():
             torch.cuda.synchronize()
             runs[how] = (state.snapshot(), {k: v.cpu() for k, v in metrics.items()},
                          cuda_kernels.LAUNCHES["rasterize_gaussians"])
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[:2]
-        torch.use_deterministic_algorithms(prev[2])
     (se, me, le), (sg, mg, lg) = runs["eager"], runs["graph"]
     gap = _gap(se, sg)
     metric_gap = max((me[k] - mg[k]).abs().max().item() for k in me)
@@ -1720,13 +1767,317 @@ def phase_fit_dispatch(workdir, have_tensorboard):
     return launches
 
 
+# ---- K joint steps per dispatch (make_joint_dispatch_step)
+
+# joint_dispatch_parity: hg2 at feats 8, f32: JOINT_DISPATCHES graphed
+# dispatches of JOINT_DISPATCH_K joint steps against as many eager steps,
+# for each (case, named config, agent fields); "every3" updates the agent
+# at steps 0 and 3, so its dispatches from steps 0, 2 and 4 take three
+# patterns, (T, F), (F, T) and (F, F), each its own graph
+JOINT_DISPATCH_K, JOINT_DISPATCHES = 2, 3
+JOINT_DISPATCH_CASES = (
+    ("asr", "hg8_mpii_asr", {}),
+    ("tree_lsp", "hg8_lsp_aho", {}),
+    ("parts", "hg8_mpii_asr", dict(occ_mode="parts", occ_nodes=9)),
+    ("every3", "hg8_mpii_asr", dict(update_every=3)),
+    ("mixed", "hg8_mpii_asr", dict(pose_ref_weight=0.3)),
+)
+# the case whose pose optimizer is loaded before its last dispatch (new
+# moment tensors), which must capture again
+JOINT_DISPATCH_RELOAD = "asr"
+# fit_joint_dispatch: hg8_mpii_asr through the train CLI, K = 2, batch 16
+# (4 batches of the synthetic split an epoch) capped at 3 steps an epoch:
+# a graphed dispatch of 2 and one the cap trims to 1, run eagerly
+FIT_JOINT_BATCH, FIT_JOINT_STEPS = 16, 3
+FIT_JOINT_DISPATCH = ["--steps-per-dispatch", "2", "--steps-per-epoch", str(FIT_JOINT_STEPS),
+                      "--loader-backend", "grain", "--loader-workers", "4",
+                      "--tensorboard", "--profile"]
+
+
+def _joint_dispatch_for(state, cfg, dev, kw, steps, group=None):
+    return make_joint_dispatch_step(state.pose.model, state.agent.model,
+                                    state.pose.optimizer, state.agent.optimizer, cfg.aug,
+                                    MPII_MEAN, seed=SEED, steps=steps, group=group,
+                                    device=dev, **kw)
+
+
+def _small_joint_cfg(name, agent_fields):
+    """``name`` cut as joint_parity cuts it: hg2 at feats 8, depth 2, 64²
+    crops, f32, 5 scale and 5 rotation bins; its learning rates drop at
+    updates 2 and 4 (2 updates an epoch)."""
+    cfg = named_config(name)
+    cfg.model.stacks, cfg.model.feats, cfg.model.depth, cfg.model.bf16 = 2, 8, 2, False
+    cfg.aug.inp_res, cfg.aug.out_res = (64, 64), (16, 16)
+    cfg.optim = copy.deepcopy(OPT_CFG)
+    cfg.optim.schedule = (1, 2)
+    cfg.agent.scale_bins = cfg.agent.rot_bins = 5
+    for k, v in agent_fields.items():
+        setattr(cfg.agent, k, v)
+    return cfg
+
+
+def _same_state(label, a, b):
+    """Two JointState snapshots equal bit for bit, ints included."""
+    ta, tb = _snap_tensors(a), _snap_tensors(b)
+    if not (len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))):
+        check(False, f"{label}: graphed state differs from eager by {_gap(a, b)}")
+    check((a[0][1:], a[1][1:], a[2]) == (b[0][1:], b[1][1:], b[2]),
+          f"{label}: ints {a[0][1:], a[1][1:], a[2]} vs {b[0][1:], b[1][1:], b[2]}")
+
+
+def phase_joint_dispatch_parity():
+    """For each of JOINT_DISPATCH_CASES (hg2 feats 8, agent widths (8, 16),
+    f32, TF32 off, deterministic algorithms, batch 8): JOINT_DISPATCHES
+    graphed dispatches of JOINT_DISPATCH_K joint steps against the same
+    steps of make_joint_step from the same seeded state.  Both networks'
+    parameters, statistics and moments, every step and count, and the
+    metrics must be equal bit for bit; a dispatch whose pattern updates the
+    agent nowhere leaves the agent as it was; the rasterizer launches twice
+    a step, and twice a warm-up step before each capture.  In the
+    JOINT_DISPATCH_RELOAD case the pose optimizer's state is loaded before
+    the last dispatch, which must capture again."""
+    K, B = JOINT_DISPATCH_K, 8
+    steps = K * JOINT_DISPATCHES
+    cases = []
+    with _exact_f32():
+        for c, (label, name, fields) in enumerate(JOINT_DISPATCH_CASES):
+            cfg = _small_joint_cfg(name, fields)
+            rng = np.random.RandomState(SEED + 60 + c)
+            batches = [_train_batch(rng, B, (96, 128), cfg.model.classes, 5000 + t * B)
+                       for t in range(steps)]
+            runs, kept = {}, 0
+            for how in ("eager", "graph"):
+                state, kw = _joint_state(cfg, "cuda", SEED + 61 + c, widths=(8, 16),
+                                         steps_per_epoch=2)
+                cuda_kernels.reset_launches()
+                if how == "eager":
+                    step = _joint_step_for(state, cfg, "cuda", kw)
+                    ms = [step(state, b) for b in batches]
+                    metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+                else:
+                    dispatch = _joint_dispatch_for(state, cfg, "cuda", kw, K)
+                    parts = []
+                    for d in range(JOINT_DISPATCHES):
+                        if label == JOINT_DISPATCH_RELOAD and d == JOINT_DISPATCHES - 1:
+                            opt = state.pose.optimizer
+                            opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+                        idle = not any(dispatch.pattern(state.step, K))
+                        agent0 = [t.clone() for t in state.agent.tensors()] if idle else None
+                        parts.append(dispatch(state, _stack(batches[d * K:(d + 1) * K])))
+                        if idle:
+                            check(all(torch.equal(t, u) for t, u in
+                                      zip(state.agent.tensors(), agent0, strict=True)),
+                                  f"joint_dispatch_parity {label}: the agent moved in a "
+                                  "dispatch without an update step")
+                            kept += 1
+                    metrics = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+                    captures, patterns = dispatch.captures, sorted(dispatch.graphs)
+                    seconds, nbytes = dispatch.capture_seconds, dispatch.pool_bytes
+                torch.cuda.synchronize()
+                runs[how] = (state.snapshot(), {k: v.cpu() for k, v in metrics.items()},
+                             cuda_kernels.LAUNCHES["rasterize_gaussians"])
+            (se, me, le), (sg, mg, lg) = runs["eager"], runs["graph"]
+            want_captures = {"every3": 3, JOINT_DISPATCH_RELOAD: 2}.get(label, 1)
+            cases.append({"case": label, "config": name, **fields, "steps": steps,
+                          "captures": captures, "patterns": [list(p) for p in patterns],
+                          "capture_seconds": seconds, "pool_bytes": nbytes,
+                          "agent_kept_dispatches": kept, "param_gap": _gap(se, sg),
+                          "launches": {"eager": le, "graph": lg},
+                          "ints": [se[0][1:], se[1][1:], se[2]]})
+            label = f"joint_dispatch_parity {label}"
+            _same_state(label, se, sg)
+            for k in me:
+                check(torch.equal(me[k], mg[k]), f"{label}: graphed {k} differs from eager")
+            check(captures == want_captures, f"{label}: captures {captures}")
+            check(kept == (1 if cases[-1]["case"] == "every3" else 0), f"{label}: kept {kept}")
+            want = JOINT_RASTER_LAUNCHES * (steps + WARMUP_STEPS * captures)
+            check(le == JOINT_RASTER_LAUNCHES * steps and lg == want,
+                  f"{label}: launches eager {le}, graph {lg} (want {want})")
+    emit("joint_dispatch_parity", batch=B, steps_per_dispatch=K, dispatches=JOINT_DISPATCHES,
+         warmup_steps=WARMUP_STEPS, cases=cases)
+    return sum(c["launches"]["graph"] for c in cases)
+
+
+def phase_joint_dispatch():
+    """hg8_mpii_asr at full width (8 stacks, 128 features, 256², bf16,
+    batch 32), K = DISPATCH_K joint steps a CUDA graph, from one state: two
+    eager runs of K steps (make_joint_step) and one graphed dispatch, the
+    graph's gap to the first eager run within GRAPH_GAP_FACTOR of the eager
+    runs' own gap (both networks' parameters, statistics and moments;
+    losses).  The capture's seconds, the graph's memory and the first
+    dispatch's launches on a ``joint_dispatch_capture`` line; then
+    DISPATCH_TIMED timed dispatches with the launch counts reset just
+    before (2 a replayed step), and one under torch.profiler.  Then
+    hg8_lsp_aho at K = 1: three dispatches, the first capturing."""
+    cfg = named_config("hg8_mpii_asr")
+    K = DISPATCH_K
+    state, kw = _joint_state(cfg, "cuda", SEED + 20)
+    rng = np.random.RandomState(SEED + 21)
+    supers = [_stack([_train_batch(rng, BATCH, CANVAS, cfg.model.classes, (d * K + i) * BATCH)
+                      for i in range(K)]) for d in range(1 + DISPATCH_TIMED)]
+    eager = _joint_step_for(state, cfg, "cuda", kw)
+    eager(state, {k: v[0] for k, v in supers[-1].items()})  # cuDNN set-up, not compared
+    s0 = state.snapshot()
+    runs, eager_s = {}, []
+    for name in ("eager_a", "eager_b"):
+        state.restore_(s0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [eager(state, {k: v[i] for k, v in supers[0].items()}) for i in range(K)]
+        loss = torch.stack([m["loss"] for m in ms]).cpu()
+        eager_s.append(time.perf_counter() - t0)
+        runs[name] = (state.snapshot(), loss)
+    state.restore_(s0)
+    dispatch = _joint_dispatch_for(state, cfg, "cuda", kw, K)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    loss = dispatch(state, supers[0])["loss"].cpu()  # warms up, captures, replays
+    first = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    runs["graph"] = (state.snapshot(), loss)
+    emit("joint_dispatch_capture", config=cfg.name, steps=K,
+         seconds=dispatch.capture_seconds[0], pool_bytes=dispatch.pool_bytes[0],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         warmup_steps=WARMUP_STEPS, launches=first)
+    check(first == JOINT_RASTER_LAUNCHES * (WARMUP_STEPS + K),
+          f"first joint dispatch: {first} launches, want {JOINT_RASTER_LAUNCHES} x "
+          f"({WARMUP_STEPS} warm-up + {K} replayed)")
+
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [dispatch(state, sb) for sb in supers[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_step(lambda: dispatch(state, supers[1]))
+    replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
+
+    eager_gap = _gap(runs["eager_a"][0], runs["eager_b"][0])
+    graph_gap = _gap(runs["eager_a"][0], runs["graph"][0])
+    eager_loss_gap = (runs["eager_a"][1] - runs["eager_b"][1]).abs().max().item()
+    graph_loss_gap = (runs["eager_a"][1] - runs["graph"][1]).abs().max().item()
+    values = {k: [m[k].tolist() for m in metrics] for k in metrics[0]}
+    emit("joint_dispatch", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
+         batch=BATCH, steps_per_dispatch=K, dispatches=DISPATCH_TIMED, canvas=list(CANVAS),
+         dtype="bfloat16", seconds=seconds, img_per_s=BATCH * K * DISPATCH_TIMED / seconds,
+         eager_img_per_s=[BATCH * K / t for t in eager_s],
+         device_busy_ms_per_step=prof["device_busy_ms"] / K,
+         replay_ms_per_step=replay_ms / K, idle_share=prof["idle_share"], profile=prof,
+         max_memory_allocated=peak, capture_seconds=dispatch.capture_seconds,
+         pool_bytes=dispatch.pool_bytes, launches=launches,
+         captures=dispatch.captures, param_gap_eager=eager_gap, param_gap_graph=graph_gap,
+         loss_gap_eager=eager_loss_gap, loss_gap_graph=graph_loss_gap,
+         gap_factor=GRAPH_GAP_FACTOR, **values)
+    check(dispatch.captures == 1, f"captures {dispatch.captures}")
+    check(launches["rasterize_gaussians"] == JOINT_RASTER_LAUNCHES * K * DISPATCH_TIMED,
+          f"rasterizer launches over {DISPATCH_TIMED} joint dispatches: {launches}")
+    steps = K * (2 + DISPATCH_TIMED) + 1
+    check((state.step, state.pose.step, state.pose.optimizer.count, state.agent.step,
+           state.agent.optimizer.count) == (steps,) * 5, f"joint step {state.step}")
+    for k, vs in values.items():
+        check(all(math.isfinite(x) for v in vs for x in v), f"joint_dispatch {k} {vs}")
+    check(graph_gap <= GRAPH_GAP_FACTOR * eager_gap,
+          f"graph vs eager {graph_gap}, eager vs eager {eager_gap}")
+    check(graph_loss_gap <= GRAPH_GAP_FACTOR * eager_loss_gap,
+          f"losses: graph vs eager {graph_loss_gap}, eager vs eager {eager_loss_gap}")
+    total = launches["rasterize_gaussians"]
+    del dispatch, eager, state, s0, runs
+    torch.cuda.empty_cache()
+
+    cfg = named_config("hg8_lsp_aho")
+    state, kw = _joint_state(cfg, "cuda", SEED + 22)
+    rng = np.random.RandomState(SEED + 23)
+    dispatch = _joint_dispatch_for(state, cfg, "cuda", kw, 1)
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    ms = [dispatch(state, _stack([_train_batch(rng, BATCH, CANVAS, cfg.model.classes,
+                                               t * BATCH)]))
+          for t in range(3)]
+    torch.cuda.synchronize()
+    lsp_s = time.perf_counter() - t0
+    lsp = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    values = {k: [m[k].item() for m in ms] for k in ms[0]}
+    emit("joint_dispatch_lsp", config=cfg.name, joints=cfg.model.classes,
+         occ_nodes=state.agent.model.num_occ_nodes, steps_per_dispatch=1, dispatches=3,
+         seconds=lsp_s, capture_seconds=dispatch.capture_seconds,
+         pool_bytes=dispatch.pool_bytes, launches=lsp, **values)
+    check(dispatch.captures == 1, f"lsp captures {dispatch.captures}")
+    check(lsp == JOINT_RASTER_LAUNCHES * (3 + WARMUP_STEPS), f"lsp launches {lsp}")
+    check(state.step == state.agent.optimizer.count == 3, f"lsp step {state.step}")
+    for k, vs in values.items():
+        check(all(math.isfinite(v) for v in vs), f"joint_dispatch_lsp {k} {vs}")
+    del dispatch, state
+    torch.cuda.empty_cache()
+    return total, lsp
+
+
+def phase_fit_joint_dispatch(workdir, have_tensorboard):
+    """train.cli.main with hg8_mpii_asr at full width, bf16, batch 16, with
+    FIT_JOINT_DISPATCH (K = 2, 3 steps an epoch: a graphed dispatch and
+    one the cap trims, run eagerly; the worker loader, TensorBoard, the
+    traced first epoch): FIT_EPOCHS epochs, then --resume auto to
+    FIT_RESUME_EPOCHS.  Launches as fit_dispatch counts them, 2 a joint
+    step: each epoch's steps and validation batch, the traced epoch's
+    steps once more, each run's capture's warm-up steps; the log rows,
+    the checkpoints' steps and counts (the agent's too), the trace file
+    and the event file."""
+    name = "hg8_mpii_asr"
+    ckpt = os.path.join(workdir, "fit_joint_dispatch")
+    run_dir = os.path.join(ckpt, name)
+    common = ["--config", name, "--synthetic", "--train-batch", str(FIT_JOINT_BATCH),
+              "--checkpoint", ckpt, *FIT_JOINT_DISPATCH]
+    val_batches = -(-16 // FIT_JOINT_BATCH)  # the synthetic split's 16 validation images
+    per_epoch = JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + val_batches
+    warmup = JOINT_RASTER_LAUNCHES * WARMUP_STEPS
+    t0 = time.perf_counter()
+    rc, l1, out1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
+    s1 = time.perf_counter() - t0
+    check(rc == 0, f"train cli returned {rc}")
+    want1 = FIT_EPOCHS * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
+    _check_run("fit_joint_dispatch", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_JOINT_STEPS)
+    t0 = time.perf_counter()
+    rc, l2, out2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
+                                                  "--resume", "auto"])
+    s2 = time.perf_counter() - t0
+    check(rc == 0, f"resumed train cli returned {rc}")
+    extra = FIT_RESUME_EPOCHS - FIT_EPOCHS
+    want2 = extra * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
+    steps_total = FIT_RESUME_EPOCHS * FIT_JOINT_STEPS
+    vals, best = _check_run("fit_joint_dispatch resumed", run_dir, FIT_RESUME_EPOCHS,
+                            steps_total)
+    agent = CheckpointManager(run_dir).load()["state"]["agent"]
+    trace_dir = os.path.join(run_dir, "trace")
+    traces = {n: os.path.getsize(os.path.join(trace_dir, n))
+              for n in (os.listdir(trace_dir) if os.path.isdir(trace_dir) else [])}
+    tb_dir = os.path.join(run_dir, "tb")
+    events = [n for n in (os.listdir(tb_dir) if os.path.isdir(tb_dir) else [])
+              if n.startswith("events.out.tfevents")]
+    emit("fit_joint_dispatch", config=name, batch=FIT_JOINT_BATCH, epochs=FIT_EPOCHS,
+         resumed_to=FIT_RESUME_EPOCHS, steps_per_epoch=FIT_JOINT_STEPS,
+         flags=FIT_JOINT_DISPATCH, seconds=[s1, s2],
+         images_per_sec=_img_per_s(out1) + _img_per_s(out2), log=vals,
+         launches={"train": l1, "resumed": l2}, launches_want={"train": want1, "resumed": want2},
+         agent_count=agent["count"], agent_step=agent["step"], traces=traces,
+         tensorboard_events=events)
+    check(l1 == want1 and l2 == want2, f"fit_joint_dispatch launches {l1}, {l2}, "
+          f"want {want1}, {want2}")
+    check(agent["count"] == agent["step"] == steps_total,
+          f"agent count {agent['count']}, step {agent['step']}, want {steps_total}")
+    check("agent" in out1, "no agent loss in the progress line")
+    check(traces and all(n > 0 for n in traces.values()), f"trace files {traces}")
+    check(bool(events) == have_tensorboard, f"tensorboard events {events}")
+    return l1 + l2
+
+
 # ---- data parallelism (posetpu_torch.parallel)
 
-# dp_config: hg8_mpii_384_dp8 at full width on this one card (num_devices 1):
-# one warm-up epoch, then DP_CONFIG_EPOCHS epochs and one validation pass
-# (the synthetic split's 64 train images make one batch of 48 an epoch),
-# then DP_CONFIG_TIMED joint steps on one placed batch, timed by CUDA events
-DP_CONFIG_EPOCHS, DP_CONFIG_TIMED = 2, 3
+# dp_config: hg8_mpii_384_dp8 at full width on this one card (num_devices 1)
+# with --steps-per-dispatch DP_CONFIG_K: one warm-up epoch, then
+# DP_CONFIG_EPOCHS epochs and one validation pass (the synthetic split's 64
+# train images make one batch of 48 an epoch, a short group run eagerly),
+# then DP_CONFIG_TIMED dispatches of DP_CONFIG_K joint steps on one placed
+# batch, the graph's, timed by CUDA events
+DP_CONFIG_EPOCHS, DP_CONFIG_TIMED, DP_CONFIG_K = 2, 3, 2
 # dp_gloo2: two gloo ranks sharing the card, each with half of a global
 # batch of DP_GLOO_BATCH, against one process on the same batch and weights
 DP_GLOO_WORLD, DP_GLOO_BATCH = 2, 8
@@ -1750,15 +2101,23 @@ DP_RASTER_LAUNCHES = {"train": 1, "joint": JOINT_RASTER_LAUNCHES, "eval": 1}
 DP_RATIO = 2.0
 # dp_nccl1: graphed dispatches of K = 2 at world size 1, hg2 feats 8, f32
 NCCL_K, NCCL_DISPATCHES = 2, 3
+# all-reduce calls of one joint step under a group whose norms are local
+# (train/adversarial.py): the pose gradient bucket, the agent's (an update
+# step: every step at update_every 1), the advantage's two moments in one
+# call (the batch-mean baseline) and the metric bucket
+JOINT_ALL_REDUCES = 4
 
 
 def phase_dp_config(workdir):
     """hg8_mpii_384_dp8 (8 stacks, 128 features, 384² crops, 96² heatmaps,
     the agent, bf16, global batch 48) through Experiment with num_devices
-    1 on the synthetic split: a warm-up epoch, DP_CONFIG_EPOCHS epochs and
+    1 and steps_per_dispatch DP_CONFIG_K (the reference's DP joint route)
+    on the synthetic split: a warm-up epoch, DP_CONFIG_EPOCHS epochs and
     one validation pass with the launch counts reset just before (2 a joint
-    step, 1 a validation batch), then DP_CONFIG_TIMED joint steps on one
-    placed batch timed with CUDA events and one under torch.profiler."""
+    step, 1 a validation batch), then one placed batch stacked into a
+    superbatch of DP_CONFIG_K: a dispatch that captures the graph, then
+    DP_CONFIG_TIMED dispatches timed with CUDA events and one under
+    torch.profiler."""
     from posetpu_torch.train.loop import Experiment
 
     cfg = named_config("hg8_mpii_384_dp8")
@@ -1766,6 +2125,7 @@ def phase_dp_config(workdir):
            tuple(cfg.aug.out_res), cfg.agent.enabled, cfg.num_devices, cfg.model.bf16)
           == (8, 128, 48, (384, 384), (96, 96), True, 8, True), f"config {cfg}")
     cfg.num_devices = 1
+    cfg.steps_per_dispatch = DP_CONFIG_K
     cfg.synthetic = True
     cfg.checkpoint_dir = os.path.join(workdir, "dp_config")
     torch.cuda.empty_cache()
@@ -1797,20 +2157,24 @@ def phase_dp_config(workdir):
               and np.isfinite(preds).all(), f"preds {preds.shape}")
 
         it = iter(exp.loader)
-        batch = next(it)
+        batch = next(it)  # a group of 1: the split holds one batch of 48
         it.close()
-        B = batch["index"].shape[0]
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sb = {k: v.expand(DP_CONFIG_K, *v.shape[1:]).contiguous() for k, v in batch.items()}
+        B = batch["index"].shape[1]
+        dispatch = exp.train_step
+        dispatch(exp.state, sb)  # warms up and captures
         torch.cuda.synchronize()
+        check(dispatch.captures == 1, f"dp_config captures {dispatch.captures}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         t0 = time.perf_counter()
         for _ in range(DP_CONFIG_TIMED):
-            exp.train_step(exp.state, batch)
+            dispatch(exp.state, sb)
         end.record()
         end.synchronize()
-        step_s = (time.perf_counter() - t0) / DP_CONFIG_TIMED
-        event_ms = start.elapsed_time(end) / DP_CONFIG_TIMED
-        prof = _profile_step(lambda: exp.train_step(exp.state, batch))
+        step_s = (time.perf_counter() - t0) / (DP_CONFIG_TIMED * DP_CONFIG_K)
+        event_ms = start.elapsed_time(end) / (DP_CONFIG_TIMED * DP_CONFIG_K)
+        prof = _profile_step(lambda: dispatch(exp.state, sb))
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         exp.close()
@@ -1821,9 +2185,12 @@ def phase_dp_config(workdir):
          epoch_img_per_s=[e["images_per_sec"] for e in epochs], val_seconds=val_s,
          val_loss=val["loss"], val_acc=val["acc"],
          loss=[e["loss"] for e in epochs], agent_loss=[e["agent_loss"] for e in epochs],
-         timed_steps=DP_CONFIG_TIMED, img_per_s=B / step_s, step_ms_events=event_ms,
-         device_busy_ms_per_step=prof["device_busy_ms"], idle_share=prof["idle_share"],
-         profile=prof, max_memory_allocated=peak, launches=launches)
+         steps_per_dispatch=DP_CONFIG_K, timed_dispatches=DP_CONFIG_TIMED,
+         img_per_s=B / step_s, step_ms_events=event_ms,
+         device_busy_ms_per_step=prof["device_busy_ms"] / DP_CONFIG_K,
+         idle_share=prof["idle_share"], profile=prof, max_memory_allocated=peak,
+         capture_seconds=dispatch.capture_seconds, pool_bytes=dispatch.pool_bytes,
+         launches=launches)
     return launches
 
 
@@ -2226,7 +2593,7 @@ def _dp_norm_cost(group):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         loss = dispatch(state, sb)["loss"].item()  # warms up, captures, replays
-        out[how] = {"norms": norms, "step_ms": cuda_ms(dispatch.graph.replay, reps=1, samples=5),
+        out[how] = {"norms": norms, "step_ms": cuda_ms(_graph_replay(dispatch), reps=1, samples=5),
                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
                     "first_loss": loss, "captures": dispatch.captures}
         del dispatch, state, opt, model
@@ -2246,8 +2613,12 @@ def phase_dp_nccl1():
     from autograd's thread); and the same eagerly ("norms_eager", equal to
     "norms" bit for bit).  Every all-reduce of a captured step must be
     issued while the stream captures (so it replays inside the graph); a
-    replay under torch.profiler lists its NCCL kernels.  Then the forced
-    norms' cost at hg8_mpii width (:func:`_dp_norm_cost`)."""
+    replay under torch.profiler lists its NCCL kernels.  Then the joint
+    step's graph (make_joint_dispatch_step, hg8_mpii_asr's agent cut as
+    joint_dispatch_parity cuts it) without and with the group: the
+    group's captures JOINT_ALL_REDUCES calls a step and equals the
+    group-less graph bit for bit.  Then the forced norms' cost at hg8_mpii
+    width (:func:`_dp_norm_cost`)."""
     import torch.distributed as dist
 
     cfg = named_config("hg2_mpii_mini")
@@ -2266,11 +2637,7 @@ def phase_dp_nccl1():
         calls[how][key] += 1
         return real(tensor, *args, **kw)
 
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-            torch.are_deterministic_algorithms_enabled())
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    torch.use_deterministic_algorithms(True)
-    try:
+    with _exact_f32():
         torch.manual_seed(SEED + 51)
         base = hg(num_stacks=cfg.model.stacks, num_classes=J, num_feats=cfg.model.feats,
                   dtype=torch.float32)
@@ -2301,13 +2668,32 @@ def phase_dp_nccl1():
             torch.cuda.synchronize()
             runs[how] = (state.snapshot(), metrics,
                          cuda_kernels.LAUNCHES["rasterize_gaussians"])
-        replay = _profile_step(dispatches["nccl"].graph.replay)
-        nccl_kernels = _kernel_names(dispatches["norms"].graph.replay, "nccl")
+        replay = _profile_step(_graph_replay(dispatches["nccl"]))
+        nccl_kernels = _kernel_names(_graph_replay(dispatches["norms"]), "nccl")
+
+        jcfg = _small_joint_cfg("hg8_mpii_asr", {})
+        jrng = np.random.RandomState(SEED + 55)
+        jsupers = [_stack([_train_batch(jrng, B, (96, 128), J, 8000 + (d * NCCL_K + i) * B)
+                           for i in range(NCCL_K)]) for d in range(NCCL_DISPATCHES)]
+        for how in ("joint_plain", "joint_nccl"):
+            state, kw = _joint_state(jcfg, "cuda", SEED + 56, widths=(8, 16),
+                                     steps_per_epoch=2)
+            cuda_kernels.reset_launches()
+            calls[how] = {"capturing": 0, "eager": 0, "norms": 0}
+            dist.all_reduce = counted
+            try:
+                dispatch = _joint_dispatch_for(state, jcfg, "cuda", kw, NCCL_K,
+                                               group=None if how == "joint_plain" else group)
+                ms = [dispatch(state, sb) for sb in jsupers]
+                metrics = {k: torch.cat([m[k] for m in ms]).cpu() for k in ms[0]}
+            finally:
+                dist.all_reduce = real
+            torch.cuda.synchronize()
+            runs[how] = (state.snapshot(), metrics,
+                         cuda_kernels.LAUNCHES["rasterize_gaussians"])
+            dispatches[how] = dispatch
         numel = _bucket_numel(named_config("hg8_mpii"))
         all_reduce_ms = _all_reduce_ms(group, numel, torch.device("cuda:0"))
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[:2]
-        torch.use_deterministic_algorithms(prev[2])
     try:
         norm_cost = _dp_norm_cost(group)
     finally:
@@ -2320,8 +2706,10 @@ def phase_dp_nccl1():
          all_reduce_calls=calls, param_gap_nccl=_gap(runs["plain"][0], runs["nccl"][0]),
          param_gap_norms_eager=_gap(runs["norms"][0], runs["norms_eager"][0]),
          param_gap_norms_vs_local=_gap(runs["plain"][0], runs["norms"][0]),
+         param_gap_joint=_gap(runs["joint_plain"][0], runs["joint_nccl"][0]),
          loss=runs["nccl"][1]["loss"].tolist(),
          launches={k: r[2] for k, r in runs.items()},
+         joint_all_reduces_per_step=JOINT_ALL_REDUCES,
          collectives={"bucket_numel": numel, "bucket_bytes": 4 * numel,
                       "all_reduce_ms": all_reduce_ms, "hg8_norms": norm_cost},
          replay_nccl_kernels=nccl_kernels, replay_profile=replay)
@@ -2336,19 +2724,31 @@ def phase_dp_nccl1():
     for a, b in (("plain", "nccl"), ("norms_eager", "norms")):
         (sa, ma, _), (sb_, mb, _) = runs[a], runs[b]
         check(sa[1:] == sb_[1:] == (steps, steps), f"counts {a} {sa[1:]}, {b} {sb_[1:]}")
-        for x, y in zip(sa[0], sb_[0], strict=True):
-            check(torch.equal(x, y), f"{b} differs from {a} by {_gap(sa, sb_)}")
+        # one message: an f-string is built even when the check holds, and
+        # _gap reads every tensor (one per tensor cost minutes a run)
+        check(all(torch.equal(x, y) for x, y in zip(sa[0], sb_[0], strict=True)),
+              f"{b} differs from {a} by {_gap(sa, sb_)}")
         for k in ma:
             check(torch.equal(ma[k], mb[k]), f"{b}'s {k} differs from {a}'s")
+    check(calls["joint_nccl"]["capturing"] == JOINT_ALL_REDUCES * NCCL_K
+          and calls["joint_plain"]["capturing"] == calls["joint_plain"]["eager"] == 0,
+          f"joint all-reduce calls {calls}")
+    (sa, ma, _), (sb_, mb, _) = runs["joint_plain"], runs["joint_nccl"]
+    _same_state("dp_nccl1 joint", sa, sb_)
+    check(sa[2] == steps, f"joint step {sa[2]}")
+    for k in ma:
+        check(torch.equal(ma[k], mb[k]), f"dp_nccl1 joint: the group's {k} differs")
     want = steps + WARMUP_STEPS
     got = {k: r[2] for k, r in runs.items()}
-    check(got == {"plain": want, "nccl": want, "norms": want, "norms_eager": steps},
-          f"launches {got}, want {want} a graph and {steps} eagerly")
+    jwant = JOINT_RASTER_LAUNCHES * want
+    check(got == {"plain": want, "nccl": want, "norms": want, "norms_eager": steps,
+                  "joint_plain": jwant, "joint_nccl": jwant},
+          f"launches {got}, want {want} a graph, {steps} eagerly and {jwant} a joint graph")
     for how in ("local", "cross"):
         c = norm_cost[how]
         check(c["captures"] == 1 and math.isfinite(c["first_loss"]),
               f"hg8 {how} norms: {c}")
-    return runs["nccl"][2]
+    return runs["nccl"][2] + runs["joint_nccl"][2]
 
 
 def _processes():
@@ -2449,6 +2849,8 @@ def _run_phases():
 
     dispatch_parity_launches = phase_dispatch_parity()
     dispatch_launches = phase_dispatch(cfg)
+    joint_dispatch_parity_launches = phase_joint_dispatch_parity()
+    joint_dispatch_launches, joint_dispatch_lsp_launches = phase_joint_dispatch()
     dp_nccl1_launches = phase_dp_nccl1()
     dp_gloo2_launches = phase_dp_gloo2()
 
@@ -2459,6 +2861,7 @@ def _run_phases():
         fit_launches = phase_fit(workdir)
         fit_joint_launches = phase_fit_joint(workdir)
         fit_dispatch_launches = phase_fit_dispatch(workdir, have_tensorboard)
+        fit_joint_dispatch_launches = phase_fit_joint_dispatch(workdir, have_tensorboard)
         dp_config_launches = phase_dp_config(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2473,6 +2876,10 @@ def _run_phases():
                                   "dispatch": dispatch_launches,
                                   "dispatch_parity": dispatch_parity_launches,
                                   "fit_dispatch": fit_dispatch_launches,
+                                  "joint_dispatch": joint_dispatch_launches,
+                                  "joint_dispatch_lsp": joint_dispatch_lsp_launches,
+                                  "joint_dispatch_parity": joint_dispatch_parity_launches,
+                                  "fit_joint_dispatch": fit_joint_dispatch_launches,
                                   "dp_nccl1": dp_nccl1_launches,
                                   "dp_gloo2": dp_gloo2_launches,
                                   "dp_config": dp_config_launches}

@@ -110,9 +110,11 @@ def part_occlusion_boxes(pts, vis, dataset="mpii", margin=0.15, min_px=8):
     big = 1e9  # exact in float32
     for level in PART_GROUPS[dataset]:
         for group in level:
-            g = list(group)
-            m = v[:, g]
-            x, y = pts[:, g, 0], pts[:, g, 1]
+            # columns by Python ints: a list index would be copied to the
+            # card, a host copy that a CUDA graph's capture refuses
+            m = torch.stack([v[:, j] for j in group], dim=1)
+            x = torch.stack([pts[:, j, 0] for j in group], dim=1)
+            y = torch.stack([pts[:, j, 1] for j in group], dim=1)
             x0 = torch.where(m, x, big).amin(dim=1)
             x1 = torch.where(m, x, -big).amax(dim=1)
             y0 = torch.where(m, y, big).amin(dim=1)
@@ -270,14 +272,16 @@ def sample_occlusion_tree(seed, step, index, stream, level_logits, cell_logits):
         logps.append(lp)
     cells = torch.stack(cells, dim=1)
     logps = torch.stack(logps, dim=1)
-    offsets = torch.as_tensor(
-        _offsets_from_sizes([cl.shape[1] for cl in cell_logits]),
-        dtype=torch.int64, device=lvl.device,
-    )
     b = torch.arange(lvl.shape[0], device=lvl.device)
     li = torch.clamp(lvl - 1, min=0)
     cell = cells[b, li]
-    node = torch.where(lvl == 0, 0, offsets[li] + cell)
+    # node = offset of the level + cell, the offsets as Python ints: a
+    # table copied to the card is a host copy, which a CUDA graph's
+    # capture refuses
+    node = torch.zeros_like(lvl)
+    offsets = _offsets_from_sizes([cl.shape[1] for cl in cell_logits])
+    for level, off in enumerate(offsets.tolist(), start=1):
+        node = torch.where(lvl == level, off + cell, node)
     logp = logp_lvl + torch.where(lvl == 0, 0.0, logps[b, li])
     return node, lvl, cell, logp
 

@@ -1,10 +1,13 @@
-"""Loss, train, validation and joint adversarial steps, K train steps per
-dispatch (a CUDA graph on the card), train state and optimizer."""
+"""Loss, train, validation and joint adversarial steps, K train or joint
+steps per dispatch (a CUDA graph on the card), train state and optimizer."""
 
 from posetpu_torch.train.adversarial import (
+    JointCounters,
     JointState,
     agent_from_config,
     apply_occlusion,
+    make_joint_body,
+    make_joint_dispatch_step,
     make_joint_step,
 )
 
@@ -24,9 +27,12 @@ from posetpu_torch.train.step import (
 )
 
 __all__ = [
+    "JointCounters",
     "JointState",
     "agent_from_config",
     "apply_occlusion",
+    "make_joint_body",
+    "make_joint_dispatch_step",
     "make_joint_step",
     "OptaxRMSprop",
     "TrainState",

@@ -1,7 +1,7 @@
 """Joint adversarial augmentation training — counterpart of
 ``posetpu/train/adversarial.py`` (``make_joint_step``).
 
-One joint minimax step, eagerly on one device:
+One joint minimax step:
 
   neutral crop                                  aug.pipeline
   -> agent forward, train mode                  models.agent
@@ -15,8 +15,14 @@ One joint minimax step, eagerly on one device:
   -> REINFORCE update of the agent on steps where step % update_every == 0
 
 The reference builds this same math twice (``make_joint_step`` and
-``make_joint_step_split``) for XLA's compile times; the port has only
-``make_joint_step``.
+``make_joint_step_split``) for XLA's compile times; the port has it once
+(``_joint_math``), run three ways: :func:`make_joint_step`, the eager
+reference, with the state's Python ints; :func:`make_joint_body`, with its
+counters on the device (:class:`JointCounters`) and the agent's update
+branch a Python bool, which a CUDA graph can capture; and
+:func:`make_joint_dispatch_step`, K body steps a dispatch (the counterpart
+of ``fuse_steps(make_joint_step)``), one captured graph per update pattern
+on CUDA (:class:`posetpu_torch.train.step.GraphedSteps`).
 
 Data parallelism (the reference's ``axis_name``): with ``group`` each rank
 runs the step on its slice of the global batch; the pose and agent
@@ -63,8 +69,10 @@ from posetpu_torch.models.agent import (
 from posetpu_torch.parallel.dp import mean_grads_, reduce_metrics
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train.step import (
+    GraphedSteps,
     _normalization,
     _to_device,
+    check_dispatch,
     per_sample_stacked_mse,
 )
 from posetpu_torch.utils.device import resolve_device
@@ -80,6 +88,24 @@ class JointState:
     pose: TrainState
     agent: TrainState
     step: int = 0
+
+    def tensors(self):
+        """Every tensor a joint step updates in place
+        (:meth:`TrainState.tensors` of the pose network's state, then the
+        agent's)."""
+        return self.pose.tensors() + self.agent.tensors()
+
+    def snapshot(self):
+        """(the pose state's :meth:`TrainState.snapshot`, the agent's,
+        ``step``)."""
+        return self.pose.snapshot(), self.agent.snapshot(), self.step
+
+    def restore_(self, snap):
+        """Put a :meth:`snapshot` back, the tensors *in place*."""
+        pose, agent, step = snap
+        self.pose.restore_(pose)
+        self.agent.restore_(agent)
+        self.step = step
 
 
 def apply_occlusion(images, node_idx, boxes):
@@ -116,8 +142,10 @@ def occ_box_table(occ, occ_boxes, tpts, target_weight, aug_cfg):
         return occ_boxes
     ry = aug_cfg.inp_res[0] / aug_cfg.out_res[0]
     rx = aug_cfg.inp_res[1] / aug_cfg.out_res[1]
-    scale = torch.tensor([rx, ry], dtype=torch.float32, device=tpts.device)
-    return part_occlusion_boxes((tpts - 1.0) * scale, target_weight, occ["dataset"])
+    # scalar factors: a (2,) table copied to the card is a host copy, which
+    # a CUDA graph's capture refuses
+    crop = torch.stack([(tpts[..., 0] - 1.0) * rx, (tpts[..., 1] - 1.0) * ry], dim=-1)
+    return part_occlusion_boxes(crop, target_weight, occ["dataset"])
 
 
 def sample_policy(seed, step, index, logits, aug_cfg, scale_table, rot_table, occ):
@@ -234,69 +262,27 @@ def _detached(logits):
             for k, v in logits.items()}
 
 
-def make_joint_step(
-    pose_model,
-    agent_model,
-    pose_opt,
-    agent_opt,
-    aug_cfg,
-    mean,
-    std=None,
-    *,
-    seed=0,
-    scale_table,
-    rot_table,
-    occ_boxes=None,
-    occ_mode=None,
-    occ_levels=None,
-    baseline="batch_mean",
-    ref_baseline=True,
-    update_every=1,
-    pose_ref_weight=0.0,
-    group=None,
-    device="cuda",
-):
-    """Build the joint minimax step.
+def _check_joint_state(state, pose_model, agent_model, pose_opt, agent_opt):
+    if (state.pose.model is not pose_model or state.pose.optimizer is not pose_opt
+            or state.agent.model is not agent_model
+            or state.agent.optimizer is not agent_opt):
+        raise ValueError("the state holds other models or optimizers "
+                         "than this joint step was built for")
 
-    ``joint_step(state, batch) -> metrics`` advances ``state``
-    (:class:`JointState` holding these models and optimizers) in place.
-    ``batch`` is a train batch (``image``, ``valid_wh``, ``center``,
-    ``scale``, ``pts``, ``vis``, ``index``).  ``metrics`` (``loss``,
-    ``acc``, ``agent_loss``, ``advantage``, ``entropy``) stay device
-    tensors.
 
-    - ``ref_baseline=False`` drops the reference crops and rewards against
-      the batch's mean adversarial loss.
-    - ``update_every=N`` updates the agent (parameters, BatchNorm
-      statistics, RMSprop moments and count, ``state.agent.step``) only
-      where ``state.step % N == 0``; ``agent_loss`` and ``entropy`` are
-      reported every step.  The pose network updates every step.
-    - ``pose_ref_weight=w`` (0 <= w < 1, needs ``ref_baseline``) trains the
-      pose network on concat(adversarial, reference) with loss
-      ``(1-w)*mean(l_adv) + w*mean(l_ref)``, BatchNorm statistics from the
-      2B crops, and takes the reward's baseline from that pass.
-    - ``occ_boxes`` (N, 4) turns on grid occlusion (tree or flat); "parts"
-      is on when the agent has occlusion heads.  ``occ_mode`` and
-      ``occ_levels`` default to the agent's own.
-    - ``group`` (data parallelism): ``batch`` is this rank's slice of the
-      global batch.  The pose and agent gradients are averaged over the
-      ranks, ``normalize_advantage`` takes the global moments, ``loss``,
-      ``agent_loss``, ``entropy`` and ``advantage`` are averaged and the
-      PCK hits and counts summed.  Every rank takes the same
-      ``update_every`` branch (the step count is the same on all).  The
-      models' BatchNorms take the group through
-      :func:`posetpu_torch.models.batchnorm.convert_cross_replica_`.
-
-    The models move to ``device`` (default CUDA; raises without it unless
-    ``device="cpu"``).
-    """
+def _joint_math(pose_model, agent_model, pose_opt, agent_opt, aug_cfg, mean, std, dev, *,
+                seed=0, scale_table, rot_table, occ_boxes=None, occ_mode=None,
+                occ_levels=None, baseline="batch_mean", ref_baseline=True,
+                pose_ref_weight=0.0, group=None):
+    """``run(step, batch, do_update, pose_update, agent_update) -> metrics``:
+    one joint step's math with the draws keyed on ``step`` (an int or a
+    0-d device tensor), ``pose_update()`` and, where ``do_update`` (a
+    Python bool), ``agent_update()`` applying the optimizers
+    (:func:`make_joint_step` documents the options)."""
     if pose_ref_weight and not ref_baseline:
         raise ValueError("pose_ref_weight > 0 requires ref_baseline=True")
     if not 0.0 <= pose_ref_weight < 1.0:
         raise ValueError(f"pose_ref_weight must be in [0, 1): {pose_ref_weight}")
-    if update_every < 1:
-        raise ValueError(f"update_every must be >= 1: {update_every}")
-    dev = resolve_device(device)
     pose_model.to(dev)
     agent_model.to(dev)
     mean_t, std_t = _normalization(mean, std, dev)
@@ -318,16 +304,9 @@ def make_joint_step(
             src_index=src_index, device=dev,
         )
 
-    def joint_step(state, batch):
-        if (state.pose.model is not pose_model or state.pose.optimizer is not pose_opt
-                or state.agent.model is not agent_model
-                or state.agent.optimizer is not agent_opt):
-            raise ValueError("the state holds other models or optimizers "
-                             "than this joint step was built for")
+    def run(t, batch, do_update, pose_update, agent_update):
         b = _to_device(batch, dev)
         B = b["image"].shape[0]
-        t = state.step
-        do_update = t % update_every == 0
 
         # 1-3: neutral crop, agent forward, draws.  One train-mode forward
         # serves the draws (detached) and the REINFORCE loss; its
@@ -388,7 +367,7 @@ def make_joint_step(
         loss.backward()
         if group is not None:
             mean_grads_(pose_model.parameters(), group)
-        pose_opt.step()
+        pose_update()
 
         # reward: harder-than-reference draws get a positive advantage
         l_sample = l_sample.detach()
@@ -405,15 +384,12 @@ def make_joint_step(
             agent_loss.backward()
             if group is not None:
                 mean_grads_(agent_model.parameters(), group)
-            agent_opt.step()
-            state.agent.step += 1
+            agent_update()
 
         hit, cnt = pck_counts(outs[-1][:B].detach().float(), tgt_a)
         means = [loss.detach(), agent_loss.detach(), gap.mean(), entropy(drawn)]
         if group is not None:
             means, (hit, cnt) = reduce_metrics(group, means=means, sums=(hit, cnt))
-        state.pose.step += 1
-        state.step += 1
         return {
             "loss": means[0],
             "acc": pck_from_counts(hit, cnt)[0],
@@ -422,7 +398,194 @@ def make_joint_step(
             "entropy": means[3],
         }
 
+    return run
+
+
+def make_joint_step(
+    pose_model,
+    agent_model,
+    pose_opt,
+    agent_opt,
+    aug_cfg,
+    mean,
+    std=None,
+    *,
+    seed=0,
+    scale_table,
+    rot_table,
+    occ_boxes=None,
+    occ_mode=None,
+    occ_levels=None,
+    baseline="batch_mean",
+    ref_baseline=True,
+    update_every=1,
+    pose_ref_weight=0.0,
+    group=None,
+    device="cuda",
+):
+    """Build the joint minimax step.
+
+    ``joint_step(state, batch) -> metrics`` advances ``state``
+    (:class:`JointState` holding these models and optimizers) in place.
+    ``batch`` is a train batch (``image``, ``valid_wh``, ``center``,
+    ``scale``, ``pts``, ``vis``, ``index``).  ``metrics`` (``loss``,
+    ``acc``, ``agent_loss``, ``advantage``, ``entropy``) stay device
+    tensors.
+
+    - ``ref_baseline=False`` drops the reference crops and rewards against
+      the batch's mean adversarial loss.
+    - ``update_every=N`` updates the agent (parameters, BatchNorm
+      statistics, RMSprop moments and count, ``state.agent.step``) only
+      where ``state.step % N == 0``; ``agent_loss`` and ``entropy`` are
+      reported every step.  The pose network updates every step.
+    - ``pose_ref_weight=w`` (0 <= w < 1, needs ``ref_baseline``) trains the
+      pose network on concat(adversarial, reference) with loss
+      ``(1-w)*mean(l_adv) + w*mean(l_ref)``, BatchNorm statistics from the
+      2B crops, and takes the reward's baseline from that pass.
+    - ``occ_boxes`` (N, 4) turns on grid occlusion (tree or flat); "parts"
+      is on when the agent has occlusion heads.  ``occ_mode`` and
+      ``occ_levels`` default to the agent's own.
+    - ``group`` (data parallelism): ``batch`` is this rank's slice of the
+      global batch.  The pose and agent gradients are averaged over the
+      ranks, ``normalize_advantage`` takes the global moments, ``loss``,
+      ``agent_loss``, ``entropy`` and ``advantage`` are averaged and the
+      PCK hits and counts summed.  Every rank takes the same
+      ``update_every`` branch (the step count is the same on all).  The
+      models' BatchNorms take the group through
+      :func:`posetpu_torch.models.batchnorm.convert_cross_replica_`.
+
+    The models move to ``device`` (default CUDA; raises without it unless
+    ``device="cpu"``).  This eager step is the reference that the graphed
+    one (:func:`make_joint_dispatch_step`) is held to.
+    """
+    if update_every < 1:
+        raise ValueError(f"update_every must be >= 1: {update_every}")
+    run = _joint_math(
+        pose_model, agent_model, pose_opt, agent_opt, aug_cfg, mean, std,
+        resolve_device(device), seed=seed, scale_table=scale_table,
+        rot_table=rot_table, occ_boxes=occ_boxes, occ_mode=occ_mode,
+        occ_levels=occ_levels, baseline=baseline, ref_baseline=ref_baseline,
+        pose_ref_weight=pose_ref_weight, group=group,
+    )
+
+    def joint_step(state, batch):
+        _check_joint_state(state, pose_model, agent_model, pose_opt, agent_opt)
+        do_update = state.step % update_every == 0
+        metrics = run(state.step, batch, do_update, pose_opt.step, agent_opt.step)
+        if do_update:
+            state.agent.step += 1
+        state.pose.step += 1
+        state.step += 1
+        return metrics
+
     return joint_step
+
+
+class JointCounters:
+    """A :class:`JointState`'s ints as 0-d int64 tensors on ``device``, for
+    a joint step that a CUDA graph replays: ``step`` (the joint step, which
+    keys the draws), the pose network's ``pose_step`` and update count
+    ``pose_count``, the agent's ``agent_step`` and update count
+    ``agent_count``."""
+
+    NAMES = ("step", "pose_step", "pose_count", "agent_step", "agent_count")
+
+    def __init__(self, device):
+        for n in self.NAMES:
+            setattr(self, n, torch.zeros((), dtype=torch.int64, device=device))
+
+    @staticmethod
+    def ints(state):
+        """The state's ints in the order of ``NAMES``."""
+        return (state.step, state.pose.step, state.pose.optimizer.count,
+                state.agent.step, state.agent.optimizer.count)
+
+    def load(self, state):
+        """Set every counter from the state's ints (fills, no sync)."""
+        for n, v in zip(self.NAMES, self.ints(state)):
+            getattr(self, n).fill_(int(v))
+
+    @staticmethod
+    def advance(state, pattern):
+        """Advance the state's ints by a dispatch of ``pattern`` (one update
+        flag a step): the joint and pose steps and the pose count by its
+        length, the agent's step and count by its update steps."""
+        k, u = len(pattern), sum(pattern)
+        state.step += k
+        state.pose.step += k
+        state.pose.optimizer.count += k
+        state.agent.step += u
+        state.agent.optimizer.count += u
+
+
+def make_joint_body(pose_model, agent_model, pose_opt, agent_opt, aug_cfg, mean,
+                    std=None, *, device="cuda", **kw):
+    """:func:`make_joint_step`'s math with its counters on the device:
+    ``body(counters, batch, do_update) -> metrics``.
+
+    ``counters`` is a :class:`JointCounters`; the draws are keyed on
+    ``counters.step``, each optimizer reads its schedule at its count
+    (:meth:`OptaxRMSprop.step_at
+    <posetpu_torch.train.state.OptaxRMSprop.step_at>`), and the body
+    advances the counters as ``make_joint_step`` advances the state's
+    ints.  ``do_update`` is a Python bool, whether this is an agent update
+    step: a CUDA graph captures one branch.  The body syncs with the host
+    nowhere, so a graph can capture it; the state's ints are the caller's
+    to advance (:meth:`JointCounters.advance`).  ``kw`` are
+    ``make_joint_step``'s options but ``update_every``.  Draws, updates,
+    statistics and metrics equal ``make_joint_step``'s exactly.
+    """
+    run = _joint_math(pose_model, agent_model, pose_opt, agent_opt, aug_cfg, mean, std,
+                      resolve_device(device), **kw)
+
+    def body(counters, batch, do_update):
+        metrics = run(counters.step, batch, do_update,
+                      lambda: pose_opt.step_at(counters.pose_count),
+                      lambda: agent_opt.step_at(counters.agent_count))
+        counters.step.add_(1)
+        counters.pose_step.add_(1)
+        if do_update:
+            counters.agent_step.add_(1)
+        return metrics
+
+    return body
+
+
+def make_joint_dispatch_step(pose_model, agent_model, pose_opt, agent_opt, aug_cfg, mean,
+                             std=None, *, steps=2, update_every=1, group=None,
+                             device="cuda", **kw):
+    """K = ``steps`` joint steps per dispatch — the counterpart of
+    ``fuse_steps(make_joint_step)``, jitted on one chip or sharded under
+    data parallelism.  The arguments are :func:`make_joint_step`'s.
+
+    Returns a :class:`posetpu_torch.train.step.GraphedSteps`
+    ``dispatch(state, superbatch) -> metrics``: every ``superbatch`` field
+    carries a leading (k, ...) dim (k <= K), each metric (the joint step's
+    five) comes back as a (k,) device tensor, and the :class:`JointState`'s
+    ints advance as k joint steps advance them.  K steps equal K
+    :func:`make_joint_step` calls on the same batches exactly.
+
+    On CUDA a full superbatch replays a ``torch.cuda.CUDAGraph`` of K
+    :func:`make_joint_body` steps.  The steps that update the agent depend
+    only on the first step modulo ``update_every``; each such pattern is
+    captured at its first full dispatch (one graph for ``update_every=1``)
+    and again after any state load.  A capture or replay that fails
+    raises; nothing falls back to eager steps.  A short superbatch (an
+    epoch's last group) runs as eager body steps, and on the CPU every
+    dispatch does.  With ``group`` (NCCL) the graph captures the step's
+    all-reduces: the pose and agent gradient buckets, the advantage's
+    moments, the metric bucket and the cross-replica BatchNorms'; a gloo
+    group on CUDA raises.
+    """
+    dev = resolve_device(device)
+    check_dispatch(steps, dev, group, update_every)
+    body = make_joint_body(pose_model, agent_model, pose_opt, agent_opt, aug_cfg, mean,
+                           std, group=group, device=dev, **kw)
+    return GraphedSteps(
+        body, JointCounters(dev),
+        lambda st: _check_joint_state(st, pose_model, agent_model, pose_opt, agent_opt),
+        steps, dev, update_every=update_every,
+    )
 
 
 def agent_from_config(cfg, *, steps_per_epoch=1, widths=(32, 64, 128, 256),

@@ -9,11 +9,11 @@ reference's TensorBoard scalars), checkpoints (best on validation
 improvement), resumes, and writes the validation predictions
 (``preds.mat``).  ``cfg.loader_backend`` picks the loader ("host":
 :class:`HostLoader`; "grain": :class:`WorkerLoader`, decode in
-``cfg.loader_workers`` processes).  The pose-only train step runs
-``cfg.steps_per_dispatch`` = K steps a dispatch
-(:func:`posetpu_torch.train.step.make_dispatch_step`), on CUDA as one
-CUDA graph, K = 1 included; the joint (agent) step runs eagerly, one step
-a batch.
+``cfg.loader_workers`` processes).  The train step, pose-only or joint
+(with the agent), runs ``cfg.steps_per_dispatch`` = K steps a dispatch
+(:func:`posetpu_torch.train.step.make_dispatch_step`,
+:func:`posetpu_torch.train.adversarial.make_joint_dispatch_step`), on CUDA
+as one CUDA graph, K = 1 included.
 
 Data parallelism: ``Experiment(cfg, rank=r, world=W)`` is rank r of W
 processes already joined in the default process group
@@ -58,7 +58,11 @@ from posetpu_torch.parallel.dp import (
     gather_rows,
     resolve_num_devices,
 )
-from posetpu_torch.train.adversarial import JointState, agent_from_config, make_joint_step
+from posetpu_torch.train.adversarial import (
+    JointState,
+    agent_from_config,
+    make_joint_dispatch_step,
+)
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train.step import make_dispatch_step, make_eval_step
 from posetpu_torch.utils.device import resolve_device
@@ -177,12 +181,6 @@ class Experiment:
         self.group = _process_group(rank, world)
         self.is_main = rank == 0
         self.K = max(1, int(cfg.steps_per_dispatch))
-        if self.K > 1 and cfg.agent.enabled:
-            raise ValueError(
-                "steps_per_dispatch > 1 needs a graphed train step; the joint "
-                "(agent) step has no CUDA graph yet (one per update_every "
-                "branch is later work): keep steps_per_dispatch=1"
-            )
         loader_cls, loader_kw = loader_class(cfg)
         if self.group is not None:
             loader_kw["shard"] = (rank, world)
@@ -195,10 +193,8 @@ class Experiment:
         self.loader = loader_cls(
             self.train_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), seed=cfg.seed,
             # decode into pinned memory and copy on a stream of its own while
-            # the previous step runs; K batches stacked per dispatch of the
-            # pose-only step, single batches for the joint step
-            place=make_batch_placer(self.device),
-            group=None if cfg.agent.enabled else self.K, **loader_kw,
+            # the previous step runs; K batches stacked per dispatch
+            place=make_batch_placer(self.device), group=self.K, **loader_kw,
         )
         # validation batches stay on the host until the eval step copies
         # them; the loader pads the ragged last batch to the global batch
@@ -228,9 +224,10 @@ class Experiment:
             broadcast_state_(convert_cross_replica_(agent.to(self.device), self.group),
                              self.group)
             self.state = JointState(pose_state, TrainState(agent, agent_opt))
-            self.train_step = make_joint_step(
+            self.train_step = make_joint_dispatch_step(
                 self.model, agent, opt, agent_opt, cfg.aug, self.mean, self.std,
-                seed=cfg.seed, group=self.group, device=self.device, **joint_kw,
+                seed=cfg.seed, steps=self.K, group=self.group, device=self.device,
+                **joint_kw,
             )
         else:
             self.state = pose_state
@@ -352,42 +349,33 @@ class Experiment:
         # from the restored step.
         self.start_epoch = last_epoch + 1
 
-    def _train_states(self):
-        st = self.state
-        return [st.pose, st.agent] if hasattr(st, "pose") else [st]
-
     def snapshot(self):
-        """A copy of everything a train epoch changes: each train state's
-        (:meth:`TrainState.snapshot`), the joint step count and the
+        """A copy of everything a train epoch changes: the train state's
+        (:meth:`TrainState.snapshot`, :meth:`JointState.snapshot`) and the
         loader's epoch."""
-        return ([ts.snapshot() for ts in self._train_states()], self.state.step,
-                self.loader.epoch)
+        return self.state.snapshot(), self.loader.epoch
 
     def restore(self, snap):
-        """Put a :meth:`snapshot` back, the tensors *in place*
-        (:meth:`TrainState.restore_`)."""
-        saved, step, epoch = snap
-        for ts, s in zip(self._train_states(), saved, strict=True):
-            ts.restore_(s)
-        self.state.step = step
+        """Put a :meth:`snapshot` back, the tensors *in place*."""
+        state, epoch = snap
+        self.state.restore_(state)
         self.loader.epoch = epoch
 
     # ---- epoch loops ----
 
     def train_epoch(self, epoch):
-        """One epoch (at most ``steps_per_epoch`` steps).  For the pose-only
-        step each loader item is a (k, B, ...) superbatch of k <= K steps,
-        the last one trimmed where it would cross the cap, and its metrics
-        come back as (k,) tensors; for the joint step an item is one batch.
-        Every step's metrics stay device tensors and are read once at the
-        end: a read per step would wait for the device and stall the
-        enqueue."""
+        """One epoch (at most ``steps_per_epoch`` steps).  Each loader item
+        is a (k, B, ...) superbatch of k <= K steps, the last one trimmed
+        where it would cross the cap, and its metrics come back as (k,)
+        tensors.  Every step's metrics stay device tensors and are read
+        once at the end: a read per step would wait for the device and
+        stall the enqueue."""
         device_metrics = []
         t0 = time.time()
         seen = steps = 0
         for batch in self.loader:
-            k = 1 if self.loader.group is None else batch["index"].shape[0]
-            if steps + k > self.steps_per_epoch:  # only a group can cross it
+            k = batch["index"].shape[0]
+            if steps + k > self.steps_per_epoch:
                 k = self.steps_per_epoch - steps
                 batch = {n: v[:k] for n, v in batch.items()}
             device_metrics.append(self.train_step(self.state, batch))

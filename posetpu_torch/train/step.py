@@ -6,7 +6,10 @@ The port's network returns (B, K, H, W) heatmaps, so the losses take
 targets in that layout (the reference's take NHWC).
 
 :func:`make_dispatch_step` is the counterpart of ``fuse_steps``: K train
-steps in one dispatch, on CUDA as one captured ``torch.cuda.CUDAGraph``.
+steps in one dispatch, on CUDA as one captured ``torch.cuda.CUDAGraph``
+(the joint step's counterpart,
+:func:`posetpu_torch.train.adversarial.make_joint_dispatch_step`, runs on
+the same :class:`GraphedSteps`).
 Its body (:func:`make_train_body`) is ``make_train_step``'s math with the
 train step's ``step`` and the optimizer's update ``count`` held in device
 tensors (:class:`DeviceCounters`), since a capture would bake Python values
@@ -16,6 +19,10 @@ in.  The rules of the graph:
   the record (checkpoints save them); the device counters are set from
   them before every dispatch and advance inside the graph, and the host
   advances the ints by K after each replay, without a sync;
+- a step whose work depends on the step count (the joint step updates its
+  agent every ``update_every`` steps) takes that branch as a Python bool:
+  the host reads the K steps' flags from its own int before the dispatch
+  and replays the graph captured for that pattern (:class:`GraphedSteps`);
 - the capture is made at the first full dispatch, after any state load
   (``--resume``, ``--init-pose-from``), and again whenever a parameter,
   buffer or moment tensor has been replaced since (``load_state_dict`` of
@@ -46,6 +53,7 @@ waits for its slice.
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import torch
 
@@ -200,6 +208,13 @@ class DeviceCounters:
         self.step.fill_(int(state.step))
         self.count.fill_(int(state.optimizer.count))
 
+    @staticmethod
+    def advance(state, pattern):
+        """Advance the state's ints by a dispatch of ``pattern`` (one flag
+        a step, :class:`GraphedSteps`): the train step updates every step."""
+        state.step += len(pattern)
+        state.optimizer.count += len(pattern)
+
 
 def make_train_body(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
                     mask_loss=False, group=None, device="cuda"):
@@ -229,78 +244,140 @@ def make_train_body(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
 WARMUP_STEPS = 2
 
 
-class GraphedSteps:
-    """``dispatch(state, superbatch) -> metrics``: K train steps over a
-    (K, B, ...) superbatch in one dispatch, each metric a (K,) tensor
-    (:func:`make_dispatch_step`)."""
+@dataclass
+class _Graph:
+    """One captured pattern: the graph, its static outputs, the kernel
+    launches recorded in its capture, the capture's seconds and the bytes
+    of the graph's memory pool."""
 
-    def __init__(self, body, model, optimizer, steps, dev):
-        self.body, self.model, self.optimizer = body, model, optimizer
-        self.steps, self.dev = steps, dev
-        self.counters = DeviceCounters(dev)
-        self.graph = None
-        self.captures = 0  # captures made (one per state load)
+    graph: torch.cuda.CUDAGraph
+    out: dict
+    launches: dict
+    seconds: float
+    pool_bytes: int
+
+
+def check_dispatch(steps, dev, group, update_every=1):
+    """Refuse a dispatch's arguments before a step is built (and the models
+    moved to ``dev``): K = ``steps`` and ``update_every`` below 1, and on
+    CUDA a gloo ``group``, whose collectives a graph cannot capture."""
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if update_every < 1:
+        raise ValueError(f"update_every must be >= 1: {update_every}")
+    if dev.type == "cuda" and is_gloo(group):
+        raise ValueError("a CUDA graph cannot capture a gloo collective: the "
+                         "graphed step on CUDA needs an NCCL group")
+
+
+class GraphedSteps:
+    """``dispatch(state, superbatch) -> metrics``: K steps of ``body`` over
+    a (K, B, ...) superbatch in one dispatch, each metric a (K,) tensor
+    (:func:`make_dispatch_step`,
+    :func:`posetpu_torch.train.adversarial.make_joint_dispatch_step`).
+
+    ``body(counters, batch, update)`` is one step with its counters on the
+    device (``counters``: :class:`DeviceCounters`, or the joint step's
+    ``JointCounters``, which load them from the state's ints and advance
+    the ints as the body advanced them).  ``update`` is a Python bool,
+    whether the step is one of every ``update_every`` (the joint step's
+    agent update).  The flags of a dispatch's K steps, its *pattern*, come
+    from the host's own ``state.step`` before the dispatch, without a
+    sync; they depend only on ``state.step % update_every``, so there are at
+    most ``update_every`` patterns.  On CUDA each pattern is captured as
+    one ``torch.cuda.CUDAGraph`` (its own memory pool) at its first full
+    dispatch and replayed after; the rules are the module docstring's.
+    ``check_state(state)`` raises for a state of other models.
+
+    ``captures`` counts the captures made; ``capture_seconds`` and
+    ``pool_bytes`` hold each one's seconds (warm-up included) and the size
+    of its graph's memory pool (what the capture added to the card's
+    reserved memory, the warm-up's cached blocks released first).
+    """
+
+    def __init__(self, body, counters, check_state, steps, dev, *, update_every=1):
+        self.body, self.counters, self.check_state = body, counters, check_state
+        self.steps, self.dev, self.update_every = steps, dev, update_every
+        self.graphs = {}  # pattern -> _Graph, all captured on the same state tensors
+        self._ptrs = None
+        self.captures = 0
         self.capture_seconds = []
+        self.pool_bytes = []
+
+    def pattern(self, step, k):
+        """The update flags of k steps from step ``step``."""
+        return tuple((step + i) % self.update_every == 0 for i in range(k))
 
     def __call__(self, state, superbatch):
-        _check_state(state, self.model, self.optimizer)
+        self.check_state(state)
         b = _to_device(superbatch, self.dev)
-        k = b["image"].shape[0]
+        k = b["index"].shape[0]
         if not 1 <= k <= self.steps:
             raise ValueError(f"a superbatch of {k} steps for a dispatch of {self.steps}")
+        pattern = self.pattern(state.step, k)
         self.counters.load(state)
         if self.dev.type == "cuda" and k == self.steps:
-            out = self._replay(state, b)
+            out = self._replay(state, b, pattern)
         else:
             # the CPU route, and the short last group of an epoch: the
             # same body, eagerly
-            ms = [self.body(self.counters, {n: v[i] for n, v in b.items()})
-                  for i in range(k)]
+            ms = [self.body(self.counters, {n: v[i] for n, v in b.items()}, u)
+                  for i, u in enumerate(pattern)]
             out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
-        state.step += k
-        self.optimizer.count += k
+        self.counters.advance(state, pattern)
         return out
 
-    def _replay(self, state, b):
+    def _replay(self, state, b, pattern):
         ptrs = [t.data_ptr() for t in state.tensors()]
-        if self.graph is None or ptrs != self._captured_ptrs:
-            self._capture(state, b)
+        if ptrs != self._ptrs:
+            # a state load replaced tensors: every graph reads the old ones
+            self.graphs.clear()
+            self._ptrs = ptrs
+        g = self.graphs.get(pattern)
+        if g is None:
+            g = self.graphs[pattern] = self._capture(state, b, pattern)
         for n, v in b.items():
             self.static_in[n].copy_(v)
-        self.graph.replay()
-        cuda_kernels.add_replay(self.captured)
+        g.graph.replay()
+        cuda_kernels.add_replay(g.launches)
         # the next replay writes the same outputs
-        return {n: v.clone() for n, v in self.static_out.items()}
+        return {n: v.clone() for n, v in g.out.items()}
 
-    def _capture(self, state, b):
+    def _capture(self, state, b, pattern):
         t0 = time.perf_counter()
-        self.graph = None
+        if not self.graphs:  # one input buffer for every pattern's graph
+            self.static_in = {n: v.clone() for n, v in b.items()}
         saved = state.snapshot()
-        self.static_in = {n: v.clone() for n, v in b.items()}
         cur = torch.cuda.current_stream(self.dev)
         side = torch.cuda.Stream(self.dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             for i in range(WARMUP_STEPS):
-                self.body(self.counters,
-                          {n: v[i % self.steps] for n, v in self.static_in.items()})
+                j = i % self.steps
+                self.body(self.counters, {n: v[j] for n, v in self.static_in.items()},
+                          pattern[j])
         cur.wait_stream(side)
         state.restore_(saved)
         self.counters.load(state)
         del saved
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.dev)
         graph = torch.cuda.CUDAGraph()
         # thread_local: the loader's prefetch thread goes on pinning and
         # copying on its own stream while this thread captures
-        with cuda_kernels.counted_as_replays() as captured:
+        with cuda_kernels.counted_as_replays() as launches:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                ms = [self.body(self.counters, {n: v[i] for n, v in self.static_in.items()})
-                      for i in range(self.steps)]
-                self.static_out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
-        self.graph, self.captured = graph, captured
-        self._captured_ptrs = [t.data_ptr() for t in state.tensors()]
-        self.captures += 1
+                ms = [self.body(self.counters, {n: v[i] for n, v in self.static_in.items()}, u)
+                      for i, u in enumerate(pattern)]
+                out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
         torch.cuda.synchronize(self.dev)
-        self.capture_seconds.append(time.perf_counter() - t0)
+        g = _Graph(graph, out, launches, time.perf_counter() - t0,
+                   torch.cuda.memory_reserved(self.dev) - reserved)
+        self.captures += 1
+        self.capture_seconds.append(g.seconds)
+        self.pool_bytes.append(g.pool_bytes)
+        return g
 
 
 def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
@@ -332,14 +409,12 @@ def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     gloo group raises here.
     """
     dev = resolve_device(device)
-    if steps < 1:
-        raise ValueError(f"steps must be >= 1, got {steps}")
-    if dev.type == "cuda" and is_gloo(group):
-        raise ValueError("a CUDA graph cannot capture a gloo collective: the "
-                         "graphed step on CUDA needs an NCCL group")
+    check_dispatch(steps, dev, group)
     body = make_train_body(model, optimizer, aug_cfg, mean, std, seed=seed,
                            mask_loss=mask_loss, group=group, device=dev)
-    return GraphedSteps(body, model, optimizer, steps, dev)
+    return GraphedSteps(lambda counters, batch, _update: body(counters, batch),
+                        DeviceCounters(dev), lambda st: _check_state(st, model, optimizer),
+                        steps, dev)
 
 
 def make_eval_step(model, aug_cfg, mean, std=None, *, group=None, device="cuda"):

@@ -12,8 +12,9 @@
 - ``TrainState.snapshot`` and ``restore_`` put every tensor a step
   changes back in place, with the counts;
 - an ``Experiment`` with ``steps_per_dispatch=3`` writes the same
-  ``log.txt`` rows as one with 1 (both dispatch steps), and refuses K > 1
-  with the agent;
+  ``log.txt`` rows as one with 1 (both dispatch steps), and one with the
+  agent at K = 2 builds and trains (tests/test_torch_joint_dispatch.py
+  holds the joint dispatch to eager steps);
 - on the card (``cuda`` marker; skips here) the captured graph equals
   eager steps exactly in f32 with deterministic algorithms, counts the
   rasterizer's launches per replay and the warm-up's as they ran, and
@@ -241,11 +242,19 @@ def test_experiment_with_k3_writes_the_log_of_k1(split, tmp_path):
     assert logs[1] == logs[3] and logs[1].count("\n") == 3
 
 
-def test_k_above_one_with_the_agent_raises(split, tmp_path):
-    cfg = _exp_cfg(split, str(tmp_path), "--steps-per-dispatch", "2")
+def test_k_above_one_with_the_agent_trains(split, tmp_path):
+    """The joint step at K = 2: 5 steps an epoch (two dispatches of 2 and a
+    short one of 1), every count advanced, the agent's metrics finite."""
+    cfg = _exp_cfg(split, str(tmp_path), "--steps-per-dispatch", "2", "--epochs", "1")
     cfg.agent.enabled = True
-    with pytest.raises(ValueError, match="joint"):
-        Experiment(cfg, device="cpu")
+    exp = Experiment(cfg, device="cpu")
+    assert exp.loader.group == 2 and isinstance(exp.train_step, GraphedSteps)
+    out = exp.train_epoch(0)
+    exp.close()
+    st = exp.state
+    assert out["steps"] == st.step == st.pose.step == st.pose.optimizer.count == 5
+    assert st.agent.step == st.agent.optimizer.count == 5
+    assert all(np.isfinite(out[k]) for k in ("loss", "agent_loss", "advantage", "entropy"))
 
 
 @pytest.mark.cuda

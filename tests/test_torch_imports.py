@@ -147,7 +147,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
         make_train_step(model, opt, cfg.aug, MPII_MEAN)
     assert next(model.parameters()).device.type == "cpu"
     from posetpu_torch.models.agent import AugAgent, rotation_bin_table, scale_bin_table
-    from posetpu_torch.train.adversarial import agent_from_config, make_joint_step
+    from posetpu_torch.train.adversarial import (
+        agent_from_config,
+        make_joint_dispatch_step,
+        make_joint_step,
+    )
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AugAgent(widths=(8,))
@@ -156,6 +160,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
         make_joint_step(model, agent, opt, make_optimizer(agent.parameters(), cfg.optim),
                         cfg.aug, MPII_MEAN, scale_table=scale_bin_table(),
                         rot_table=rotation_bin_table())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_joint_dispatch_step(model, agent, opt,
+                                 make_optimizer(agent.parameters(), cfg.optim), cfg.aug,
+                                 MPII_MEAN, scale_table=scale_bin_table(),
+                                 rot_table=rotation_bin_table())
     assert next(agent.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         agent_from_config(named_config("hg8_mpii_asr"), widths=(8,))

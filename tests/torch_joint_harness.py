@@ -289,14 +289,27 @@ class RefJoint:
         key = jax.random.PRNGKey(key_seed)
         jb = {k: jnp.asarray(a) for k, a in b.items()}
         new, m = self.step(state, jb, key)
-        extras, adv, ref, jkeys, jitter, logits = self._draws(state, jb, key)
+        draws, (extras, adv, ref, jkeys) = self._draw(state, jb, key)
         grads = self._pose_grads(state.pose.params, state.pose.batch_stats,
                                  *self._crops(jb, extras, adv, ref, jkeys))
-        draws = {"index": b["index"], "extras": {k: np.asarray(v) for k, v in extras.items()},
-                 "adv": [np.asarray(a) for a in adv], "ref": [np.asarray(a) for a in ref],
-                 "jitter": np.asarray(jitter), "logits": _flat_logits(logits),
-                 "pose_grads": carry_pose(grads)}
+        draws["pose_grads"] = carry_pose(grads)
         return new, {k: float(v) for k, v in m.items()}, draws
+
+    def draws(self, state, b, key):
+        """What the JAX step draws from ``state`` on batch ``b`` with the
+        PRNG ``key``, as :func:`inject` takes it (the agent's logits under
+        ``logits``)."""
+        import jax.numpy as jnp
+
+        return self._draw(state, {k: jnp.asarray(a) for k, a in b.items()}, key)[0]
+
+    def _draw(self, state, jb, key):
+        extras, adv, ref, jkeys, jitter, logits = self._draws(state, jb, key)
+        draws = {"index": np.asarray(jb["index"]),
+                 "extras": {k: np.asarray(v) for k, v in extras.items()},
+                 "adv": [np.asarray(a) for a in adv], "ref": [np.asarray(a) for a in ref],
+                 "jitter": np.asarray(jitter), "logits": _flat_logits(logits)}
+        return draws, (extras, adv, ref, jkeys)
 
     def port(self, state, step_no=0, agent_step=None, agent_count=0):
         """The port's JointState carried from a JAX JointState, with a
@@ -338,7 +351,7 @@ def inject(monkeypatch, draws_by_step):
     """The port's sample_policy returns the JAX step's draws of that step."""
 
     def sample_policy(seed, step, index, logits, aug_cfg, scale_table, rot_table, occ):
-        d = draws_by_step[step]
+        d = draws_by_step[int(step)]  # an int, or a graphed step's device counter
         np.testing.assert_array_equal(index.cpu().numpy(), d["index"])
         dev = index.device
 
@@ -398,8 +411,9 @@ def max_gap(port_named, ref_named):
 def record(monkeypatch):
     """Wrap the port's per-sample loss, advantage normalization and policy
     log-prob so a test reads what the joint step computed: ``losses`` (one
-    entry per call), ``gap``/``adv`` and ``logits``/``extras``/``logp``."""
-    rec = {"losses": []}
+    entry per call), ``gap``/``adv`` and ``logits``/``extras``/``logp`` of
+    the last step, and under ``steps`` a copy of those for every step."""
+    rec = {"losses": [], "steps": []}
     mse, norm, logp = (port_adv.per_sample_stacked_mse, port_adv.normalize_advantage,
                        port_adv.policy_logp)
 
@@ -416,6 +430,9 @@ def record(monkeypatch):
     def rec_logp(logits, extras):
         out = logp(logits, extras)
         rec.update(logits=logits, extras=extras, logp=out.detach().clone())
+        # a step's last call: its losses, advantages and log-probs are in
+        rec["steps"].append({k: v for k, v in rec.items() if k != "steps"}
+                            | {"losses": list(rec["losses"])})
         return out
 
     monkeypatch.setattr(port_adv, "per_sample_stacked_mse", rec_mse)
@@ -454,30 +471,9 @@ def check_step(rj, monkeypatch, ref_state, b, key_seed, step_no=0, agent_count=0
     pm = {k: float(v) for k, v in step(js, b).items()}
     hook.remove()
 
-    # the agent's logits, then what they bound: log-probs and entropy
-    logits = _flat_port_logits(rec["logits"])
-    assert set(logits) == set(d["logits"])
-    for k, w in d["logits"].items():
-        np.testing.assert_allclose(logits[k].numpy(), w, rtol=0, atol=LOGIT_ATOL, err_msg=k)
-    max_logp = max(np.abs(w - np.log(np.exp(w).sum(-1, keepdims=True))).max()
-                   for w in d["logits"].values())
-    assert abs(pm["entropy"] - m["entropy"]) <= 2 * LOGIT_ATOL * max_logp
-
-    # the pose loss and the reward's moments
-    assert abs(pm["loss"] - m["loss"]) <= LOSS_RTOL * abs(m["loss"])
-    assert abs(pm["acc"] - m["acc"]) <= 0.1  # a joint more or less near a tie
-    l_adv, gap, adv = rec["losses"][-1][:B], rec["gap"], rec["adv"]
-    l_ref = l_adv - gap
-    delta_i = LOSS_RTOL * (l_adv.abs() + l_ref.abs())
-    assert abs(pm["advantage"] - m["advantage"]) <= delta_i.mean().item()
-    delta = delta_i.max()
-    s = torch.sqrt(torch.clamp((gap * gap).mean() - gap.mean() ** 2, min=0.0)) + 1e-6
-    dadv = (delta_i + delta + adv.abs() * delta) / s + 8 * ULP * (1 + adv.abs())
-    ex = rec["extras"]
-    terms = 2 + (2 if "occ_lvl" in ex else 1 if "oi" in ex else 0)  # heads on the path
-    dlogp = 2 * LOGIT_ATOL * terms
-    bound = (rec["logp"].abs() * dadv).mean() + adv.abs().mean() * dlogp
-    assert abs(pm["agent_loss"] - m["agent_loss"]) <= bound.item(), (pm, m, bound)
+    bounds, dadv = metric_bounds(rec, d["logits"], m)
+    for k, tol in bounds.items():
+        assert abs(pm[k] - m[k]) <= tol, (k, pm, m, tol)
 
     # pose: gradients (against jax.grad of the step's loss on its crops),
     # update, statistics
@@ -504,6 +500,38 @@ def check_step(rj, monkeypatch, ref_state, b, key_seed, step_no=0, agent_count=0
     _check_stats(js.agent.model, from_flax_agent_variables(
         new.agent.params, new.agent.batch_stats), AGENT_STATS_ATOL)
     return js, before, new
+
+
+def metric_bounds(rec, ref_logits, m):
+    """How far one port step's metrics may lie from the JAX step's ``m``,
+    by the module docstring's derivations, from what the port's step
+    computed (``rec``: :func:`record`'s, or one entry of its ``steps``) and
+    the reference's logits; it asserts the port's logits within
+    LOGIT_ATOL first.  Returns ({metric: tolerance}, the bound of each
+    normalized advantage)."""
+    # the agent's logits, then what they bound: log-probs and entropy
+    logits = _flat_port_logits(rec["logits"])
+    assert set(logits) == set(ref_logits)
+    for k, w in ref_logits.items():
+        np.testing.assert_allclose(logits[k].numpy(), w, rtol=0, atol=LOGIT_ATOL, err_msg=k)
+    max_logp = max(np.abs(w - np.log(np.exp(w).sum(-1, keepdims=True))).max()
+                   for w in ref_logits.values())
+    # the pose loss and the reward's moments
+    l_adv, gap, adv = rec["losses"][-1][:B], rec["gap"], rec["adv"]
+    l_ref = l_adv - gap
+    delta_i = LOSS_RTOL * (l_adv.abs() + l_ref.abs())
+    delta = delta_i.max()
+    s = torch.sqrt(torch.clamp((gap * gap).mean() - gap.mean() ** 2, min=0.0)) + 1e-6
+    dadv = (delta_i + delta + adv.abs() * delta) / s + 8 * ULP * (1 + adv.abs())
+    ex = rec["extras"]
+    terms = 2 + (2 if "occ_lvl" in ex else 1 if "oi" in ex else 0)  # heads on the path
+    dlogp = 2 * LOGIT_ATOL * terms
+    bound = (rec["logp"].abs() * dadv).mean() + adv.abs().mean() * dlogp
+    return {"entropy": 2 * LOGIT_ATOL * max_logp,
+            "loss": LOSS_RTOL * abs(m["loss"]),
+            "acc": 0.1,  # a joint more or less near a tie
+            "advantage": delta_i.mean().item(),
+            "agent_loss": bound.item()}, dadv
 
 
 def _check_stats(model, want, atol):
