@@ -125,6 +125,25 @@ Phases, each printing one JSON line:
              (launches 2 a step and 1 a validation batch), then graphed
              dispatches of 2 steps on one placed batch (img/s, CUDA-event
              ms, device busy ms, idle share, peak memory, capture seconds)
+  variants   hg8_mpii at full width, bf16, batch 32, with 1 and then 2
+             residual blocks a site (--blocks 2): eager make_train_step steps,
+             then make_dispatch_step at K = 1 (Experiment's graph): img/s,
+             loss, device busy ms a step, peak memory, launches; the state
+             saved as a run directory and served through
+             PosePredictor.from_config(cfg, run_dir) (predictions equal those
+             of the trained network)
+  remat      one state, one train step with remat off (twice) and on, and on
+             through the K = 1 graph: hg8_mpii at batch 32 and
+             hg8_mpii_384_dp8's one-card shapes (384² crops, batch 48) in
+             bf16 (loss, statistics and state within twice the remat-off
+             runs' own gap, num_batches_tracked equal; peak memory and busy ms
+             each), then hg8_mpii in float32 with TF32 off (equal bit for bit)
+  ckpt_interop  the train CLI at hg8_mpii width with --blocks 2 --scan-stacks
+             (one epoch), PosePredictor.from_config(cfg, run_dir) against the
+             checkpoint's state dict, the JAX package's torch container written
+             from the run's state and read back bit for bit (parameters,
+             buffers, moments, count, step), and from_config on fit_joint's
+             hg8_mpii_asr run directory (its pose network)
 
 The loader phase also times WorkerLoader at 0, 4 and 7 worker processes
 over the same JPEGs (its batches equal HostLoader's Pillow batches
@@ -2751,6 +2770,331 @@ def phase_dp_nccl1():
     return runs["nccl"][2] + runs["joint_nccl"][2]
 
 
+# variants: residual blocks a site of the hourglass at hg8_mpii width (the
+# reference's default, then --blocks 2), graphed dispatches timed after
+# the one that captures
+VARIANT_BLOCKS, VARIANT_TIMED = (1, 2), 3
+# remat: (config, batch) at full width: hg8_mpii, and hg8_mpii_384_dp8's
+# global batch on one card (384² crops, 96² heatmaps), where remat is meant
+# to make room
+REMAT_CASES = (("hg8_mpii", BATCH), ("hg8_mpii_384_dp8", 48))
+
+
+def _hg_for(cfg, **kw):
+    """The network of ``cfg.model`` as Experiment builds it (layout and
+    dtype; remat as ``kw`` says)."""
+    m = cfg.model
+    return hg(num_stacks=m.stacks, num_blocks=m.blocks, num_classes=m.classes,
+              num_feats=m.feats, depth=m.depth,
+              dtype=torch.bfloat16 if m.bf16 else torch.float32,
+              scan_stacks=m.scan_stacks, **kw)
+
+
+def _fresh_state(cfg):
+    model = _hg_for(cfg)
+    return TrainState(model, make_optimizer(model.parameters(), cfg.optim))
+
+
+def _same_predictions(label, a, b):
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"{label}: {k} differs")
+
+
+def _variant_run(cfg, workdir):
+    """One --blocks value (module docstring, ``variants``): eager steps,
+    the K = 1 graph, then serving from a run directory.  Returns (fields,
+    rasterizer launches)."""
+    torch.cuda.empty_cache()
+    torch.manual_seed(SEED + 20)
+    model = _hg_for(cfg).cuda()
+    opt = make_optimizer(model.parameters(), cfg.optim,
+                         steps_per_epoch=MPII_TRAIN_SAMPLES // BATCH)
+    state = TrainState(model, opt)
+    rng = np.random.RandomState(SEED + 21)
+    batches = [_train_batch(rng, BATCH, CANVAS, cfg.model.classes, i * BATCH)
+               for i in range(1 + NUM_BATCHES)]
+    step = make_train_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, device="cuda")
+    step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(state, b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    eager_peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in metrics]
+    check(eager == NUM_BATCHES, f"blocks {cfg.model.blocks}: eager launches {eager}")
+    check(all(math.isfinite(x) for x in losses), f"blocks {cfg.model.blocks}: losses {losses}")
+
+    dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, steps=1,
+                                  device="cuda")
+    supers = [_stack([b]) for b in batches[1:]]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    dispatch(state, supers[0])  # warms up, captures, replays
+    first = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    check(first == WARMUP_STEPS + 1, f"blocks {cfg.model.blocks}: first dispatch {first}")
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    graphed = [dispatch(state, sb) for sb in supers[1:1 + VARIANT_TIMED]]
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    timed = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    graph_peak = torch.cuda.max_memory_allocated()
+    check(timed == VARIANT_TIMED, f"blocks {cfg.model.blocks}: graphed launches {timed}")
+    check(dispatch.captures == 1, f"blocks {cfg.model.blocks}: captures {dispatch.captures}")
+    graph_losses = [m["loss"].item() for m in graphed]
+    check(all(math.isfinite(x) for x in graph_losses), f"graphed losses {graph_losses}")
+    prof = _profile_step(lambda: dispatch(state, supers[1]))
+    replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
+    steps = 1 + NUM_BATCHES + 1 + VARIANT_TIMED + 1
+    check(state.step == opt.count == steps, f"step {state.step}, count {opt.count}")
+
+    run_dir = os.path.join(workdir, f"variants_blocks{cfg.model.blocks}")
+    CheckpointManager(run_dir).save(state, 0, 0.0)
+    served = PosePredictor.from_config(cfg, run_dir, mean=MPII_MEAN)
+    request = _serve_batches(np.random.RandomState(SEED + 22))[0]
+    _same_predictions(f"blocks {cfg.model.blocks} served from {run_dir}", served(*request),
+                      PosePredictor(model, mean=MPII_MEAN)(*request))
+    fields = dict(blocks=cfg.model.blocks, params=sum(p.numel() for p in model.parameters()),
+                  eager_img_per_s=BATCH * NUM_BATCHES / eager_s, eager_loss=losses,
+                  eager_max_memory_allocated=eager_peak,
+                  capture_seconds=dispatch.capture_seconds[0],
+                  pool_bytes=dispatch.pool_bytes[0],
+                  graph_img_per_s=BATCH * VARIANT_TIMED / graph_s, graph_loss=graph_losses,
+                  graph_max_memory_allocated=graph_peak,
+                  device_busy_ms_per_step=prof["device_busy_ms"], replay_ms_per_step=replay_ms,
+                  idle_share=prof["idle_share"], profile=prof,
+                  launches={"eager": eager, "first_dispatch": first, "graphed": timed})
+    del dispatch, state, model, opt, served
+    return fields, eager + first + timed
+
+
+def phase_variants(cfg, workdir):
+    """hg8_mpii at full width (bf16, batch 32, seeded weights, color
+    jitter) with 1, then 2 residual blocks a site (--blocks 2): one warm-up
+    and NUM_BATCHES timed make_train_step calls, then make_dispatch_step at
+    K = 1 (the graph Experiment trains through): the capture (its warm-up
+    steps and the replay launch the rasterizer once each), VARIANT_TIMED
+    timed dispatches and one under torch.profiler; then the state saved as
+    a run directory and served through PosePredictor.from_config(cfg,
+    run_dir), whose predictions equal those of a predictor holding the
+    trained network.  Launch counts are reset just before each counted
+    part."""
+    runs, total = [], 0
+    for blocks in VARIANT_BLOCKS:
+        c = copy.deepcopy(cfg)
+        c.model.blocks = blocks
+        fields, launches = _variant_run(c, workdir)
+        runs.append(fields)
+        total += launches
+    emit("variants", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
+         batch=BATCH, canvas=list(CANVAS), dtype="bfloat16", runs=runs, launches=total)
+    return total
+
+
+def _remat_runs(cfg, B, timed):
+    """From one state: remat off twice and remat on once, one train step
+    each; with ``timed``, each step's peak memory and (one more step each)
+    its device busy ms under torch.profiler.  Then remat on through the
+    K = 1 graph from the same state.  Returns ({run: (snapshot, loss)},
+    measurements, rasterizer launches)."""
+    torch.cuda.empty_cache()
+    torch.manual_seed(SEED + 30)
+    model = _hg_for(cfg).cuda()
+    opt = make_optimizer(model.parameters(), cfg.optim,
+                         steps_per_epoch=MPII_TRAIN_SAMPLES // B)
+    state = TrainState(model, opt)
+    rng = np.random.RandomState(SEED + 31)
+    b0, b1 = (_train_batch(rng, B, CANVAS, cfg.model.classes, i * B) for i in range(2))
+    step = make_train_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, device="cuda")
+    step(state, b0)  # cuDNN set-up, not compared
+    s0 = state.snapshot()
+    runs, meas, launches = {}, {}, 0
+    for name, remat in (("off_a", False), ("off_b", False), ("on", True)):
+        model.remat = remat
+        state.restore_(s0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss = step(state, b1)["loss"].item()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        check(n == 1, f"remat {name}: {n} launches")
+        launches += n
+        runs[name] = (state.snapshot(), loss)
+        if timed and name != "off_b":
+            m = {"step_seconds": seconds, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            cuda_kernels.reset_launches()
+            prof = _profile_step(lambda: step(state, b1))
+            n = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+            check(n == 1, f"remat {name} profiled step: {n} launches")
+            launches += n
+            m.update(device_busy_ms=prof["device_busy_ms"], idle_share=prof["idle_share"],
+                     by_kind_ms=prof["by_kind_ms"])
+            meas[name] = m
+    if timed:
+        model.remat = True
+        state.restore_(s0)
+        dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, steps=1,
+                                      device="cuda")
+        cuda_kernels.reset_launches()
+        loss = dispatch(state, _stack([b1]))["loss"].item()  # warms up, captures, replays
+        n = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        check(n == WARMUP_STEPS + 1, f"remat graph: {n} launches")
+        launches += n
+        runs["graph_on"] = (state.snapshot(), loss)
+        meas["graph_on"] = {"capture_seconds": dispatch.capture_seconds[0],
+                            "pool_bytes": dispatch.pool_bytes[0]}
+        del dispatch
+    del state, model, opt, s0
+    return runs, meas, launches
+
+
+def _remat_checks(label, runs, exact):
+    """Remat on (and its graph) against remat off from one state: the loss
+    and the BatchNorm statistics (forward values), ``num_batches_tracked``
+    and the state after the update.  ``exact``: equal bit for bit;
+    otherwise within GRAPH_GAP_FACTOR of the two remat-off runs' own gap
+    (bit for bit when those agree)."""
+    (sa, la), (sb, lb) = runs["off_a"], runs["off_b"]
+    gaps = {"eager_param_gap": _gap(sa, sb), "eager_loss_gap": abs(la - lb)}
+    for name in [n for n in runs if n.startswith(("on", "graph_on"))]:
+        s, loss = runs[name]
+        ints = [(x, y) for x, y in zip(_snap_tensors(sa), _snap_tensors(s), strict=True)
+                if not x.is_floating_point()]
+        check(all(torch.equal(x, y) for x, y in ints),
+              f"{label} {name}: num_batches_tracked differs")
+        gap, loss_gap = _gap(sa, s), abs(la - loss)
+        gaps[f"{name}_param_gap"], gaps[f"{name}_loss_gap"] = gap, loss_gap
+        if exact:
+            same = all(torch.equal(x, y) for x, y in zip(_snap_tensors(sa), _snap_tensors(s)))
+            check(same and loss_gap == 0.0, f"{label} {name}: not equal to remat off")
+        else:
+            check(gap <= GRAPH_GAP_FACTOR * gaps["eager_param_gap"],
+                  f"{label} {name}: gap {gap}, eager runs {gaps['eager_param_gap']}")
+            check(loss_gap <= GRAPH_GAP_FACTOR * gaps["eager_loss_gap"],
+                  f"{label} {name}: loss gap {loss_gap}, eager {gaps['eager_loss_gap']}")
+    return gaps
+
+
+def phase_remat():
+    """Remat on against off from one state, one train step each
+    (make_train_step, full width, seeded weights): hg8_mpii at batch 32
+    and hg8_mpii_384_dp8's shapes (384² crops, 96² heatmaps, batch 48) in
+    bf16 (two remat-off runs measure the eager spread; remat on, eagerly
+    and through the K = 1 CUDA graph, within GRAPH_GAP_FACTOR of it: the
+    loss, the statistics and the state after the update; the
+    num_batches_tracked equal), each step's peak memory and device busy
+    ms; then hg8_mpii in float32 with TF32 off and deterministic
+    algorithms, where remat on equals remat off bit for bit."""
+    out, total = [], 0
+    for name, B in REMAT_CASES:
+        cfg = named_config(name)
+        check((cfg.model.stacks, cfg.model.feats, cfg.model.bf16) == (8, 128, True), name)
+        runs, meas, launches = _remat_runs(cfg, B, timed=True)
+        gaps = _remat_checks(name, runs, exact=False)
+        check(meas["on"]["max_memory_allocated"] < meas["off_a"]["max_memory_allocated"],
+              f"{name}: remat did not lower the peak: {meas}")
+        out.append({"config": name, "batch": B, "inp_res": list(cfg.aug.inp_res),
+                    "out_res": list(cfg.aug.out_res), "dtype": "bfloat16",
+                    "remat_off": meas["off_a"], "remat_on": meas["on"],
+                    "graph_on": meas["graph_on"], **gaps, "launches": launches})
+        total += launches
+    cfg = named_config("hg8_mpii")
+    cfg.model.bf16 = False
+    with _exact_f32():
+        runs, _, launches = _remat_runs(cfg, BATCH, timed=False)
+    out.append({"config": "hg8_mpii", "batch": BATCH, "dtype": "float32",
+                **_remat_checks("hg8_mpii float32", runs, exact=True), "launches": launches})
+    total += launches
+    emit("remat", runs=out, launches=total)
+    return total
+
+
+def phase_ckpt_interop(workdir):
+    """A fit through the train CLI at full hg8_mpii width with --blocks 2
+    --scan-stacks (remat through the K = 1 CUDA graph; one epoch of
+    FIT_STEPS steps and FIT_VAL_BATCHES validation batches, bf16, batch
+    32), then PosePredictor.from_config(cfg, run_dir), whose predictions
+    equal a predictor's of the checkpoint's state dict; the JAX package's
+    torch container written from the run's state and read back equal bit
+    for bit (parameters, buffers, moments, update count and step); and
+    from_config on phase_fit_joint's hg8_mpii_asr run directory serving its
+    pose network."""
+    from posetpu_torch.ckpt.torch_export import (
+        restore_reference_checkpoint,
+        save_reference_checkpoint,
+    )
+
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(workdir, "interop")
+    t0 = time.perf_counter()
+    rc, launches, out = _cli(train_cli.main, [
+        "--config", "hg8_mpii", "--synthetic", "--train-batch", str(BATCH),
+        "--checkpoint", ckpt, "--epochs", "1", "--blocks", "2", "--scan-stacks"])
+    fit_s = time.perf_counter() - t0
+    check(rc == 0, f"train cli returned {rc}")
+    want = FIT_STEPS + FIT_VAL_BATCHES + WARMUP_STEPS
+    check(launches == want, f"ckpt_interop launches {launches}, want {want}")
+    run_dir = os.path.join(ckpt, "hg8_mpii")
+    vals, best = _check_run("ckpt_interop", run_dir, 1, FIT_STEPS)
+    cfg = named_config("hg8_mpii")
+    cfg.model.blocks, cfg.model.scan_stacks = 2, True
+    mgr = CheckpointManager(run_dir)
+    payload = mgr.load(mgr.best_path if best else None)
+    model = _hg_for(cfg)
+    model.load_state_dict(payload["state"]["model"])
+    request = _serve_batches(np.random.RandomState(SEED + 40))[0]
+    _same_predictions("from_config(run_dir)",
+                      PosePredictor.from_config(cfg, run_dir, mean=MPII_MEAN)(*request),
+                      PosePredictor(model, mean=MPII_MEAN)(*request))
+
+    state = _fresh_state(cfg)
+    _, epoch, best_acc = mgr.restore(state)
+    path = os.path.join(workdir, "interop.pth.tar")
+    t0 = time.perf_counter()
+    save_reference_checkpoint(path, state, epoch, best_acc, cfg=cfg)
+    write_s = time.perf_counter() - t0
+    back = _fresh_state(cfg)
+    t0 = time.perf_counter()
+    check(restore_reference_checkpoint(back, path, cfg=cfg) == (epoch, best_acc),
+          "the container's epoch and best accuracy")
+    read_s = time.perf_counter() - t0
+    sd, sd_back = state.model.state_dict(), back.model.state_dict()
+    check(sd.keys() == sd_back.keys(), "container round trip: state dict keys")
+    check(all(torch.equal(sd[k], sd_back[k]) for k in sd),
+          "container round trip: parameters and buffers")
+    moments = [(state.optimizer.state[p], back.optimizer.state[q])
+               for p, q in zip(state.model.parameters(), back.model.parameters())]
+    check(all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+              for a, b in moments), "container round trip: moments")
+    check(back.optimizer.count == state.optimizer.count == back.step == state.step
+          == FIT_STEPS, f"count {back.optimizer.count}, step {back.step}")
+
+    jdir = os.path.join(workdir, "hg8_mpii_asr", "hg8_mpii_asr")
+    jcfg = named_config("hg8_mpii_asr")
+    jmgr = CheckpointManager(jdir)
+    jstate = jmgr.load(jmgr.best_path if os.path.isdir(jmgr.best_path) else None)["state"]
+    check("agent" in jstate, "fit_joint's run directory holds a joint checkpoint")
+    jmodel = _hg_for(jcfg)
+    jmodel.load_state_dict(jstate["pose"]["model"])
+    _same_predictions("from_config(joint run_dir)",
+                      PosePredictor.from_config(jcfg, jdir, mean=MPII_MEAN)(*request),
+                      PosePredictor(jmodel, mean=MPII_MEAN)(*request))
+    emit("ckpt_interop", config="hg8_mpii", blocks=2, scan_stacks=True, batch=BATCH,
+         fit_seconds=fit_s, images_per_sec=_img_per_s(out), log=vals, best_written=best,
+         container_bytes=os.path.getsize(path), container_write_seconds=write_s,
+         container_read_seconds=read_s, tensors=len(sd), launches=launches,
+         launches_want=want)
+    return launches
+
+
 def _processes():
     """{pid: (state, ppid, process group, command line)} of every process
     /proc lists."""
@@ -2863,6 +3207,9 @@ def _run_phases():
         fit_dispatch_launches = phase_fit_dispatch(workdir, have_tensorboard)
         fit_joint_dispatch_launches = phase_fit_joint_dispatch(workdir, have_tensorboard)
         dp_config_launches = phase_dp_config(workdir)
+        variants_launches = phase_variants(cfg, workdir)
+        remat_launches = phase_remat()
+        ckpt_interop_launches = phase_ckpt_interop(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2882,7 +3229,10 @@ def _run_phases():
                                   "fit_joint_dispatch": fit_joint_dispatch_launches,
                                   "dp_nccl1": dp_nccl1_launches,
                                   "dp_gloo2": dp_gloo2_launches,
-                                  "dp_config": dp_config_launches}
+                                  "dp_config": dp_config_launches,
+                                  "variants": variants_launches,
+                                  "remat": remat_launches,
+                                  "ckpt_interop": ckpt_interop_launches}
     return raster
 
 

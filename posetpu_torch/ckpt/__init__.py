@@ -6,6 +6,7 @@ from posetpu_torch.ckpt.transplant import (
     from_flax_variables,
     from_optax_agent_state,
     from_optax_state,
+    to_flax_variables,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "from_flax_variables",
     "from_optax_agent_state",
     "from_optax_state",
+    "to_flax_variables",
 ]

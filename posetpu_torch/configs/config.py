@@ -8,11 +8,16 @@ the port runs so far — the port's own copy of
 Only the fields the ported slices read are here.  Knobs that selected
 between TPU code paths are gone: the port has one warp path (``warp_table``
 had no other meaning), and the target rasterizer is chosen by the device of
-its inputs (``raster_backend``).  The network has one residual block per
-level (``blocks`` is always 1).  The agent's ``fused_step`` chose between
-XLA program layouts and has no counterpart.  ``remat`` and
-``scan_stacks`` come with the slices that read them; so do their flags,
-which :func:`add_overrides` does not define (argparse rejects them).
+its inputs (``raster_backend``); their flags (``--warp-table``,
+``--raster-backend``) are not defined, so argparse rejects them.  The
+agent's ``fused_step`` chose between XLA program layouts and has no
+counterpart (nor has ``--agent-step``).  ``blocks`` (``--blocks``) chains
+that many residual blocks at each site of the hourglass; ``remat``
+recomputes each hourglass in the backward pass
+(``torch.utils.checkpoint``); ``scan_stacks`` (``--scan-stacks``) selects
+the JAX package's scanned checkpoint layout (every stack's parameters
+stacked on a leading axis, the last stack's unused remap kept) and implies
+remat, as it does there.
 ``num_devices`` (``--num-devices``) is the number of data-parallel ranks,
 one process a GPU (:mod:`posetpu_torch.parallel`).  ``loader_backend="grain"`` selects the port's worker-process
 loader (:class:`posetpu_torch.data.WorkerLoader`), so a reference command
@@ -30,9 +35,13 @@ from typing import Optional, Sequence, Tuple
 @dataclass
 class ModelConfig:
     stacks: int = 8  # reference --stacks
+    blocks: int = 1  # reference --blocks
     classes: int = 16  # reference --num-classes
     feats: int = 128  # reference --features
     depth: int = 4
+    remat: bool = False
+    # the reference's nn.scan layout of the stacks (implies remat)
+    scan_stacks: bool = False
     bf16: bool = True
 
 
@@ -172,6 +181,7 @@ def named_config(name) -> ExperimentConfig:
 _FLAGS = {
     # flag -> (path, type)
     "--stacks": ("model.stacks", int),
+    "--blocks": ("model.blocks", int),
     "--num-classes": ("model.classes", int),
     "--features": ("model.feats", int),
     "--sigma": ("aug.sigma", float),
@@ -206,6 +216,10 @@ def add_overrides(parser: argparse.ArgumentParser):
     parser.add_argument("--schedule", type=int, nargs="*", default=None)
     parser.add_argument("--synthetic", action="store_true", default=None)
     parser.add_argument("--tensorboard", action="store_true", default=None)
+    parser.add_argument(
+        "--scan-stacks", action="store_true", default=None,
+        help="the JAX package's scanned stack layout (implies remat)",
+    )
     parser.add_argument("--no-color-jitter", action="store_true", default=None)
     return parser
 
@@ -226,6 +240,8 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
         cfg.synthetic = True
     if getattr(args, "tensorboard", None):
         cfg.tensorboard = True
+    if getattr(args, "scan_stacks", None):
+        cfg.model.scan_stacks = True
     if getattr(args, "no_color_jitter", None):
         cfg.aug.color_jitter = False
     return cfg

@@ -8,7 +8,10 @@ head rectangle's diagonal; where an annotation has no head box (the bearpaw
 JSON), 1.2 x |head_top - upper_neck| from the keypoints stands in.
 
     posetpu-torch-eval --config hg2_mpii_mini --checkpoint DIR [--best]
-        [--synthetic] [--cpu]
+        [--synthetic] [--cpu] [--blocks N] [--scan-stacks]
+
+The network is built as the train command built it: pass the run's
+``--stacks``, ``--features``, ``--blocks`` and ``--scan-stacks``.
 
 (or ``python -m posetpu_torch.eval.cli``).  Runs on CUDA unless ``--cpu``,
 in one process: a data-parallel config's ``num_devices`` is not read.

@@ -9,19 +9,25 @@ end only decodes JPEGs.
 Usage:
     from posetpu_torch.configs import named_config
     from posetpu_torch.infer import PosePredictor
-    p = PosePredictor.from_config(named_config("hg8_mpii"), state_dict)
+    p = PosePredictor.from_config(named_config("hg8_mpii"), "checkpoints/hg8_mpii")
     out = p(images_u8, valid_wh, centers, scales)
     out["pred"]   # (B, K, 2) keypoints in source-image coords (1-indexed)
     out["conf"]   # (B, K) peak heatmap activation per joint
 
-Loading the JAX package's orbax checkpoints waits for the checkpoint
-slice; :func:`posetpu_torch.ckpt.from_flax_variables` turns restored flax
-variables into the ``state_dict`` taken here.
+``from_config`` reads a run directory of the port's train command (its
+``best/`` or its latest ``ckpt/<epoch>``), one checkpoint directory, or a
+state dict.  The JAX package's checkpoints come over through its torch
+container (:func:`posetpu_torch.ckpt.torch_export.load_reference_checkpoint`)
+or from restored flax variables
+(:func:`posetpu_torch.ckpt.from_flax_variables`), either of which gives the
+state dict taken here.
 """
 
 from __future__ import annotations
 
+import os
 from collections import deque
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -29,6 +35,7 @@ import torch
 from posetpu_torch.aug.affine import make_transform
 from posetpu_torch.aug.color import color_normalize
 from posetpu_torch.aug.warp import affine_warp
+from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.eval.decode import final_preds, get_preds, quarter_offset
 from posetpu_torch.models import hg
 from posetpu_torch.utils.device import resolve_device
@@ -36,6 +43,30 @@ from posetpu_torch.utils.device import resolve_device
 # The reference normalizes by the dataset mean; MPII's is the default when
 # serving without the training dataset on disk.
 MPII_MEAN = (0.4404, 0.4440, 0.4327)
+
+
+def load_checkpoint_model(checkpoint, *, best=True):
+    """The pose network's state dict from a checkpoint of the port's train
+    command, by the JAX package's rules (``posetpu/infer.py``):
+    ``checkpoint`` is a run directory, whose ``best/`` is read when ``best``
+    is set and it exists, or when it is the only layout there; else its
+    latest finished ``ckpt/<epoch>`` (:class:`CheckpointManager
+    <posetpu_torch.ckpt.manager.CheckpointManager>`); or one checkpoint
+    directory itself.  A joint checkpoint gives its pose network."""
+    if not os.path.isdir(checkpoint):
+        raise FileNotFoundError(f"no checkpoint directory at {checkpoint}")
+    manager = CheckpointManager(checkpoint)
+    has_best = os.path.isdir(manager.best_path)
+    has_ckpt = os.path.isdir(os.path.join(checkpoint, "ckpt"))
+    path = checkpoint
+    if has_best and (best or not has_ckpt):
+        path = manager.best_path
+    elif has_ckpt:
+        path = manager.latest_path()
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint under {checkpoint}")
+    state = manager.load(path)["state"]
+    return state.get("pose", state)["model"]
 
 
 class PosePredictor:
@@ -71,17 +102,25 @@ class PosePredictor:
         self._std_t = None if std is None else torch.tensor(std, device=self.device)
 
     @classmethod
-    def from_config(cls, cfg, state_dict, *, mean=MPII_MEAN, device="cuda"):
-        """Build from an ExperimentConfig and a state dict of
-        :class:`posetpu_torch.models.HourglassNet`."""
+    def from_config(cls, cfg, checkpoint, *, best=True, mean=MPII_MEAN, device="cuda"):
+        """Build from an ExperimentConfig and ``checkpoint``: a state dict of
+        :class:`posetpu_torch.models.HourglassNet`, or a path
+        (:func:`load_checkpoint_model`, with ``best``).  The network is
+        built from ``cfg.model``, ``blocks`` and ``scan_stacks`` included
+        (the checkpoint's layout); remat does not matter in eval."""
+        device = resolve_device(device)
         model = hg(
             num_stacks=cfg.model.stacks,
+            num_blocks=cfg.model.blocks,
             num_classes=cfg.model.classes,
             num_feats=cfg.model.feats,
             depth=cfg.model.depth,
             dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32,
+            scan_stacks=cfg.model.scan_stacks,
         )
-        model.load_state_dict(state_dict)
+        if not isinstance(checkpoint, Mapping):
+            checkpoint = load_checkpoint_model(checkpoint, best=best)
+        model.load_state_dict(checkpoint)
         return cls(
             model,
             mean=mean,

@@ -18,17 +18,63 @@ global variance.  It updates its running statistics itself, so
 :func:`flax_train_forward` leaves it out and the correction is applied
 exactly once.  It is written in plain torch ops, which run on the CPU as
 on the card (torch's ``SyncBatchNorm`` refuses CPU tensors).
+
+Remat (:func:`remat`, the reference's ``nn.remat``) runs a checkpointed
+forward a second time in the backward pass.  flax drops the batch
+statistics of that recompute; so do the norms here: inside
+:func:`recomputing` a train-mode norm normalizes with the batch's
+statistics as before and leaves ``running_mean``, ``running_var`` and
+``num_batches_tracked`` alone.  A cross-replica norm still all-reduces its
+moments there (one more all-reduce a norm a step), since the recomputed
+values must be the first forward's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from posetpu_torch.parallel.dp import all_reduce_sum, group_size
 
 # flax's BatchNorm momentum (torch's ``momentum`` is 1 minus it)
 FLAX_MOMENTUM = 0.9
+
+# whether this thread runs the recompute of a checkpointed forward (the
+# autograd engine runs a CUDA backward on a thread of its own)
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The norms called inside leave their running statistics alone."""
+    prev = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = prev
+
+
+def _recompute_context():
+    return contextlib.nullcontext(), recomputing()
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept (``torch.utils.checkpoint``, non-reentrant), with the
+    norms' statistics left alone in the recompute (:func:`recomputing`).
+    Autocast is restored for the recompute; the RNG state is not (the
+    networks draw nothing), which also keeps it capturable in a CUDA
+    graph.  Without autograd it is ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_recompute_context)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -47,6 +93,17 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         if self.group is not None:
             return self._cross_replica(x)
+        if x.device.type == "cpu" and x.dtype != torch.bfloat16:
+            # torch's CPU batch_norm takes the statistics of a channels-last
+            # input (the layout an NHWC network input carries) far less
+            # accurately: 1.3e-4 from float64 against 6.1e-7 contiguous at
+            # (6, 64, 32, 32); a bfloat16 input's own rounding is far wider
+            x = x.contiguous()
+        if getattr(_recompute, "on", False):
+            # the first forward's op on copies of the running statistics:
+            # the same values, and the same tensors saved for the backward
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
         self.batch_count = x.numel() // x.shape[1]
         return super().forward(x)
 
@@ -61,14 +118,19 @@ class BatchNorm2d(nn.BatchNorm2d):
         moments = all_reduce_sum(moments, self.group) / group_size(self.group)
         mu, mu2 = moments[0], moments[1]
         var = torch.clamp(mu2 - mu * mu, min=0.0)
-        with torch.no_grad():
-            m = FLAX_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mu)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-            self.num_batches_tracked.add_(1)
+        if not getattr(_recompute, "on", False):
+            self._update_running(mu, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mu[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mu, var):
+        """flax's running statistics, with the batch's biased variance."""
+        m = FLAX_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mu)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        self.num_batches_tracked.add_(1)
 
 
 def convert_cross_replica_(model, group):

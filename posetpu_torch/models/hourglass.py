@@ -1,11 +1,26 @@
 """Stacked hourglass network — counterpart of
-``posetpu/models/hourglass.py`` (unrolled layout, ``num_blocks=1``).
+``posetpu/models/hourglass.py``.
 
 Module names follow ``tools/torch_baseline.py:build_torch_hourglass`` so
 the weight carry (:mod:`posetpu_torch.ckpt.transplant`) maps the JAX
-package's parameters one to one.  The network takes NHWC input like the
-reference and runs NCHW inside; it returns each stack's heatmaps as
-(B, K, H, W) float32.
+package's parameters one to one.  With ``num_blocks`` > 1 each residual
+site (every ``up1``, ``low1``, ``low2`` and ``low3`` of an hourglass, and
+each stack's ``res``) is an ``nn.Sequential`` of that many bottlenecks,
+named ``<site>.<j>``; the stem keeps its three.  A ``num_blocks=1`` network
+has one bottleneck at each site under the site's own name.
+
+``remat`` recomputes activations in the backward pass instead of keeping
+them (:func:`posetpu_torch.models.batchnorm.remat`), by the reference's
+units: each hourglass, or with ``scan_stacks`` each whole stack (hourglass,
+``res``, ``fc``, ``score`` and the remap).  ``scan_stacks`` is the
+reference's ``nn.scan`` layout: the same computation, with the last stack's
+remap (``fc_`` and ``score_``) held too, as the reference's checkpoint
+holds it.  The reference computes that remap and throws it away; here it is
+not computed, and autograd gives its parameters no gradient (the optimizer
+takes that as zero, as optax does).
+
+The network takes NHWC input like the reference and runs NCHW inside; it
+returns each stack's heatmaps as (B, K, H, W) float32.
 
 With ``dtype=torch.bfloat16`` the forward runs under bf16 autocast with
 float32 parameters and BatchNorm statistics, as the reference computes in
@@ -26,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from posetpu_torch.models.batchnorm import BatchNorm2d, flax_train_forward
+from posetpu_torch.models.batchnorm import BatchNorm2d, flax_train_forward, remat
 
 
 class Bottleneck(nn.Module):
@@ -52,20 +67,27 @@ class Bottleneck(nn.Module):
         return y + (x if self.proj is None else self.proj(x))
 
 
+def residual(planes, num_blocks):
+    """One residual site at width 2 * ``planes``: a bottleneck, or an
+    ``nn.Sequential`` of ``num_blocks`` of them."""
+    if num_blocks == 1:
+        return Bottleneck(2 * planes, planes)
+    return nn.Sequential(*[Bottleneck(2 * planes, planes) for _ in range(num_blocks)])
+
+
 class Hourglass(nn.Module):
     """One recursive hourglass: at each of ``depth`` levels a skip residual
     plus a max-pooled branch that recurses, then a nearest 2x upsample."""
 
-    def __init__(self, planes, depth=4):
+    def __init__(self, planes, depth=4, num_blocks=1):
         super().__init__()
         self.depth = depth
-        c = 2 * planes
         self.mods = nn.ModuleDict()
         for d in range(1, depth + 1):
-            self.mods[f"up1_{d}"] = Bottleneck(c, planes)
-            self.mods[f"low1_{d}"] = Bottleneck(c, planes)
-            self.mods[f"low3_{d}"] = Bottleneck(c, planes)
-        self.low2 = Bottleneck(c, planes)
+            self.mods[f"up1_{d}"] = residual(planes, num_blocks)
+            self.mods[f"low1_{d}"] = residual(planes, num_blocks)
+            self.mods[f"low3_{d}"] = residual(planes, num_blocks)
+        self.low2 = residual(planes, num_blocks)
 
     def _level(self, d, x):
         up1 = self.mods[f"up1_{d}"](x)
@@ -95,13 +117,17 @@ class HourglassNet(nn.Module):
         num_feats=128,
         depth=4,
         dtype=torch.bfloat16,
+        remat=False,
+        scan_stacks=False,
     ):
         super().__init__()
-        if num_blocks != 1:
-            raise ValueError("the port's hourglass has num_blocks=1 only")
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.dtype = dtype
+        self.remat = remat
+        self.scan_stacks = scan_stacks
         ch = 2 * num_feats
         self.stem = nn.Sequential(
             nn.Conv2d(3, 64, 7, 2, 3),
@@ -113,10 +139,10 @@ class HourglassNet(nn.Module):
             Bottleneck(ch, num_feats),
         )
         self.hgs = nn.ModuleList(
-            [Hourglass(num_feats, depth) for _ in range(num_stacks)]
+            [Hourglass(num_feats, depth, num_blocks) for _ in range(num_stacks)]
         )
         self.res = nn.ModuleList(
-            [Bottleneck(ch, num_feats) for _ in range(num_stacks)]
+            [residual(num_feats, num_blocks) for _ in range(num_stacks)]
         )
         self.fc = nn.ModuleList(
             [
@@ -129,12 +155,11 @@ class HourglassNet(nn.Module):
         self.score = nn.ModuleList(
             [nn.Conv2d(ch, num_classes, 1) for _ in range(num_stacks)]
         )
-        # no remap after the last stack
-        self.fc_ = nn.ModuleList(
-            [nn.Conv2d(ch, ch, 1) for _ in range(num_stacks - 1)]
-        )
+        # no remap after the last stack; the scanned layout holds one
+        remaps = num_stacks if scan_stacks else num_stacks - 1
+        self.fc_ = nn.ModuleList([nn.Conv2d(ch, ch, 1) for _ in range(remaps)])
         self.score_ = nn.ModuleList(
-            [nn.Conv2d(num_classes, ch, 1) for _ in range(num_stacks - 1)]
+            [nn.Conv2d(num_classes, ch, 1) for _ in range(remaps)]
         )
         # a plain list: the modules are registered above already
         self._norms = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
@@ -150,22 +175,32 @@ class HourglassNet(nn.Module):
 
     def _forward(self, x):
         x = x.permute(0, 3, 1, 2)
-        dev = x.device.type
         with torch.autocast(
-            dev, dtype=torch.bfloat16, enabled=self.dtype == torch.bfloat16
+            x.device.type, dtype=torch.bfloat16, enabled=self.dtype == torch.bfloat16
         ):
             x = self.stem(x)
             outs = []
-            for i, hg in enumerate(self.hgs):
-                y = self.fc[i](self.res[i](hg(x)))
-                # in the parameters' own type: float32, or float64 for a
-                # model taken to .double() as a reference
-                with torch.autocast(dev, enabled=False):
-                    s = self.score[i](y.to(self.score[i].weight.dtype))
+            for i in range(len(self.hgs)):
+                if self.remat and self.scan_stacks:
+                    s, x = remat(self._stack, i, x)
+                else:
+                    s, x = self._stack(i, x)
                 outs.append(s)
-                if i < len(self.hgs) - 1:
-                    x = x + self.fc_[i](y) + self.score_[i](s)
         return outs
+
+    def _stack(self, i, x):
+        """Stack ``i`` on its input ``x``: (its heatmaps, the next stack's
+        input, or None after the last stack)."""
+        hg = self.hgs[i]
+        y = remat(hg, x) if self.remat and not self.scan_stacks else hg(x)
+        y = self.fc[i](self.res[i](y))
+        # in the parameters' own type: float32, or float64 for a model
+        # taken to .double() as a reference
+        with torch.autocast(x.device.type, enabled=False):
+            s = self.score[i](y.to(self.score[i].weight.dtype))
+        if i == len(self.hgs) - 1:
+            return s, None
+        return s, x + self.fc_[i](y) + self.score_[i](s)
 
 
 def hg(num_stacks=8, num_blocks=1, num_classes=16, **kw):

@@ -207,8 +207,11 @@ class Experiment:
 
         m = cfg.model
         self.model = seeded_init_(
-            hg(num_stacks=m.stacks, num_classes=m.classes, num_feats=m.feats,
-               depth=m.depth, dtype=torch.bfloat16 if m.bf16 else torch.float32),
+            hg(num_stacks=m.stacks, num_blocks=m.blocks, num_classes=m.classes,
+               num_feats=m.feats, depth=m.depth,
+               dtype=torch.bfloat16 if m.bf16 else torch.float32,
+               # the scanned layout implies remat, as in the reference
+               remat=m.remat or m.scan_stacks, scan_stacks=m.scan_stacks),
             cfg.seed,
         )
         # every rank draws the same weights; the broadcast makes it so

@@ -115,7 +115,11 @@ class OptaxRMSprop(torch.optim.Optimizer):
     ``nu = (1 - decay) * g**2 + decay * nu``; ``u = g * rsqrt(nu + eps)``;
     ``u = -lr(count) * u``; ``m = u + momentum * m`` and ``u = m`` (when
     momentum is set); ``p += u``; ``count += 1``.  ``nu`` and ``m`` start
-    at zero.  A parameter without a gradient is left alone.
+    at zero.  A parameter without a gradient takes a zero one, as optax
+    updates every leaf with the gradient ``jax.grad`` gives it (zero where
+    the loss does not reach): its ``nu`` and trace decay, and with
+    ``weight_decay`` the parameter does (the scanned hourglass's unused last
+    remap, :class:`posetpu_torch.models.HourglassNet`).
     """
 
     def __init__(self, params, schedule, *, decay=0.99, eps=1e-8, momentum=0.0,
@@ -162,11 +166,9 @@ class OptaxRMSprop(torch.optim.Optimizer):
         tensor on the parameters' device)."""
         for group in self.param_groups:
             d, mu, wd = group["decay"], group["momentum"], group["weight_decay"]
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
+            params = group["params"]
             states = [self._moments(p, mu) for p in params]
-            grads = [p.grad for p in params]
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             if wd:
                 grads = torch._foreach_add(grads, params, alpha=wd)
             nus = [st["nu"] for st in states]

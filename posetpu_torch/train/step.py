@@ -46,8 +46,13 @@ collectives are plain calls, so the graphed step captures them: under NCCL
 the all-reduce runs inside the CUDA graph.  A gloo collective cannot be
 captured, so :func:`make_dispatch_step` on CUDA refuses a gloo group.
 The models' BatchNorms take the same group
-(:func:`posetpu_torch.models.batchnorm.convert_cross_replica_`).  Remat
-waits for its slice.
+(:func:`posetpu_torch.models.batchnorm.convert_cross_replica_`).
+
+A network built with ``remat`` recomputes its checkpointed forward in the
+backward pass (:func:`posetpu_torch.models.batchnorm.remat`): the steps,
+eager or graphed, are the same calls; the recompute runs under the
+forward's autocast, leaves the norms' statistics alone and, with a group,
+all-reduces each cross-replica norm's moments once more.
 """
 
 from __future__ import annotations

@@ -127,3 +127,29 @@ def test_batch_count_is_recorded_per_norm():
     assert counts["hgs.0.low2.bn1"] == 3 * 4 * 4
     assert counts["fc.1.1"] == 3 * 16 * 16
     assert set(counts.values()) == {3 * 32 * 32, 3 * 16 * 16, 3 * 8 * 8, 3 * 4 * 4}
+
+
+def test_cpu_train_statistics_do_not_depend_on_the_layout():
+    """A network's NHWC input, permuted to NCHW, reaches its norms in the
+    channels-last layout.  torch's CPU ``batch_norm`` takes the statistics
+    of such an input 1.3e-4 from float64 at this shape, against 6.1e-7 for
+    a contiguous one (read on the CPU), and the error turned the port's
+    ReLUs far more often than the JAX package's (ROADMAP §3).  On the CPU a
+    train-mode norm takes its input contiguous: channels-last and
+    contiguous float32 inputs give the same output and statistics, within
+    2e-6 of float64."""
+    from posetpu_torch.models.batchnorm import BatchNorm2d
+
+    x = np.maximum(np.random.RandomState(0).randn(6, 64, 32, 32), 0) * 0.5
+    x = torch.from_numpy(x.astype(np.float32))
+    ref = BatchNorm2d(64).double().train()
+    want = ref(x.double())
+    got = []
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        bn = BatchNorm2d(64).train()
+        y = bn(x.contiguous(memory_format=fmt))
+        assert (y.double() - want).abs().max() <= 2e-6, fmt
+        got.append((y, bn.running_mean, bn.running_var))
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    assert (got[0][2].double() - ref.running_var).abs().max() <= 2e-6

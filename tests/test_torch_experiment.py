@@ -220,19 +220,23 @@ def test_fresh_weights_come_from_the_seed(split, tmp_path):
 
 
 def test_unknown_and_left_out_flags_are_rejected():
-    for flag in ("--blocks", "--scan-stacks", "--agent-step",
-                 "--raster-backend", "--warp-table", "--no-probe", "--cpu-devices"):
+    for flag in ("--agent-step", "--raster-backend", "--warp-table", "--no-probe",
+                 "--cpu-devices"):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args([flag, "1"])
     args = cli.build_parser().parse_args(["--schedule", "3", "5", "--no-color-jitter",
                                           "--occ-mode", "parts", "--lr", "0.1",
-                                          "--num-devices", "2"])
+                                          "--num-devices", "2", "--blocks", "2",
+                                          "--scan-stacks"])
     from posetpu_torch.configs import apply_overrides
 
     cfg = apply_overrides(named_config("hg8_lsp_aho"), args)
     assert cfg.optim.schedule == (3, 5) and not cfg.aug.color_jitter
     assert cfg.agent.occ_mode == "parts" and cfg.optim.lr == 0.1
     assert cfg.num_devices == 2
+    assert cfg.model.blocks == 2 and cfg.model.scan_stacks and not cfg.model.remat
+    plain = apply_overrides(named_config("hg8_mpii"), cli.build_parser().parse_args([]))
+    assert plain.model.blocks == 1 and not plain.model.scan_stacks
     mini = named_config("hg2_mpii_mini")
     assert mini.synthetic and mini.optim.epochs == 10 and mini.batch_size == 6
 

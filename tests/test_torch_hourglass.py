@@ -207,10 +207,28 @@ def test_bf16_heatmaps_match_flax_bf16(stacks, seed):
 
 
 def test_multi_block_model_is_rejected():
+    """A model of no residual block is refused; one of two blocks a site
+    is built and takes the carry of a flax num_blocks=2 network whole (its
+    forward against flax: tests/test_torch_variants.py)."""
     with pytest.raises(ValueError):
-        hg(num_stacks=1, num_blocks=2)
+        hg(num_stacks=1, num_blocks=0)
     with pytest.raises(ValueError):
-        from_flax_variables({}, None, num_stacks=1, num_blocks=2)
+        from_flax_variables({}, None, num_stacks=1, num_blocks=0)
+    import jax
+    import jax.numpy as jnp
+
+    from posetpu.models import hg as ref_hg
+
+    ref = ref_hg(num_stacks=1, num_blocks=2, num_classes=CLASSES, num_feats=FEATS,
+                 depth=2, dtype=jnp.float32)
+    v = ref.init(jax.random.PRNGKey(0), jnp.zeros((1, RES, RES, 3)), train=False)
+    sd = from_flax_variables(v["params"], v["batch_stats"], num_stacks=1, num_blocks=2,
+                             depth=2)
+    model = hg(num_stacks=1, num_blocks=2, num_classes=CLASSES, num_feats=FEATS, depth=2,
+               dtype=torch.float32)
+    model.load_state_dict(sd, strict=True)
+    assert isinstance(model.res[0], torch.nn.Sequential) and len(model.res[0]) == 2
+    assert set(sd) == {k for k in model.state_dict() if not k.endswith("num_batches_tracked")}
 
 
 @pytest.mark.cuda

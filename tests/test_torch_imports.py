@@ -41,7 +41,8 @@ def test_importing_every_module_loads_no_jax():
             "posetpu_torch.train.loop", "posetpu_torch.train.cli",
             "posetpu_torch.eval.cli", "posetpu_torch.data.worker_loader",
             "posetpu_torch.utils.profiling", "posetpu_torch.parallel",
-            "posetpu_torch.parallel.dp", "posetpu_torch.parallel.launch"} <= set(mods)
+            "posetpu_torch.parallel.dp", "posetpu_torch.parallel.launch",
+            "posetpu_torch.ckpt.torch_export", "posetpu_torch.ckpt.transplant"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -66,6 +67,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) > 10
     assert {os.path.join(REPO, "posetpu_torch", "parallel", n)
             for n in ("__init__.py", "dp.py", "launch.py")} <= set(files)
+    assert os.path.join(REPO, "posetpu_torch", "ckpt", "torch_export.py") in files
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -78,6 +80,27 @@ def test_no_source_imports_jax_or_the_jax_package():
                 continue
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
+
+
+def test_no_source_unpickles_with_weights_only_false():
+    """Every ``torch.load`` of the port and of chip_smoke passes
+    ``weights_only=True``: a checkpoint, the JAX package's container
+    included, is read without running what it pickled."""
+    loads = 0
+    for path in _python_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "load"
+                    and isinstance(node.func.value, ast.Name) and node.func.value.id == "torch"):
+                loads += 1
+                kw = {k.arg: k.value for k in node.keywords}
+                assert "weights_only" in kw, f"{path}:{node.lineno} torch.load without weights_only"
+                value = kw["weights_only"]
+                assert isinstance(value, ast.Constant) and value.value is True, \
+                    f"{path}:{node.lineno} torch.load with weights_only not True"
+    assert loads >= 2  # the run directory's checkpoints and the container
 
 
 def test_no_module_imports_pillow_at_its_top():
