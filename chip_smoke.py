@@ -15,11 +15,18 @@ Phases, each printing one JSON line:
              the main path's shape and at one beyond the L2
   serve      PosePredictor at the full hg8_mpii width (seeded random
              weights, bf16): predict_iter(depth=2) over 4 batches of 32
-  validate   make_eval_step at the same width over 4 batches of 32, its
-             targets from the CUDA rasterizer; the kernel launch counts are
-             reset just before and read just after
-  profile    one validation step under torch.profiler: device time by
-             kernel and the idle share of the step
+             through the CUDA graph of their shape, bit for bit equal to the
+             eager body on the same batches; graphed and eager img/s and
+             idle shares, captures, the pool; predict_single (a graph per
+             shape) and weights loaded in place (read by the graphs)
+  validate   make_graphed_eval_step (Experiment's validation step, one CUDA
+             graph per batch signature) at the same width over 4 batches of
+             32, its targets from the CUDA rasterizer, bit for bit equal to
+             make_eval_step's eager step; every batch keeps its own
+             predictions; the kernel launch counts are reset just before the
+             graphed batches (the main path) and read just after
+  profile    one validation step under torch.profiler, graphed and eager:
+             device time by kernel and the idle share of the step
   parity     a small f32 network (TF32 off): the card's validation step
              against the port's CPU path on the same inputs and weights
              (loss, scores, targets, PCK counts and decoded predictions)
@@ -144,6 +151,18 @@ Phases, each printing one JSON line:
              from the run's state and read back bit for bit (parameters,
              buffers, moments, count, step), and from_config on fit_joint's
              hg8_mpii_asr run directory (its pose network)
+  profiling  posetpu_torch.tools.duty_cycle at full hg8_mpii width, batch 16,
+             on a synthetic 512x384 split: measure_duty_cycle (K = 1) and
+             measure_duty_cycle_fused (K = 4), the device timed by
+             time_device_step (a CUDA graph of 10 steps); then
+             posetpu_torch.tools.profile_step over the train graph and the
+             joint graph (3 steps each); launches of every step run
+  adv_gain   posetpu_torch.tools.adversarial_gain at its full width (2 stacks,
+             128 features, 256², batch 16) on 32 train and 16 hard
+             validation images, 2 + 2 epochs, arm B with parts occlusion:
+             result.json, the runs' logs and checkpoints, both arms started
+             from phase 1's checkpoint, the rasterizer's launches
+  visualize  posetpu_torch.tools.visualize on adv_gain's arm A run: 4 PNGs
 
 The loader phase also times WorkerLoader at 0, 4 and 7 worker processes
 over the same JPEGs (its batches equal HostLoader's Pillow batches
@@ -175,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -226,10 +246,13 @@ from posetpu_torch.train.step import (
     WARMUP_STEPS,
     make_dispatch_step,
     make_eval_step,
+    make_graphed_eval_step,
     make_train_step,
     stacked_mse,
 )
+from posetpu_torch.tools.profile_step import profile_run
 from posetpu_torch.utils import cuda_build
+from posetpu_torch.utils.graphs import WARMUP_CALLS
 
 SEED = 0
 BATCH = 32
@@ -292,6 +315,9 @@ JOINT_STEPS = {"hg8_mpii_asr": NUM_BATCHES, "hg8_lsp_aho": 2}
 # (computed with the crop, read by nothing) and the 2B targets of the
 # adversarial and reference crops, rasterized in one launch
 JOINT_RASTER_LAUNCHES = 2
+# rasterizer launches added by the capture of a validation graph: its
+# warm-up calls run the step (each Experiment captures at its first batch)
+EVAL_WARMUP = WARMUP_CALLS
 # joint_parity: (name, agent config fields, make_joint_step options) at
 # occlusion levels (1, 2) over 64² crops: 6 grid nodes, 9 body-part nodes
 JOINT_PARITY_CASES = (
@@ -314,21 +340,6 @@ JOINT_PARITY_STEPS = 2
 JOINT_GRAD_ATOL = 1e-2
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-
-# kernel-name patterns that sort the profile's device time into kinds; the
-# first match wins, anything unmatched is "other elementwise"
-PROFILE_KINDS = (
-    ("rasterize", ("rasterize",)),
-    ("copies", ("Memcpy", "Memset")),
-    ("convolution / gemm", ("gemm", "xmma", "nvjet", "conv", "cutlass", "cudnn")),
-    ("batch_norm", ("batch_norm",)),
-    ("upsample / pool", ("upsample", "pool")),
-    ("gather / index (warp, decode)", ("index", "gather")),
-    ("reductions", ("reduce",)),
-    ("optimizer and BN-statistics update (_foreach)", ("multi_tensor_apply",)),
-    ("dtype casts", ("_copy_kernel",)),
-)
-
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -523,36 +534,137 @@ def _serve_batches(rng):
     return out
 
 
+def _serve_eager(predictor, batch):
+    """The predictor's eager body (``_forward``, the parity reference of its
+    graphs) on one ``(images, valid_wh, center, scale)`` batch: copied to
+    the card, run, read back."""
+    dev = predictor.device
+    images, valid_wh, center, scale = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                       for a in batch)
+    with torch.no_grad():
+        out = predictor._forward(images, valid_wh, center, scale)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _serve_eager_iter(predictor, batches, depth=2):
+    """The eager body served as ``predict_iter(depth)`` served it before
+    its graphs: each batch pinned afresh and copied without blocking,
+    ``_forward`` enqueued, its outputs copied to pinned host buffers behind
+    an event, ``depth`` batches in flight.  The graph's yardstick."""
+    dev = predictor.device
+
+    def launch(batch):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(dev, non_blocking=True)
+                for a in batch]
+        with torch.no_grad():
+            out = predictor._forward(*args)
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+            v, non_blocking=True) for k, v in out.items()}
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    inflight = deque()
+    for batch in batches:
+        inflight.append(launch(batch))
+        if len(inflight) > depth:
+            yield predictor._fetch(inflight.popleft())
+    while inflight:
+        yield predictor._fetch(inflight.popleft())
+
+
+def _same_outputs(label, got, want):
+    for k in want:
+        err = float(np.abs(got[k].astype(np.float64) - want[k]).max())
+        check(np.array_equal(got[k], want[k]), f"{label} {k}: graph vs eager {err}")
+
+
+def _single(image, center, scale):
+    """predict_single's padded batch of one image (multiples of 64)."""
+    H, W = image.shape[:2]
+    padded = np.zeros((1, -(-H // 64) * 64, -(-W // 64) * 64, 3), np.uint8)
+    padded[0, :H, :W] = image
+    return (padded, np.array([[W, H]], np.int32), np.asarray([center], np.float32),
+            np.asarray([scale], np.float32))
+
+
+def _serve_weights(cfg, seed):
+    torch.manual_seed(seed)
+    return hg(num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
+              num_feats=cfg.model.feats, depth=cfg.model.depth).state_dict()
+
+
 def phase_serve(cfg):
-    torch.manual_seed(SEED)
-    state_dict = hg(
-        num_stacks=cfg.model.stacks, num_classes=cfg.model.classes,
-        num_feats=cfg.model.feats, depth=cfg.model.depth,
-    ).state_dict()
-    predictor = PosePredictor.from_config(cfg, state_dict, mean=MPII_MEAN)
+    """PosePredictor at the full hg8_mpii width (seeded weights, bf16):
+    predict_iter(depth=2) over NUM_BATCHES batches of 32 through the CUDA
+    graph of their (32, 384, 384) shape, against the eager body on the same
+    batches and weights, bit for bit; img/s both ways and the profiler's
+    idle share of both, in this call (the eager body pipelined as
+    predict_iter(depth=2) ran it before the graphs: ``_serve_eager_iter``);
+    captures and the pool.  Then one
+    image through predict_single (a graph of its own shape; a second image
+    of that size replays it), and other weights loaded in place (the
+    graphs read them: no capture, equal to the eager body)."""
+    predictor = PosePredictor.from_config(cfg, _serve_weights(cfg, SEED), mean=MPII_MEAN)
     batches = _serve_batches(np.random.RandomState(SEED))
-    predictor(*batches[0])  # first call: cuDNN/cuBLAS set-up, not timed
+    predictor(*batches[0])  # captures the graph, not timed
+    _serve_eager(predictor, batches[0])  # the eager body's cuDNN set-up
     torch.cuda.synchronize()
+    check(predictor.graphs.captures == 1, f"captures {predictor.graphs.captures}")
 
     cuda_kernels.reset_launches()
     t0 = time.perf_counter()
     outs = list(predictor.predict_iter(iter(batches), depth=2))
     seconds = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    eager = list(_serve_eager_iter(predictor, iter(batches), depth=2))
+    eager_s = time.perf_counter() - t0
 
     K = cfg.model.classes
     check(len(outs) == NUM_BATCHES, "predict_iter lost a batch")
-    for out in outs:
+    for i, (out, ref) in enumerate(zip(outs, eager)):
         check(out["pred"].shape == (BATCH, K, 2), f"pred {out['pred'].shape}")
         check(out["conf"].shape == (BATCH, K), f"conf {out['conf'].shape}")
         check(out["heatmap_coords"].shape == (BATCH, K, 2), "heatmap_coords shape")
         for k, v in out.items():
             check(np.isfinite(v).all(), f"non-finite {k}")
+        _same_outputs(f"serve batch {i}", out, ref)
+    check(not any(np.array_equal(outs[i]["conf"], outs[i + 1]["conf"])
+                  for i in range(NUM_BATCHES - 1)), "two batches served the same output")
+    prof = profile_run(lambda: list(predictor.predict_iter(iter(batches), depth=2)))
+    prof_eager = profile_run(lambda: list(_serve_eager_iter(predictor, iter(batches), depth=2)))
+
+    rng = np.random.RandomState(SEED + 30)
+    singles = []
+    for _ in range(2):  # one (300, 410) image size: one graph of (1, 320, 448)
+        image = rng.randint(0, 256, (300, 410, 3), dtype=np.uint8)
+        center, scale = (205.0, 150.0), 1.2
+        pred, conf = predictor.predict_single(image, center, scale)
+        ref = _serve_eager(predictor, _single(image, center, scale))
+        _same_outputs("predict_single", {"pred": pred[None], "conf": conf[None]},
+                      {"pred": ref["pred"], "conf": ref["conf"]})
+        singles.append(predictor.graphs.captures)
+    check(singles == [2, 2], f"captures after each predict_single: {singles}")
+    predictor.model.load_state_dict(_serve_weights(cfg, SEED + 31))
+    reloaded = predictor(*batches[0])
+    _same_outputs("after load_state_dict", reloaded, _serve_eager(predictor, batches[0]))
+    check(predictor.graphs.captures == 2, "load_state_dict (in place) captured again")
+    check(not np.array_equal(reloaded["conf"], outs[0]["conf"]),
+          "the graph did not read the weights loaded in place")
     emit("serve", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
          batch=BATCH, batches=NUM_BATCHES, canvas=list(CANVAS), dtype="bfloat16",
          seconds=seconds, img_per_s=BATCH * NUM_BATCHES / seconds,
-         launches=launches)
-    return predictor
+         eager_seconds=eager_s, eager_img_per_s=BATCH * NUM_BATCHES / eager_s,
+         eager_path="pipelined, depth 2",
+         graph_vs_eager="equal", captures=predictor.graphs.captures,
+         capture_seconds=predictor.graphs.capture_seconds,
+         pool_bytes=predictor.graphs.pool_bytes,
+         device_busy_ms_per_batch=prof["device_busy_ms"] / NUM_BATCHES,
+         idle_share=prof["idle_share"],
+         eager_device_busy_ms_per_batch=prof_eager["device_busy_ms"] / NUM_BATCHES,
+         eager_idle_share=prof_eager["idle_share"], launches=launches)
+    return predictor, launches
 
 
 def _eval_batch(rng, B, canvas, K, scale_range=(0.7, 1.0)):
@@ -576,27 +688,56 @@ def _eval_batch(rng, B, canvas, K, scale_range=(0.7, 1.0)):
     }
 
 
+def _same_eval(label, got, want):
+    (mg, pg), (me, pe) = got, want
+    for k in me:
+        check(torch.equal(mg[k], me[k]), f"{label} {k}: graph {mg[k]} vs eager {me[k]}")
+    err = (pg - pe).abs().max().item()
+    check(torch.equal(pg, pe), f"{label} preds: graph vs eager {err}")
+
+
 def phase_validate(cfg, predictor):
-    eval_step = make_eval_step(predictor.model, cfg.aug, MPII_MEAN, device="cuda")
+    """make_graphed_eval_step (Experiment's validation step) at the same
+    width over NUM_BATCHES batches of 32, its targets from the CUDA
+    rasterizer, against make_eval_step's eager step on the same batches and
+    weights, bit for bit (metrics and predictions); every batch keeps its
+    own predictions after the replays that follow it (the batches differ,
+    so must they); img/s both ways; captures and the pool.  The launch
+    counts are reset just before the graphed batches (the main path) and
+    read just after, then again for the eager ones."""
+    graphed = make_graphed_eval_step(predictor.model, cfg.aug, MPII_MEAN, device="cuda")
+    eager = make_eval_step(predictor.model, cfg.aug, MPII_MEAN, device="cuda")
     rng = np.random.RandomState(SEED + 1)
     batches = [
         _eval_batch(rng, BATCH, CANVAS, cfg.model.classes)
         for _ in range(NUM_BATCHES)
     ]
-    eval_step(batches[0])  # warm-up, not counted
+    graphed(batches[0])  # captures the graph, not counted
+    eager(batches[0])  # the eager step's cuDNN set-up
     torch.cuda.synchronize()
 
     cuda_kernels.reset_launches()
     t0 = time.perf_counter()
-    results = [eval_step(b) for b in batches]
+    results = [graphed(b) for b in batches]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
     check(launches["rasterize_gaussians"] == NUM_BATCHES,
-          f"rasterizer launches in validation: {launches}")
+          f"rasterizer launches in graphed validation: {launches}")
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    refs = [eager(b) for b in batches]
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_launches = dict(cuda_kernels.LAUNCHES)
+    check(eager_launches["rasterize_gaussians"] == NUM_BATCHES,
+          f"rasterizer launches in eager validation: {eager_launches}")
+    check(graphed.graphs.captures == 1, f"captures {graphed.graphs.captures}")
 
     losses, accs, cnt = [], [], 0
-    for metrics, preds in results:
+    for i, (got, want) in enumerate(zip(results, refs)):
+        _same_eval(f"validate batch {i}", got, want)
+        metrics, preds = got
         loss, acc = metrics["loss"].item(), metrics["acc"].item()
         check(math.isfinite(loss), f"loss {loss}")
         check(-1.0 <= acc <= 1.0, f"acc {acc}")
@@ -606,60 +747,28 @@ def phase_validate(cfg, predictor):
         accs.append(acc)
         cnt += int(metrics["pck_cnt"].sum())
     check(cnt > 0, "no valid PCK targets")
+    check(not any(torch.equal(results[i][1], results[i + 1][1])
+                  for i in range(NUM_BATCHES - 1)),
+          "two validation batches kept the same predictions")
     emit("validate", config=cfg.name, batch=BATCH, batches=NUM_BATCHES,
          seconds=seconds, img_per_s=BATCH * NUM_BATCHES / seconds,
-         loss=losses, acc=accs, pck_cnt=cnt, launches=launches)
-    return launches
+         eager_seconds=eager_s, eager_img_per_s=BATCH * NUM_BATCHES / eager_s,
+         graph_vs_eager="equal", captures=graphed.graphs.captures,
+         capture_seconds=graphed.graphs.capture_seconds,
+         pool_bytes=graphed.graphs.pool_bytes, loss=losses, acc=accs, pck_cnt=cnt,
+         launches=launches, eager_launches=eager_launches)
+    return launches, eager_launches, graphed, eager
 
 
-def _profile_step(run, top=8):
-    """One call of ``run()`` (already warm) under torch.profiler: device
-    time by kernel and kind, the framework ops that launched it, and the
-    idle share of the call's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        # record_function ranges (torch.optim's "Optimizer.step#...") also
-        # land on the device timeline; they are spans over kernels, not work
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
-    check(busy_ms > 0, "the profiler saw no device time")
-    by_kind = {}
-    for name, ms in by_name.items():
-        kind = next((k for k, keys in PROFILE_KINDS if any(s in name for s in keys)),
-                    "other elementwise")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    # the framework ops that launched that time (self device time per op)
-    ops = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages()
-         if e.key.startswith("aten::") and e.self_device_time_total > 0),
-        key=lambda t: -t[1],
-    )[:top]
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=max(0.0, 1.0 - busy_ms / wall_ms), kernels=len(by_name),
-                by_kind_ms=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-                top_kernels=[{"name": n[:90], "ms": ms} for n, ms in ranked],
-                top_ops=[{"op": k, "ms": ms, "calls": c} for k, ms, c in ops])
-
-
-def phase_profile(cfg, predictor):
-    """Where one full-width validation step spends the card's time."""
-    eval_step = make_eval_step(predictor.model, cfg.aug, MPII_MEAN, device="cuda")
+def phase_profile(cfg, graphed, eager):
+    """Where one full-width validation step spends the card's time, through
+    its graph and eagerly."""
     batch = _eval_batch(np.random.RandomState(SEED + 4), BATCH, CANVAS,
                         cfg.model.classes)
-    eval_step(batch)
-    emit("profile", step="validate", **_profile_step(lambda: eval_step(batch)))
+    graphed(batch)
+    eager(batch)
+    emit("profile", step="validate", graph=profile_run(lambda: graphed(batch)),
+         eager=profile_run(lambda: eager(batch)))
 
 
 def phase_parity():
@@ -788,7 +897,7 @@ def phase_train(cfg):
 
 def phase_train_profile(state, step, batch):
     """Where one full-width train step spends the card's time."""
-    emit("train_profile", step="train", **_profile_step(lambda: step(state, batch)))
+    emit("train_profile", step="train", **profile_run(lambda: step(state, batch)))
 
 
 def _carry_to(state, dev, step_no):
@@ -1006,7 +1115,7 @@ def phase_joint(cfg):
 
 def phase_joint_profile(state, step, batch):
     """Where one full-width hg8_mpii_asr joint step spends the card's time."""
-    emit("joint_profile", step="joint", **_profile_step(lambda: step(state, batch)))
+    emit("joint_profile", step="joint", **profile_run(lambda: step(state, batch)))
 
 
 @contextlib.contextmanager
@@ -1484,7 +1593,7 @@ def phase_fit(workdir):
     rc, l1, out1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
     s1 = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
-    want1 = FIT_EPOCHS * per_epoch + WARMUP_STEPS
+    want1 = FIT_EPOCHS * per_epoch + WARMUP_STEPS + EVAL_WARMUP
     check(l1 == want1, f"fit launches {l1}, want {want1}")
     _check_run("fit", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_STEPS)
     t0 = time.perf_counter()
@@ -1493,7 +1602,7 @@ def phase_fit(workdir):
     s2 = time.perf_counter() - t0
     check(rc == 0, f"resumed train cli returned {rc}")
     extra = FIT_RESUME_EPOCHS - FIT_EPOCHS
-    check(l2 == extra * per_epoch + WARMUP_STEPS, f"resumed fit launches {l2}")
+    check(l2 == extra * per_epoch + WARMUP_STEPS + EVAL_WARMUP, f"resumed fit launches {l2}")
     # the resumed run restored count and step (4) and added its 2 steps
     vals, best = _check_run("fit resumed", run_dir, FIT_RESUME_EPOCHS,
                             FIT_RESUME_EPOCHS * FIT_STEPS)
@@ -1502,7 +1611,7 @@ def phase_fit(workdir):
     s3 = time.perf_counter() - t0
     check(math.isfinite(pckh) and 0.0 <= pckh <= 100.0, f"PCKh {pckh}")
     check("PCKh@0.5" in out3, "eval printed no PCKh@0.5")
-    check(l3 == FIT_VAL_BATCHES, f"eval launches {l3}")
+    check(l3 == FIT_VAL_BATCHES + EVAL_WARMUP, f"eval launches {l3}")
     preds = load_preds(os.path.join(run_dir, "preds.mat"))
     check(preds.shape == (16, 16, 2) and np.isfinite(preds).all(), f"preds {preds.shape}")
     emit("fit", config="hg8_mpii", batch=BATCH, epochs=FIT_EPOCHS,
@@ -1529,7 +1638,8 @@ def phase_fit_joint(workdir):
             "--checkpoint", ckpt, "--epochs", "1"])
         seconds = time.perf_counter() - t0
         check(rc == 0, f"{name}: train cli returned {rc}")
-        want = JOINT_RASTER_LAUNCHES * (FIT_STEPS + WARMUP_STEPS) + FIT_VAL_BATCHES
+        want = (JOINT_RASTER_LAUNCHES * (FIT_STEPS + WARMUP_STEPS) + FIT_VAL_BATCHES
+                + EVAL_WARMUP)
         check(launches == want, f"{name}: launches {launches}, want {want}")
         run_dir = os.path.join(ckpt, name)
         vals, best = _check_run(name, run_dir, 1, FIT_STEPS)
@@ -1657,7 +1767,7 @@ def phase_dispatch(cfg):
     seconds = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    prof = _profile_step(lambda: dispatch(state, supers[1]))
+    prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
 
     eager_gap = _gap(runs["eager_a"][0], runs["eager_b"][0])
@@ -1769,7 +1879,8 @@ def phase_fit_dispatch(workdir, have_tensorboard):
         "--checkpoint", ckpt, "--epochs", str(FIT_EPOCHS), *FIT_DISPATCH])
     seconds = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
-    want = FIT_EPOCHS * (FIT_STEPS + FIT_VAL_BATCHES) + FIT_STEPS + WARMUP_STEPS
+    want = (FIT_EPOCHS * (FIT_STEPS + FIT_VAL_BATCHES) + FIT_STEPS + WARMUP_STEPS
+            + EVAL_WARMUP)
     vals, best = _check_run("fit_dispatch", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_STEPS)
     trace_dir = os.path.join(run_dir, "trace")
     traces = {n: os.path.getsize(os.path.join(trace_dir, n))
@@ -1968,7 +2079,7 @@ def phase_joint_dispatch():
     seconds = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    prof = _profile_step(lambda: dispatch(state, supers[1]))
+    prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
 
     eager_gap = _gap(runs["eager_a"][0], runs["eager_b"][0])
@@ -2052,7 +2163,8 @@ def phase_fit_joint_dispatch(workdir, have_tensorboard):
     rc, l1, out1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
     s1 = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
-    want1 = FIT_EPOCHS * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
+    want1 = (FIT_EPOCHS * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
+             + EVAL_WARMUP)
     _check_run("fit_joint_dispatch", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_JOINT_STEPS)
     t0 = time.perf_counter()
     rc, l2, out2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
@@ -2060,7 +2172,8 @@ def phase_fit_joint_dispatch(workdir, have_tensorboard):
     s2 = time.perf_counter() - t0
     check(rc == 0, f"resumed train cli returned {rc}")
     extra = FIT_RESUME_EPOCHS - FIT_EPOCHS
-    want2 = extra * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
+    want2 = (extra * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
+             + EVAL_WARMUP)
     steps_total = FIT_RESUME_EPOCHS * FIT_JOINT_STEPS
     vals, best = _check_run("fit_joint_dispatch resumed", run_dir, FIT_RESUME_EPOCHS,
                             steps_total)
@@ -2166,7 +2279,7 @@ def phase_dp_config(workdir):
         peak = torch.cuda.max_memory_allocated()
         steps = sum(e["steps"] for e in epochs)
         val_batches = -(-len(exp.val_ds) // cfg.batch_size)
-        check(launches == DP_RASTER_LAUNCHES["joint"] * steps + val_batches,
+        check(launches == DP_RASTER_LAUNCHES["joint"] * steps + val_batches + EVAL_WARMUP,
               f"dp_config launches {launches} ({steps} steps, {val_batches} val batches)")
         for e in epochs:
             for k in ("loss", "acc", "agent_loss", "advantage", "entropy"):
@@ -2193,7 +2306,7 @@ def phase_dp_config(workdir):
         end.synchronize()
         step_s = (time.perf_counter() - t0) / (DP_CONFIG_TIMED * DP_CONFIG_K)
         event_ms = start.elapsed_time(end) / (DP_CONFIG_TIMED * DP_CONFIG_K)
-        prof = _profile_step(lambda: dispatch(exp.state, sb))
+        prof = profile_run(lambda: dispatch(exp.state, sb))
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         exp.close()
@@ -2687,7 +2800,7 @@ def phase_dp_nccl1():
             torch.cuda.synchronize()
             runs[how] = (state.snapshot(), metrics,
                          cuda_kernels.LAUNCHES["rasterize_gaussians"])
-        replay = _profile_step(_graph_replay(dispatches["nccl"]))
+        replay = profile_run(_graph_replay(dispatches["nccl"]))
         nccl_kernels = _kernel_names(_graph_replay(dispatches["norms"]), "nccl")
 
         jcfg = _small_joint_cfg("hg8_mpii_asr", {})
@@ -2847,7 +2960,7 @@ def _variant_run(cfg, workdir):
     check(dispatch.captures == 1, f"blocks {cfg.model.blocks}: captures {dispatch.captures}")
     graph_losses = [m["loss"].item() for m in graphed]
     check(all(math.isfinite(x) for x in graph_losses), f"graphed losses {graph_losses}")
-    prof = _profile_step(lambda: dispatch(state, supers[1]))
+    prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
     steps = 1 + NUM_BATCHES + 1 + VARIANT_TIMED + 1
     check(state.step == opt.count == steps, f"step {state.step}, count {opt.count}")
@@ -2931,7 +3044,7 @@ def _remat_runs(cfg, B, timed):
         if timed and name != "off_b":
             m = {"step_seconds": seconds, "max_memory_allocated": torch.cuda.max_memory_allocated()}
             cuda_kernels.reset_launches()
-            prof = _profile_step(lambda: step(state, b1))
+            prof = profile_run(lambda: step(state, b1))
             n = cuda_kernels.LAUNCHES["rasterize_gaussians"]
             check(n == 1, f"remat {name} profiled step: {n} launches")
             launches += n
@@ -3040,7 +3153,7 @@ def phase_ckpt_interop(workdir):
         "--checkpoint", ckpt, "--epochs", "1", "--blocks", "2", "--scan-stacks"])
     fit_s = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
-    want = FIT_STEPS + FIT_VAL_BATCHES + WARMUP_STEPS
+    want = FIT_STEPS + FIT_VAL_BATCHES + WARMUP_STEPS + EVAL_WARMUP
     check(launches == want, f"ckpt_interop launches {launches}, want {want}")
     run_dir = os.path.join(ckpt, "hg8_mpii")
     vals, best = _check_run("ckpt_interop", run_dir, 1, FIT_STEPS)
@@ -3092,6 +3205,205 @@ def phase_ckpt_interop(workdir):
          container_bytes=os.path.getsize(path), container_write_seconds=write_s,
          container_read_seconds=read_s, tensors=len(sd), launches=launches,
          launches_want=want)
+    return launches
+
+
+# ---- the profiling tools, the adversarial-gain protocol, the pictures
+
+# profiling: hg8_mpii at full width, batch 16; measure_duty_cycle (K = 1)
+# over at most DUTY_STEPS steps, measure_duty_cycle_fused over
+# DUTY_STEPS // DUTY_K dispatches of DUTY_K
+DUTY_BATCH, DUTY_K, DUTY_STEPS = 16, 4, 30
+PROFILE_STEPS = 3  # profile_step's traced steps, after its 3 warm ones
+# adv_gain: the protocol at its full width (2 stacks, 128 features, 256²,
+# batch 16) on 32 train and 16 hard validation images, 2 + 2 epochs; arm B
+# on the scale/rotation agent with body-part occlusion
+ADV_GAIN = dict(epochs1=2, epochs2=2, stacks=2, feats=128, res=256, batch=16,
+                num_train=32, num_val=16)
+ADV_GAIN_KEYS = {"phase1_best_acc", "armA_baseline", "armB_adversarial", "pckh_gain",
+                 "epochs", "hard_val", "pose_ref_weight", "occlusion", "seed",
+                 "reused_phase1", "reused_arm_a"}
+VIZ_IMAGES = 4
+
+
+def phase_profiling(workdir):
+    """posetpu_torch.utils.profiling at full hg8_mpii width, bf16, batch
+    DUTY_BATCH, through posetpu_torch.tools.duty_cycle: measure_duty_cycle
+    (K = 1, the driver's route) and measure_duty_cycle_fused (K = DUTY_K),
+    each timing the device with time_device_step (a CUDA graph of
+    DEVICE_STEPS steps, one warm and one timed dispatch) over a synthetic
+    512x384 split that HostLoader decodes and make_batch_placer places.
+    Then posetpu_torch.tools.profile_step over PROFILE_STEPS steps of the
+    train graph (by kernel) and of the joint graph (by kind).  Launches: the
+    rasterizer's, once a train step and twice a joint step run, each
+    capture's WARMUP_STEPS included."""
+    from posetpu_torch.tools import duty_cycle, profile_step
+    from posetpu_torch.utils.profiling import DEVICE_STEPS
+
+    split = os.path.join(workdir, "duty_split")
+    prev_root = duty_cycle.split_root
+    duty_cycle.split_root = lambda: split
+    runs, total = {}, 0
+    try:
+        for K in (1, DUTY_K):
+            torch.cuda.empty_cache()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = duty_cycle.main(["--batch", str(DUTY_BATCH), "--k-per-dispatch", str(K),
+                                   "--steps", str(DUTY_STEPS)])
+            seconds = time.perf_counter() - t0
+            got = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+            per_epoch = duty_cycle.NUM_IMAGES // DUTY_BATCH  # whole K x B groups
+            timed = (min(DUTY_STEPS, per_epoch) if K == 1
+                     else max(1, DUTY_STEPS // K) * K)
+            want = (WARMUP_STEPS + 2 * DEVICE_STEPS) + (WARMUP_STEPS + K) + timed
+            runs[f"K={K}"] = {**res, "seconds": seconds, "timed_steps": timed,
+                              "launches": got, "launches_want": want}
+            check(got == want, f"duty K={K}: launches {got}, want {want}")
+            check(0.0 < res["duty_cycle"] <= 1.0 and res["device_step"] > 0
+                  and res["wall_step"] > 0, f"duty K={K}: {res}")
+            check(res["device_captures"] == res["captures"] == 1, f"duty K={K}: {res}")
+            total += got
+    finally:
+        duty_cycle.split_root = prev_root
+    for joint in (False, True):
+        torch.cuda.empty_cache()
+        name = "joint" if joint else "train"
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = profile_step.main(["--steps", str(PROFILE_STEPS), "--top", "12",
+                                 "--trace-dir", os.path.join(workdir, f"trace_{name}"),
+                                 "--out", os.path.join(workdir, f"profile_{name}.txt")]
+                                + (["--joint", "--by-category"] if joint else []))
+        seconds = time.perf_counter() - t0
+        got = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        per_step = JOINT_RASTER_LAUNCHES if joint else 1
+        # 3 warm calls (the first captures after its warm-up steps), then traced
+        want = per_step * (WARMUP_STEPS + 3 + PROFILE_STEPS)
+        check(got == want, f"profile_step {name}: launches {got}, want {want}")
+        check(len(out["summary"]) == 1 and out["summary"][0][0].startswith("device"),
+              f"profile_step {name}: no device track in {out['trace']}")
+        rows = out["summary"][0][1]
+        # every row of the trace, not only the top ones the tool printed
+        ((_, every),) = profile_step.summarize_trace(out["trace"], top=None,
+                                                     by_category=joint)
+        raster = [c for n, _, c in every if "rasterize" in n]
+        check(raster == [per_step * PROFILE_STEPS],
+              f"profile_step {name}: the rasterizer's rows in the trace {raster}")
+        runs[f"profile_{name}"] = {"seconds": seconds, "launches": got,
+                                   "top": [[n[:60], ms, c] for n, ms, c in rows[:8]]}
+        total += got
+    emit("profiling", config="hg8_mpii", batch=DUTY_BATCH, device_steps=DEVICE_STEPS,
+         runs=runs, launches=total)
+    return total
+
+
+def phase_adv_gain(workdir):
+    """posetpu_torch.tools.adversarial_gain at ADV_GAIN: phase 1, arm A and
+    arm B (parts occlusion) through Experiment, each arm's validation
+    through its graph; result.json with the JAX tool's fields, each run's
+    log and checkpoints, both arms started from phase 1's best checkpoint
+    (else its latest, as the driver loads it: the pose network right after
+    the load), and the rasterizer's launches: a train step once, a joint
+    step twice, each capture's warm-up steps, each validation batch once,
+    each arm's first validation once more (its capture's warm-up call),
+    and the final evaluation of each arm."""
+    from posetpu_torch.tools import adversarial_gain
+    from posetpu_torch.train import loop
+
+    out = os.path.join(workdir, "adv_gain")
+    inits = {}
+    load = loop.Experiment._init_pose_from
+
+    def recording(self, path):
+        load(self, path)
+        inits[self.cfg.name] = (path, {k: v.detach().cpu().clone()
+                                       for k, v in self.model.state_dict().items()})
+
+    argv = ["--out", out, "--seed", str(SEED)]
+    for k, v in ADV_GAIN.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    loop.Experiment._init_pose_from = recording
+    cuda_kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        result = adversarial_gain.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        loop.Experiment._init_pose_from = load
+    launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+
+    with open(os.path.join(out, "result.json")) as f:
+        written = json.load(f)
+    check(set(written) == ADV_GAIN_KEYS, f"result.json keys {sorted(written)}")
+    check(written == json.loads(json.dumps(result)), "result.json differs from the result")
+    check(written["epochs"] == [ADV_GAIN["epochs1"], ADV_GAIN["epochs2"]]
+          and written["occlusion"] and written["hard_val"], f"result {written}")
+    for arm in ("armA_baseline", "armB_adversarial"):
+        r = written[arm]
+        check(0.0 <= r["pckh"] <= 100.0 and -1.0 <= r["acc"] <= 1.0
+              and math.isfinite(r["best_acc"]), f"{arm}: {r}")
+    steps = ADV_GAIN["num_train"] // ADV_GAIN["batch"]
+    val = -(-ADV_GAIN["num_val"] // ADV_GAIN["batch"])
+    runs = {}
+    for name, epochs in (("phase1", ADV_GAIN["epochs1"]), ("armA_baseline", ADV_GAIN["epochs2"]),
+                         ("armB_adversarial", ADV_GAIN["epochs2"])):
+        vals, best = _check_run(f"adv_gain {name}", os.path.join(out, name), epochs,
+                                epochs * steps)
+        runs[name] = {"log": vals, "best_written": best}
+    p1 = CheckpointManager(os.path.join(out, "phase1"))
+    p1_sd = p1.load(p1.best_path if os.path.isdir(p1.best_path) else None)["state"]["model"]
+    for arm in ("armA_baseline", "armB_adversarial"):
+        check(arm in inits, f"{arm} did not load phase 1")
+        path, sd = inits[arm]
+        check(os.path.abspath(path) == os.path.abspath(os.path.join(out, "phase1")),
+              f"{arm} started from {path}")
+        check(sd.keys() == p1_sd.keys() and all(torch.equal(sd[k], p1_sd[k]) for k in sd),
+              f"{arm} did not start from phase 1's checkpoint")
+    E1, E2 = ADV_GAIN["epochs1"], ADV_GAIN["epochs2"]
+    want = ((E1 * steps + WARMUP_STEPS) + E1 * val + EVAL_WARMUP
+            + (E2 * steps + WARMUP_STEPS) + E2 * val + EVAL_WARMUP + val
+            + JOINT_RASTER_LAUNCHES * (E2 * steps + WARMUP_STEPS) + E2 * val + EVAL_WARMUP
+            + val)
+    emit("adv_gain", **ADV_GAIN, seed=SEED, seconds=seconds, result=written, runs=runs,
+         launches=launches, launches_want=want)
+    check(launches == want, f"adv_gain launches {launches}, want {want}")
+    return launches
+
+
+def phase_visualize(workdir):
+    """posetpu_torch.tools.visualize on phase_adv_gain's arm A run (its
+    latest checkpoint, served as the config's run directory; the tool
+    builds a pose-only state, as the JAX tool does): VIZ_IMAGES
+    PNG files of the hard validation images at their size, and the
+    rasterizer's launches (the validation batch, and its capture's warm-up
+    call)."""
+    from PIL import Image
+
+    from posetpu_torch.tools import visualize
+
+    out = os.path.join(workdir, "adv_gain")
+    ckpt = os.path.join(workdir, "viz")
+    os.makedirs(ckpt)
+    os.symlink(os.path.join(out, "armA_baseline"), os.path.join(ckpt, "hg2_mpii_mini"))
+    cuda_kernels.reset_launches()
+    paths = visualize.main([
+        "--checkpoint", ckpt, "--json", os.path.join(out, "data", "annotations.json"),
+        "--image-path", os.path.join(out, "data", "images"),
+        "--stacks", str(ADV_GAIN["stacks"]), "--features", str(ADV_GAIN["feats"]),
+        "--train-batch", str(ADV_GAIN["batch"]), "--n", str(VIZ_IMAGES),
+        "--out", os.path.join(ckpt, "png")])
+    launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    sizes = []
+    for p in paths:
+        with Image.open(p) as im:
+            sizes.append((im.format, im.mode, im.size))
+    check(len(paths) == VIZ_IMAGES and all(s == ("PNG", "RGB", (320, 240)) for s in sizes),
+          f"visualize wrote {sizes}")
+    want = -(-ADV_GAIN["num_val"] // ADV_GAIN["batch"]) + EVAL_WARMUP
+    check(launches == want, f"visualize launches {launches}, want {want}")
+    emit("visualize", files=[os.path.basename(p) for p in paths], sizes=sizes,
+         bytes=[os.path.getsize(p) for p in paths], launches=launches)
     return launches
 
 
@@ -3175,9 +3487,10 @@ def _run_phases():
     phase_build()
     raster = phase_kernels()
     cfg = named_config("hg8_mpii")
-    predictor = phase_serve(cfg)
-    launches = phase_validate(cfg, predictor)
-    phase_profile(cfg, predictor)
+    predictor, serve_launches = phase_serve(cfg)
+    launches, eager_launches, graphed, eager = phase_validate(cfg, predictor)
+    phase_profile(cfg, graphed, eager)
+    del predictor, graphed, eager
     phase_parity()
     train_launches, state, step, batch = phase_train(cfg)
     phase_train_profile(state, step, batch)
@@ -3210,11 +3523,16 @@ def _run_phases():
         variants_launches = phase_variants(cfg, workdir)
         remat_launches = phase_remat()
         ckpt_interop_launches = phase_ckpt_interop(workdir)
+        profiling_launches = phase_profiling(workdir)
+        adv_gain_launches = phase_adv_gain(workdir)
+        phase_visualize(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     raster["launches"] = launches["rasterize_gaussians"]
-    raster["launches_by_path"] = {"validate": launches["rasterize_gaussians"],
+    raster["launches_by_path"] = {"validate": eager_launches["rasterize_gaussians"],
+                                  "validate_graph": launches["rasterize_gaussians"],
+                                  "serve_graph": serve_launches["rasterize_gaussians"],
                                   "train": train_launches["rasterize_gaussians"],
                                   "joint": joint_launches["rasterize_gaussians"],
                                   "joint_lsp": lsp_launches["rasterize_gaussians"],
@@ -3232,7 +3550,9 @@ def _run_phases():
                                   "dp_config": dp_config_launches,
                                   "variants": variants_launches,
                                   "remat": remat_launches,
-                                  "ckpt_interop": ckpt_interop_launches}
+                                  "ckpt_interop": ckpt_interop_launches,
+                                  "profiling": profiling_launches,
+                                  "adv_gain": adv_gain_launches}
     return raster
 
 

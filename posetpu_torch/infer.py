@@ -39,6 +39,7 @@ from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.eval.decode import final_preds, get_preds, quarter_offset
 from posetpu_torch.models import hg
 from posetpu_torch.utils.device import resolve_device
+from posetpu_torch.utils.graphs import ShapeGraphs
 
 # The reference normalizes by the dataset mean; MPII's is the default when
 # serving without the training dataset on disk.
@@ -72,9 +73,23 @@ def load_checkpoint_model(checkpoint, *, best=True):
 class PosePredictor:
     """Fixed-shape pose inference on one device.
 
-    On CUDA, inputs are staged through pinned host memory and copied
-    without blocking; results come back the same way, so the host only
-    waits where it reads a result.
+    On CUDA every input signature (B, Hp, Wp) is served by one CUDA graph
+    of :meth:`_forward`, captured at its first batch and replayed after —
+    the counterpart of the JAX package's ``jax.jit(self._forward)`` and its
+    per-shape cache (:class:`posetpu_torch.utils.graphs.ShapeGraphs`,
+    whose docstring holds the rules).  A batch is copied into the graph's
+    static buffers through pinned staging buffers without blocking, and
+    each replay's outputs are copied without blocking into pinned host
+    buffers of their own before the next replay can write them, so the
+    host only waits where it reads a result.  The graphs of all shapes
+    share one memory pool: the forward's temporaries and outputs at the
+    largest shape served.  ``predict_single`` pads to multiples of 64, so
+    each image size it meets captures a graph of batch 1.  After the
+    weights' storage moves (a ``.to()``, a replaced parameter), the graphs
+    are captured again; ``load_state_dict`` copies in place and keeps them.
+    ``graphs.captures``, ``graphs.pool_bytes`` and
+    ``graphs.capture_seconds`` report the captures.  On the CPU every call
+    runs :meth:`_forward` eagerly.
     """
 
     def __init__(
@@ -100,6 +115,13 @@ class PosePredictor:
         # in flight
         self._mean_t = torch.tensor(self.mean, device=self.device)
         self._std_t = None if std is None else torch.tensor(std, device=self.device)
+        self.graphs = None
+        if self.device.type == "cuda":
+            self.graphs = ShapeGraphs(
+                self._graph_body,
+                lambda: [*self.model.parameters(), *self.model.buffers()],
+                self.device,
+            )
 
     @classmethod
     def from_config(cls, cfg, checkpoint, *, best=True, mean=MPII_MEAN, device="cuda"):
@@ -144,25 +166,22 @@ class PosePredictor:
         hm = quarter_offset(get_preds(scores), scores)
         return {"pred": pred, "conf": conf, "heatmap_coords": hm}
 
-    def _to_device(self, arr, dtype=None):
-        t = torch.as_tensor(np.asarray(arr), dtype=dtype)
-        if self.device.type == "cuda":
-            # a fresh pinned copy per batch: the caching host allocator does
-            # not hand the block out again until the copy has completed
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+    def _graph_body(self, b):
+        with torch.no_grad():
+            return self._forward(b["images"], b["valid_wh"], b["center"], b["scale"])
 
     def _launch(self, images, valid_wh, center, scale):
         """Enqueue one batch; returns its pending result."""
-        with torch.no_grad():
-            out = self._forward(
-                self._to_device(images),
-                self._to_device(valid_wh, torch.int32),
-                self._to_device(center, torch.float32),
-                self._to_device(scale, torch.float32),
-            )
+        batch = {
+            "images": torch.as_tensor(np.asarray(images)),
+            "valid_wh": torch.as_tensor(np.asarray(valid_wh), dtype=torch.int32),
+            "center": torch.as_tensor(np.asarray(center), dtype=torch.float32),
+            "scale": torch.as_tensor(np.asarray(scale), dtype=torch.float32),
+        }
         if self.device.type != "cuda":
-            return out, None
+            return self._graph_body(batch), None
+        # the replay's static outputs, copied out before the next replay
+        out = self.graphs(batch)
         host = {
             k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
                 v, non_blocking=True

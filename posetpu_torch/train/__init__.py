@@ -18,8 +18,10 @@ from posetpu_torch.train.state import (
     make_optimizer,
 )
 from posetpu_torch.train.step import (
+    GraphedEvalStep,
     make_dispatch_step,
     make_eval_step,
+    make_graphed_eval_step,
     make_train_body,
     make_train_step,
     per_sample_stacked_mse,
@@ -38,8 +40,10 @@ __all__ = [
     "TrainState",
     "lr_schedule",
     "make_optimizer",
+    "GraphedEvalStep",
     "make_dispatch_step",
     "make_eval_step",
+    "make_graphed_eval_step",
     "make_train_body",
     "make_train_step",
     "per_sample_stacked_mse",

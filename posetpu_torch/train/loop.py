@@ -13,7 +13,9 @@ improvement), resumes, and writes the validation predictions
 (with the agent), runs ``cfg.steps_per_dispatch`` = K steps a dispatch
 (:func:`posetpu_torch.train.step.make_dispatch_step`,
 :func:`posetpu_torch.train.adversarial.make_joint_dispatch_step`), on CUDA
-as one CUDA graph, K = 1 included.
+as one CUDA graph, K = 1 included; the validation step
+(:func:`posetpu_torch.train.step.make_graphed_eval_step`) as one CUDA graph
+per batch signature.
 
 Data parallelism: ``Experiment(cfg, rank=r, world=W)`` is rank r of W
 processes already joined in the default process group
@@ -64,7 +66,7 @@ from posetpu_torch.train.adversarial import (
     make_joint_dispatch_step,
 )
 from posetpu_torch.train.state import TrainState, make_optimizer
-from posetpu_torch.train.step import make_dispatch_step, make_eval_step
+from posetpu_torch.train.step import make_dispatch_step, make_graphed_eval_step
 from posetpu_torch.utils.device import resolve_device
 from posetpu_torch.utils.logger import AverageMeter, Logger
 
@@ -238,8 +240,10 @@ class Experiment:
                 self.model, opt, cfg.aug, self.mean, self.std, seed=cfg.seed,
                 steps=self.K, group=self.group, device=self.device,
             )
-        self.eval_step = make_eval_step(self.model, cfg.aug, self.mean, self.std,
-                                        group=self.group, device=self.device)
+        # on CUDA one CUDA graph per batch signature (the padded batches
+        # of the validation loader share one)
+        self.eval_step = make_graphed_eval_step(self.model, cfg.aug, self.mean, self.std,
+                                                group=self.group, device=self.device)
 
         run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
         self.ckpt = CheckpointManager(run_dir, group=self.group)
@@ -404,7 +408,7 @@ class Experiment:
     @torch.no_grad()
     def validate(self, epoch):
         """Loss and acc over the validation split, every batch padded to
-        the batch size (one shape, as CUDA graphs will need), PCK from the
+        the batch size (one shape: on CUDA, one graph), PCK from the
         split's global hit/count sums (returned too, as ``pck_hit`` and
         ``pck_cnt``), predictions trimmed to the real rows.  Under data
         parallelism the metrics are global already and each batch's

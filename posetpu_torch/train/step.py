@@ -72,6 +72,7 @@ from posetpu_torch.aug.pipeline import (
 from posetpu_torch.eval.decode import final_preds, pck_counts, pck_from_counts
 from posetpu_torch.parallel.dp import is_gloo, mean_grads_, reduce_metrics
 from posetpu_torch.utils.device import resolve_device
+from posetpu_torch.utils.graphs import GraphCache, ShapeGraphs, record
 
 
 def stacked_mse(outputs, target, weight=None):
@@ -275,7 +276,7 @@ def check_dispatch(steps, dev, group, update_every=1):
                          "graphed step on CUDA needs an NCCL group")
 
 
-class GraphedSteps:
+class GraphedSteps(GraphCache):
     """``dispatch(state, superbatch) -> metrics``: K steps of ``body`` over
     a (K, B, ...) superbatch in one dispatch, each metric a (K,) tensor
     (:func:`make_dispatch_step`,
@@ -294,20 +295,15 @@ class GraphedSteps:
     dispatch and replayed after; the rules are the module docstring's.
     ``check_state(state)`` raises for a state of other models.
 
-    ``captures`` counts the captures made; ``capture_seconds`` and
-    ``pool_bytes`` hold each one's seconds (warm-up included) and the size
-    of its graph's memory pool (what the capture added to the card's
-    reserved memory, the warm-up's cached blocks released first).
+    The captures are counted as :class:`posetpu_torch.utils.graphs.GraphCache`
+    counts them; each ``pool_bytes`` is the size of its graph's own memory
+    pool (the warm-up's cached blocks released first).
     """
 
     def __init__(self, body, counters, check_state, steps, dev, *, update_every=1):
+        super().__init__()  # graphs: pattern -> _Graph, all on the same state tensors
         self.body, self.counters, self.check_state = body, counters, check_state
         self.steps, self.dev, self.update_every = steps, dev, update_every
-        self.graphs = {}  # pattern -> _Graph, all captured on the same state tensors
-        self._ptrs = None
-        self.captures = 0
-        self.capture_seconds = []
-        self.pool_bytes = []
 
     def pattern(self, step, k):
         """The update flags of k steps from step ``step``."""
@@ -333,11 +329,7 @@ class GraphedSteps:
         return out
 
     def _replay(self, state, b, pattern):
-        ptrs = [t.data_ptr() for t in state.tensors()]
-        if ptrs != self._ptrs:
-            # a state load replaced tensors: every graph reads the old ones
-            self.graphs.clear()
-            self._ptrs = ptrs
+        self._drop_if_moved(state.tensors())  # a state load replaced tensors
         g = self.graphs.get(pattern)
         if g is None:
             g = self.graphs[pattern] = self._capture(state, b, pattern)
@@ -365,24 +357,15 @@ class GraphedSteps:
         state.restore_(saved)
         self.counters.load(state)
         del saved
-        torch.cuda.synchronize(self.dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.dev)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the loader's prefetch thread goes on pinning and
-        # copying on its own stream while this thread captures
-        with cuda_kernels.counted_as_replays() as launches:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                ms = [self.body(self.counters, {n: v[i] for n, v in self.static_in.items()}, u)
-                      for i, u in enumerate(pattern)]
-                out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
-        torch.cuda.synchronize(self.dev)
-        g = _Graph(graph, out, launches, time.perf_counter() - t0,
-                   torch.cuda.memory_reserved(self.dev) - reserved)
-        self.captures += 1
-        self.capture_seconds.append(g.seconds)
-        self.pool_bytes.append(g.pool_bytes)
-        return g
+
+        def steps():
+            ms = [self.body(self.counters, {n: v[i] for n, v in self.static_in.items()}, u)
+                  for i, u in enumerate(pattern)]
+            return {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
+
+        graph, out, launches, pool_bytes = record(steps, self.dev)
+        return self._captured(
+            _Graph(graph, out, launches, time.perf_counter() - t0, pool_bytes))
 
 
 def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
@@ -492,3 +475,53 @@ def make_eval_step(model, aug_cfg, mean, std=None, *, group=None, device="cuda")
         return metrics, preds
 
     return eval_step
+
+
+class GraphedEvalStep:
+    """``eval_step(batch) -> (metrics, preds)``: :func:`make_eval_step`'s
+    contract, on CUDA replayed from one CUDA graph per batch signature
+    (:func:`make_graphed_eval_step`)."""
+
+    def __init__(self, eager, model, dev):
+        self.eager = eager
+        self.graphs = None
+        if dev.type == "cuda":
+            self.graphs = ShapeGraphs(
+                eager, lambda: [*model.parameters(), *model.buffers()], dev)
+
+    def __call__(self, batch):
+        if self.graphs is None:
+            return self.eager(batch)
+        metrics, preds = self.graphs(batch)
+        # the next replay writes the same outputs: each call keeps its own
+        return {k: v.clone() for k, v in metrics.items()}, preds.clone()
+
+
+def make_graphed_eval_step(model, aug_cfg, mean, std=None, *, group=None, device="cuda"):
+    """:func:`make_eval_step` as one CUDA graph per batch signature — the
+    counterpart of the JAX package's ``jax.jit`` of its eval step, and the
+    validation step :class:`posetpu_torch.train.loop.Experiment` runs.
+
+    Returns a :class:`GraphedEvalStep` with :func:`make_eval_step`'s
+    contract and arguments.  On CUDA the graph of a batch is keyed by the
+    name, shape and dtype of each field, so a batch with ``mask`` or
+    ``offset`` and one without take graphs of their own; it is captured at
+    the signature's first batch and again after the model's storage moves
+    (:class:`posetpu_torch.utils.graphs.ShapeGraphs`, whose docstring holds
+    the rules and what the shared pool holds).  The body is
+    :func:`make_eval_step`'s step itself, so the graph computes what it
+    computes; the rasterizer's launches count once per replay.  Host
+    batches are copied into the graph's buffers through pinned staging
+    buffers.  The metrics and predictions returned are copies of the
+    graph's outputs, which the next replay overwrites.  A capture or replay
+    that fails raises: nothing falls back to eager calls.  With ``group``
+    the graph captures the step's all-reduces, which needs NCCL: a gloo
+    group on CUDA raises here.  On the CPU every call runs
+    :func:`make_eval_step`'s step eagerly.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cuda" and is_gloo(group):
+        raise ValueError("a CUDA graph cannot capture a gloo collective: the "
+                         "graphed eval step on CUDA needs an NCCL group")
+    eager = make_eval_step(model, aug_cfg, mean, std, group=group, device=dev)
+    return GraphedEvalStep(eager, model, dev)

@@ -42,7 +42,10 @@ def test_importing_every_module_loads_no_jax():
             "posetpu_torch.eval.cli", "posetpu_torch.data.worker_loader",
             "posetpu_torch.utils.profiling", "posetpu_torch.parallel",
             "posetpu_torch.parallel.dp", "posetpu_torch.parallel.launch",
-            "posetpu_torch.ckpt.torch_export", "posetpu_torch.ckpt.transplant"} <= set(mods)
+            "posetpu_torch.ckpt.torch_export", "posetpu_torch.ckpt.transplant",
+            "posetpu_torch.utils.graphs", "posetpu_torch.tools.adversarial_gain",
+            "posetpu_torch.tools.duty_cycle", "posetpu_torch.tools.profile_step",
+            "posetpu_torch.tools.visualize"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -68,6 +71,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert {os.path.join(REPO, "posetpu_torch", "parallel", n)
             for n in ("__init__.py", "dp.py", "launch.py")} <= set(files)
     assert os.path.join(REPO, "posetpu_torch", "ckpt", "torch_export.py") in files
+    assert {os.path.join(REPO, "posetpu_torch", "tools", n) for n in (
+        "adversarial_gain.py", "duty_cycle.py", "profile_step.py", "visualize.py")} <= set(files)
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -152,7 +157,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from posetpu_torch.configs import named_config
     from posetpu_torch.infer import MPII_MEAN, PosePredictor
     from posetpu_torch.train.state import make_optimizer
-    from posetpu_torch.train.step import make_eval_step, make_train_step
+    from posetpu_torch.train.step import (
+        make_eval_step,
+        make_graphed_eval_step,
+        make_train_step,
+    )
     from posetpu_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -165,6 +174,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
         PosePredictor.from_config(cfg, hg(num_stacks=2, num_feats=8).state_dict())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_eval_step(model, cfg.aug, MPII_MEAN)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_graphed_eval_step(model, cfg.aug, MPII_MEAN)
     opt = make_optimizer(model.parameters(), cfg.optim)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_train_step(model, opt, cfg.aug, MPII_MEAN)
