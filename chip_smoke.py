@@ -8,11 +8,25 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases, each printing one JSON line:
 
   device     the card's name and its nvidia-smi name/power-limit line
-  build      every kernel source of the port compiled with nvcc (all at once)
+  build      every kernel source of the port compiled with nvcc (all at
+             once): the rasterizer, the ycc_canvas kernel and the nvJPEG
+             decoder (linked with libnvjpeg)
   kernels    each kernel against its plain PyTorch version on the card
              (exactly, for the rasterizer, on random and edge points), and
              both timed with CUDA events beside the card's write floor at
              the main path's shape and at one beyond the L2
+  nvjpeg     the card's decode route on 32 of the loader phase's 1280x720
+             frames (quality 92, 4:2:0) and small odd-sized files at 4:4:4,
+             4:2:2, 4:4:0, 4:2:0 and gray: nvJPEG's planes, upsampled by the
+             plain version, against Pillow's YCbCr decode (max and count of
+             differing samples; the gap must stay within NVJPEG_PLANE_GAP);
+             the ycc_canvas kernel against its plain version on nvJPEG's own
+             planes, exactly, one launch a batch, at the loader's canvas and
+             at crops with centers near every edge; the whole route against
+             Pillow's load_sample (images within NVJPEG_LSB, windows
+             exactly, no Pillow fallback); the kernel timed beside its bound
+             and the write floor, the decode of a batch (host ms, kernel
+             and copy-back ms, img/s)
   serve      PosePredictor at the full hg8_mpii width (seeded random
              weights, bf16): predict_iter(depth=2) over 4 batches of 32
              through the CUDA graph of their shape, bit for bit equal to the
@@ -52,21 +66,29 @@ Phases, each printing one JSON line:
              the agent unchanged on its non-update step)
   host       what the machine decodes with: Pillow, libjpeg (header and
              library), nvJPEG's header, CPU count, matplotlib; the decode
-             routes this run takes
+             routes this run takes ("nvjpeg" must start)
   loader     a synthetic MPII split at MPII's image size (64 JPEGs of
              1280x720): one epoch of HostLoader at batch 32 per decode route,
              host-only (decode ms a batch), then through
              make_batch_placer("cuda") (img/s, copy ms a batch on the copy
              stream, bytes a batch); the placed batches equal the host ones
-             exactly, and the routes agree (images within 2.5 LSB, metadata
-             exactly)
+             exactly, and the routes agree with Pillow (images within 2.5
+             LSB, the nvJPEG route's within NVJPEG_LSB; metadata exactly)
+  fit_nvjpeg the train CLI at full hg8_mpii width, bf16, batch 32, one epoch
+             over the loader phase's 64 frames at 1280x720 (its 16
+             validation frames validate) in the (768, 1280) canvas, decoded
+             by nvJPEG: img/s beside the loader's Pillow and WorkerLoader
+             rates; ycc_canvas launches once a decoded batch
   fit        posetpu_torch.train.cli.main at full hg8_mpii width, bf16,
              batch 32 on the synthetic split (2 train steps, each a CUDA
              graph of one step, and 1 padded validation batch an epoch): 2
              epochs, then --resume auto to 3, then posetpu_torch.eval.cli.main;
              log rows, checkpoint layout, the resumed update count and step,
              preds.mat, and the rasterizer's launches (train steps +
-             validation batches + each run's warm-up steps before its capture)
+             validation batches + each run's warm-up steps before its
+             capture); every Experiment of a host-loader run decodes through
+             nvJPEG (train and validation loaders), a worker-loader run
+             (fit_dispatch, fit_joint_dispatch) with Pillow in its workers
   fit_joint  one epoch each of hg8_mpii_asr and hg8_lsp_aho (a synthetic LSP
              split, 14 joints) through the same CLI, each joint step a CUDA
              graph of one step; launches 2 per joint step and per warm-up
@@ -172,7 +194,8 @@ the first batch; the host phase reports TensorBoard and /dev/shm.
 Then ``processes``: the worker loaders' server and resource tracker are
 stopped (the script waits for both), and anything else the run started
 that still runs is ended and fails the run.  Then the kernel summary line
-(launches from validate, and by path), the nvidia-smi line, and last
+(the rasterizer's launches from validate, ycc_canvas's from fit_nvjpeg, and
+both by path), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure
 raises (non-zero exit, no final line); without CUDA it exits non-zero at
 once.  Nothing falls back to the CPU or to a plain version.
@@ -216,6 +239,7 @@ from posetpu_torch.data import (
     make_batch_placer,
     make_synthetic_dataset,
 )
+from posetpu_torch.data.loader import load_sample
 from posetpu_torch.data.worker_loader import (
     START_METHOD as WORKER_START_METHOD,
     stop_worker_server,
@@ -223,6 +247,7 @@ from posetpu_torch.data.worker_loader import (
 from posetpu_torch.eval import cli as eval_cli
 from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
+from posetpu_torch.native import NvjpegDecoder, nvjpeg, ycc
 from posetpu_torch.models import hg
 from posetpu_torch.models.batchnorm import BatchNorm2d, convert_cross_replica_
 from posetpu_torch.parallel import (
@@ -390,8 +415,16 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel source at once: the augmentation kernels and the
+    decode route's (the ycc_canvas kernel and the nvJPEG decoder, which
+    links libnvjpeg), one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    paths = cuda_build.build(cuda_kernels.SOURCES)
+    with ThreadPoolExecutor(2) as ex:
+        aug = ex.submit(cuda_build.build, cuda_kernels.SOURCES)
+        native = ex.submit(nvjpeg.build_all)
+        paths = {**aug.result(), **native.result()}
     seconds = time.perf_counter() - t0
     ptxas = []
     for lib in paths.values():
@@ -514,6 +547,277 @@ def phase_kernels():
     emit("kernels", cases=len(cases), max_abs_err=max_err,
          cases_detail=cases, shapes=shapes)
     return summary
+
+
+# loader: MPII's own image size and a synthetic split of it; the pre-pad
+# window the driver's auto-sizing picks for such a split (the whole frame:
+# the worst-case crop box of its largest person exceeds the image)
+LOADER_RES = (1280, 720)
+LOADER_IMAGES = 64
+LOADER_VAL = 16
+LOADER_PAD = (768, 1280)
+LOADER_LSB = 2.5  # libjpeg against Pillow's IDCT rounding (tests/test_native.py)
+LOADER_WORKERS = (0, 4, 7)  # WorkerLoader's processes, beside the Pillow route
+# WorkerLoader's steady rate: one epoch of 10 batches over the same JPEGs,
+# timed after its first batch (which waits for the workers' start)
+LOADER_STEADY_IMAGES = 320
+# fit: the synthetic split's 64 train and 16 validation images at batch 32
+FIT_EPOCHS, FIT_RESUME_EPOCHS = 2, 3
+FIT_STEPS, FIT_VAL_BATCHES = 64 // BATCH, 1
+
+
+# nvjpeg: the card's decode route.  nvJPEG's IDCT is not libjpeg's
+# JDCT_ISLOW: on the card (H100 80GB HBM3, 700 W, CUDA 12.8) its planes
+# differ from libjpeg-turbo's by at most 1 in about 2% of the samples of a
+# quality-92 1280x720 frame, at every subsampling.  The phase checks that
+# premise (NVJPEG_PLANE_GAP) and derives the route's bound against Pillow
+# from it.  Fancy upsampling takes rounded convex combinations (3:1 taps),
+# so a gap of g in every input sample stays within g in its output.
+# jdcolor.c then adds to Y (gap g) a rounded multiple of Cr - 128 and
+# Cb - 128: floor((F*x + 2^15) / 2^16) moves by at most ceil(F*g / 2^16)
+# when x moves by g, which for g = 1 is 2 for R (1.402), G (0.34414 +
+# 0.71414) and B (1.772).  So R, G and B lie within g + 2 = 3 of libjpeg's,
+# and Pillow decodes with libjpeg-turbo's ISLOW (equal to the plain chain
+# on libjpeg's planes: tests/test_torch_nvjpeg.py).  LOADER_LSB (2.5)
+# stays the bound of the other routes.
+NVJPEG_PLANE_GAP = 1
+NVJPEG_LSB = NVJPEG_PLANE_GAP + max(
+    math.ceil(f * NVJPEG_PLANE_GAP / 65536)
+    for f in (ycc.FIX_1_40200, ycc.FIX_0_34414 + ycc.FIX_0_71414, ycc.FIX_1_77200))
+# the phase's files: 32 of the loader phase's 1280x720 frames (Pillow,
+# quality 92, 4:2:0), and small odd-sized ones at every subsampling the
+# route takes (4:4:0 by relabelling a 4:2:2 file's frame header: Pillow
+# writes no 4:4:0)
+NVJPEG_SMALL = (("444", 97, 131), ("422", 50, 61), ("440", 31, 45), ("420", 161, 121),
+                ("gray", 33, 17), ("420", 3, 2), ("422", 4, 5))
+NVJPEG_PADS = (LOADER_PAD, (400, 600), (64, 48))  # the loader's, then crops
+# integer operations of one output pixel of a 3-component file: two h2v2
+# upsamplings (2 column sums of a multiply and an add, 3 more ops to
+# combine, a shift: 8 each), the two -128s, and the conversion (R 6, G 8,
+# B 6, each with its add, shift and two-sided clamp)
+YCC_OPS_PER_PIXEL = 38
+NVJPEG_TIMED = 3  # decoded batches timed, after one
+NVJPEG_BUSY_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at 2 GHz
+
+
+def _small_jpeg(sub, w, h, seed):
+    """A w x h JPEG's bytes at subsampling ``sub`` (444, 422, 420, 440 or
+    gray) from seeded smooth content with noise, at quality 92."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                     (xx + yy) * 7 % 256], -1)
+    im = Image.fromarray(np.clip(base + rng.randint(-40, 40, (h, w, 3)), 0, 255)
+                         .astype(np.uint8))
+    kw = {"subsampling": {"444": 0, "422": 1, "420": 2, "440": 1}[sub]} if sub != "gray" else {}
+    if sub == "gray":
+        im = im.convert("L")
+    if sub == "440":
+        im = im.transpose(Image.TRANSPOSE)
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", quality=92, **kw)
+    data = bytearray(buf.getvalue())
+    if sub == "440":
+        # SOF0: length, precision, height, width, count, then (id, HV, table)
+        i = data.find(b"\xff\xc0")
+        data[i + 5:i + 9] = data[i + 7:i + 9] + data[i + 5:i + 7]
+        check(data[i + 11] == 0x21, "4:2:2 luma sampling byte")
+        data[i + 11] = 0x12
+    return bytes(data)
+
+
+class _Files:
+    """A dataset of ``paths`` with the given centers (load_sample's view)."""
+
+    def __init__(self, paths, centers):
+        self.paths, self.centers = paths, centers
+
+    def __len__(self):
+        return len(self.paths)
+
+    def image_path(self, i):
+        return self.paths[i]
+
+    def meta(self, i):
+        return (self.centers[i].astype(np.float64), 1.0, np.zeros((16, 2)), np.zeros(16))
+
+
+def _pillow_planes(path):
+    """Pillow's YCbCr decode (libjpeg upsampled, not converted), or its
+    grayscale one, as a list of planes."""
+    from PIL import Image
+
+    im = Image.open(path)
+    if im.mode == "L":
+        return [np.asarray(im)]
+    im.draft("YCbCr", im.size)
+    arr = np.asarray(im)
+    check(im.mode == "YCbCr", f"{path}: draft mode {im.mode}")
+    return [arr[..., c] for c in range(3)]
+
+
+def _ycc_bound(planes, n, pad_hw, valid_pixels):
+    """Least time for ycc_canvas's work: the planes read once and the
+    canvas written once, against its integer operations at the card's
+    float32 rate (the table's nearest entry)."""
+    nbytes = sum(p.shape[0] * p.shape[1] for pl in planes for p in pl) + n * pad_hw[0] * pad_hw[1] * 3
+    ops = valid_pixels * YCC_OPS_PER_PIXEL
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return nbytes, ops, max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def phase_nvjpeg(workdir):
+    """The nvJPEG route on the card: nvJPEG's planes against Pillow's
+    YCbCr decode, the ycc_canvas kernel against its plain version on those
+    planes (exactly, one launch a batch), the whole route against Pillow's
+    load_sample (within NVJPEG_LSB, windows exactly, every file decoded),
+    then the kernel timed beside its bound and the write floor, and the
+    decode of the loader's batch (host ms, kernel and copy-back ms)."""
+    root = os.path.join(workdir, "nvjpeg")
+    make_synthetic_dataset(root, num_train=BATCH, num_val=0, res=LOADER_RES, seed=SEED)
+    ds = MpiiDataset(os.path.join(root, "annotations.json"), os.path.join(root, "images"),
+                     split="train")
+    frames = [ds.image_path(i) for i in range(BATCH)]
+    small = []
+    for k, (sub, w, h) in enumerate(NVJPEG_SMALL):
+        small.append(os.path.join(root, f"small_{k}_{sub}.jpg"))
+        with open(small[-1], "wb") as f:
+            f.write(_small_jpeg(sub, w, h, SEED + k))
+    dec = NvjpegDecoder("cuda", timing=True)
+
+    # the planes: nvJPEG's, upsampled by the plain version, against Pillow's
+    sets = {"frames": frames, "small": small}
+    plane_gap, plane_diff, plane_samples, sizes = 0, 0, 0, {}
+    for name, batch in sets.items():
+        planes, samplings = dec.decode_planes(batch)
+        sizes[name] = [(pl[0].shape[1], pl[0].shape[0]) if pl else None for pl in planes]
+        for path, pl, samp in zip(batch, planes, samplings):
+            check(pl, f"{path}: nvJPEG refused it")
+            H, W = pl[0].shape
+            got = [pl[0]] + [ycc.fancy_upsample(p, *s, W, H) for p, s in zip(pl[1:], samp[1:])]
+            for g, want in zip(got, _pillow_planes(path)):
+                d = (g.cpu().numpy().astype(np.int16) - want.astype(np.int16))
+                plane_gap = max(plane_gap, int(np.abs(d).max()))
+                plane_diff += int(np.count_nonzero(d))
+                plane_samples += d.size
+    check(plane_gap <= NVJPEG_PLANE_GAP,
+          f"nvJPEG's planes {plane_gap} from libjpeg's: NVJPEG_LSB's premise fails")
+
+    # the decoder's stream held by a sleep kernel queued ahead of the
+    # decode, so nvJPEG's queued copies and IDCTs run late, as on a card
+    # shared with other work: the planes must be those of an idle stream
+    idle = [tuple(p.clone() for p in pl) for pl in dec.decode_planes(frames)[0]]
+    with torch.cuda.stream(dec.stream):
+        torch.cuda._sleep(NVJPEG_BUSY_CYCLES)
+    busy = dec.decode_planes(frames)[0]
+    busy_equal = all(torch.equal(a, b) for x, y in zip(idle, busy) for a, b in zip(x, y))
+    check(busy_equal, "nvJPEG's planes change when its stream is busy")
+    del idle, busy
+
+    # the kernel against its plain version on nvJPEG's own planes
+    cases = []
+    for name, batch in sets.items():
+        planes, samplings = dec.decode_planes(batch)
+        rng = np.random.RandomState(SEED)
+        for pad in NVJPEG_PADS:
+            # centers near each corner and edge, and inside
+            centers = np.array([[(0.01, 0.99, 0.5, 0.01, 0.99)[i % 5] * w,
+                                 (0.01, 0.99, 0.99, 0.5, 0.01)[i % 5] * h]
+                                for i, (w, h) in enumerate(sizes[name])], np.float32)
+            centers += rng.uniform(-0.5, 0.5, centers.shape).astype(np.float32)
+            windows = np.array([ycc.crop_window(w, h, c, pad) for (w, h), c in
+                                zip(sizes[name], centers)], np.int64)
+            before = nvjpeg.LAUNCHES["ycc_canvas"]
+            got = nvjpeg.ycc_canvas(planes, samplings, windows, pad)
+            torch.cuda.synchronize()
+            check(nvjpeg.LAUNCHES["ycc_canvas"] == before + 1,
+                  "the ycc_canvas wrapper did not launch its kernel once")
+            want = torch.stack([ycc.planes_to_canvas(pl, s, pad, c)[0]
+                                for pl, s, c in zip(planes, samplings, centers)])
+            err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+            check(torch.equal(got, want), f"ycc_canvas {name} {pad}: max abs err {err}")
+            cases.append({"files": name, "pad_hw": list(pad), "max_abs_err": err,
+                          "cropped": int((windows[:, :2] > 0).any(axis=1).sum())})
+
+    # the whole route against Pillow's canvas
+    route_lsb, fallbacks = 0, 0
+    for name, batch in sets.items():
+        for pad in NVJPEG_PADS:
+            centers = np.array([[0.9 * w, 0.1 * h] for w, h in sizes[name]], np.float32)
+            images, wh, offs, ok = dec.decode_batch(batch, centers, pad)
+            fallbacks += int((~ok).sum())
+            files = _Files(batch, centers)
+            for i in range(len(batch)):
+                want = load_sample(files, i, pad)
+                check(np.array_equal(wh[i], want["valid_wh"])
+                      and np.array_equal(offs[i], want["offset"]),
+                      f"{batch[i]} {pad}: window {wh[i]} {offs[i]}")
+                route_lsb = max(route_lsb, int(np.abs(images[i].astype(np.int16)
+                                                      - want["image"].astype(np.int16)).max()))
+    check(fallbacks == 0, f"{fallbacks} files left to the Pillow fallback")
+    check(route_lsb <= NVJPEG_LSB, f"the nvJPEG route {route_lsb} LSB from Pillow")
+
+    # the kernel at the loader's batch: its time, its bound, the write floor
+    pad = LOADER_PAD
+    planes, samplings = dec.decode_planes(frames)
+    planes = [tuple(p.clone() for p in pl) for pl in planes]  # outlive the buffer
+    centers = np.array([[0.5 * pl[0].shape[1], 0.5 * pl[0].shape[0]] for pl in planes],
+                       np.float32)
+    windows = np.array([ycc.crop_window(pl[0].shape[1], pl[0].shape[0], c, pad)
+                        for pl, c in zip(planes, centers)], np.int64)
+    out = torch.empty((BATCH, *pad, 3), dtype=torch.uint8, device="cuda")
+    before = nvjpeg.LAUNCHES["ycc_canvas"]
+    ms = cuda_ms(lambda: nvjpeg.ycc_canvas(planes, samplings, windows, pad, out=out))
+    check(nvjpeg.LAUNCHES["ycc_canvas"] > before, "ycc_canvas did not launch")
+    plain_ms = cuda_ms(lambda: torch.stack([ycc.window_canvas(pl, s, w, pad) for pl, s, w
+                                            in zip(planes, samplings, windows)]),
+                       reps=2, samples=5)
+    floor_ms = cuda_ms(out.zero_)
+    valid = int(windows[:, 2].astype(np.int64) @ windows[:, 3])
+    nbytes, ops, bound_ms, bound_by = _ycc_bound(planes, BATCH, pad, valid)
+    del out, planes
+
+    # the route at the loader's batch: host phase, kernel and copy back
+    pinned = torch.empty((BATCH, *pad, 3), dtype=torch.uint8, pin_memory=True)
+    dec.times.clear()
+    for _ in range(NVJPEG_TIMED + 1):
+        dec.decode_batch(frames, centers, pad, out=pinned.numpy())
+    timed = dec.times[1:]  # after the first
+    dec.close()
+    emit("nvjpeg", files=len(frames) + len(small), frame_res=list(LOADER_RES),
+         small=[list(c) for c in NVJPEG_SMALL],
+         plane_gap_max=plane_gap, plane_samples_differing=plane_diff,
+         plane_samples=plane_samples, plane_gap_premise=NVJPEG_PLANE_GAP,
+         planes_equal_on_a_busy_stream=busy_equal,
+         route_max_lsb_vs_pillow=route_lsb, route_bound_lsb=NVJPEG_LSB,
+         pillow_fallbacks=fallbacks, kernel_cases=cases,
+         kernel={"batch": BATCH, "pad_hw": list(pad), "ms": ms, "plain_ms": plain_ms,
+                 "write_floor_ms": floor_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bytes": nbytes, "operations": ops},
+         decode_ms_per_batch=[t["total_ms"] for t in timed],
+         host_ms_per_batch=[t["host_ms"] for t in timed],
+         canvas_ms_per_batch=[t["canvas_ms"] for t in timed],
+         copy_back_ms_per_batch=[t["copy_ms"] for t in timed],
+         img_per_s=[BATCH * 1e3 / t["total_ms"] for t in timed])
+    return {
+        "name": "ycc_canvas",
+        "route": "cuda",
+        "source": "posetpu_torch/native/kernels/ycc_canvas.cu",
+        # no TPU kernel: libjpeg's upsampling and conversion inside the pool
+        "replaces": "posetpu/native/decode_pool.cpp:81",
+        "launches": None,  # filled from fit_nvjpeg
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        # no single PyTorch call upsamples as libjpeg does and converts
+        # with its integer arithmetic (F.interpolate computes another function)
+        "library_ms": None,
+        "write_floor_ms": floor_ms,
+    }
 
 
 def _serve_batches(rng):
@@ -1334,25 +1638,10 @@ def phase_joint_parity():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     emit("joint_parity", batch=B, cases=cases, **{f"max_{k}": v for k, v in worst.items()})
 
-# loader: MPII's own image size and a synthetic split of it; the pre-pad
-# window the driver's auto-sizing picks for such a split (the whole frame:
-# the worst-case crop box of its largest person exceeds the image)
-LOADER_RES = (1280, 720)
-LOADER_IMAGES = 64
-LOADER_PAD = (768, 1280)
-LOADER_LSB = 2.5  # libjpeg against Pillow's IDCT rounding (tests/test_native.py)
-LOADER_WORKERS = (0, 4, 7)  # WorkerLoader's processes, beside the Pillow route
-# WorkerLoader's steady rate: one epoch of 10 batches over the same JPEGs,
-# timed after its first batch (which waits for the workers' start)
-LOADER_STEADY_IMAGES = 320
-# fit: the synthetic split's 64 train and 16 validation images at batch 32
-FIT_EPOCHS, FIT_RESUME_EPOCHS = 2, 3
-FIT_STEPS, FIT_VAL_BATCHES = 64 // BATCH, 1
-
-
 def _route_probe():
     """What the machine decodes with, and the decode routes this run
-    takes: "pil" where Pillow imports, "native" where the C++ pool builds."""
+    takes: "pil" where Pillow imports, "native" where the C++ pool builds,
+    "nvjpeg" where the nvJPEG route builds and starts on the card."""
     try:
         import PIL
 
@@ -1375,7 +1664,7 @@ def _route_probe():
         mpl = True
     except ImportError:
         mpl = False
-    routes, native_error = [], None
+    routes, native_error, nvjpeg_error = [], None, None
     if pillow:
         routes.append("pil")
     try:
@@ -1387,6 +1676,12 @@ def _route_probe():
         lines = str(e).strip().splitlines()
         native_error = next((ln for ln in lines if "error" in ln), lines[-1])[:200]
     try:
+        NvjpegDecoder("cuda").close()
+        routes.append("nvjpeg")
+    except Exception as e:
+        lines = str(e).strip().splitlines() or [repr(e)]
+        nvjpeg_error = next((ln for ln in lines if "error" in ln), lines[-1])[:200]
+    try:
         import tensorboard
 
         tb = tensorboard.__version__
@@ -1396,7 +1691,8 @@ def _route_probe():
     return dict(pillow=pillow, gxx=gxx, jpeglib_header=header, libjpeg=libjpeg,
                 nvjpeg_header=os.path.exists(os.path.join(cuda_home, "include", "nvjpeg.h")),
                 cpu_count=os.cpu_count(), matplotlib=mpl, routes=routes,
-                native_error=native_error, tensorboard=tb, dev_shm_bytes=shm,
+                native_error=native_error, nvjpeg_error=nvjpeg_error, tensorboard=tb,
+                dev_shm_bytes=shm,
                 worker_start_method=WORKER_START_METHOD)
 
 
@@ -1404,6 +1700,7 @@ def phase_host():
     info = _route_probe()
     check(info["routes"], "no decode route: neither Pillow nor the native pool")
     emit("host", **info)
+    check("nvjpeg" in info["routes"], f"the nvJPEG route does not start: {info['nvjpeg_error']}")
     return info["routes"], info["tensorboard"] is not None
 
 
@@ -1446,7 +1743,9 @@ def phase_loader(routes, workdir):
     check("pil" in routes, "the loader phase writes its JPEGs with Pillow")
     root = os.path.join(workdir, "loader")
     t0 = time.perf_counter()
-    make_synthetic_dataset(root, num_train=LOADER_IMAGES, num_val=0, res=LOADER_RES,
+    # the validation images come after the train ones: the train JPEGs are
+    # those of a split without them (fit_nvjpeg validates on them)
+    make_synthetic_dataset(root, num_train=LOADER_IMAGES, num_val=LOADER_VAL, res=LOADER_RES,
                            seed=SEED)
     make_s = time.perf_counter() - t0
     ds = MpiiDataset(os.path.join(root, "annotations.json"),
@@ -1491,11 +1790,13 @@ def phase_loader(routes, workdir):
             for k in a:
                 if k != "image":
                     check(np.array_equal(a[k], b[k]), f"{route} vs {routes[0]}: {k}")
-        check(lsb <= LOADER_LSB, f"{route} vs {routes[0]}: images {lsb} LSB apart")
+        bound = NVJPEG_LSB if route == "nvjpeg" else LOADER_LSB
+        check(lsb <= bound, f"{route} vs {routes[0]}: images {lsb} LSB apart")
         agree[route] = lsb
     emit("loader", images=LOADER_IMAGES, res=list(LOADER_RES), pad_hw=list(LOADER_PAD),
          batch=BATCH, synth_seconds=make_s, routes=results, max_lsb_vs_first=agree,
          workers=workers)
+    return root, results, workers
 
 
 def _worker_epochs(ds, n, want):
@@ -1534,17 +1835,50 @@ def _worker_epochs(ds, n, want):
             "steady_img_per_s": BATCH * (len(steady_ms) - 1) * 1e3 / sum(steady_ms[1:])}
 
 
+@contextlib.contextmanager
+def _loader_routes():
+    """Records the decode route of every Experiment built inside: a list
+    of (train loader's backend, validation loader's)."""
+    from posetpu_torch.train import loop
+
+    seen, init = [], loop.Experiment.__init__
+
+    def recording(self, *args, **kw):
+        init(self, *args, **kw)
+        seen.append((self.loader.backend, self.val_loader.backend))
+
+    loop.Experiment.__init__ = recording
+    try:
+        yield seen
+    finally:
+        loop.Experiment.__init__ = init
+
+
 def _cli(main, argv):
-    """Call a CLI's main in this process with the rasterizer's counts reset
-    just before; returns (result, launches, stdout)."""
+    """Call a CLI's main in this process with the kernels' counts reset
+    just before; returns (result, rasterizer launches, stdout, decode),
+    decode: the ycc_canvas kernel's launches and each Experiment's
+    (train, validation) decode routes."""
     buf = io.StringIO()
     cuda_kernels.reset_launches()
-    with contextlib.redirect_stdout(buf):
+    nvjpeg.reset_launches()
+    with contextlib.redirect_stdout(buf), _loader_routes() as routes:
         result = main(argv)
     torch.cuda.synchronize()
     launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
     print(buf.getvalue(), end="", file=sys.stderr, flush=True)
-    return result, launches, buf.getvalue()
+    decode = {"ycc_canvas": nvjpeg.LAUNCHES["ycc_canvas"], "routes": routes}
+    return result, launches, buf.getvalue(), decode
+
+
+def _check_decode(label, decode, route="nvjpeg"):
+    """Every Experiment of a run decoded through ``route`` ("nvjpeg" for
+    the host loader on the card; the worker loader's processes keep
+    Pillow), and the ycc_canvas kernel launched where nvJPEG decoded."""
+    check(decode["routes"] and all(r == (route, route) for r in decode["routes"]),
+          f"{label}: decode routes {decode['routes']}, want {route}")
+    check((decode["ycc_canvas"] > 0) == (route == "nvjpeg"),
+          f"{label}: ycc_canvas launched {decode['ycc_canvas']} times")
 
 
 def _img_per_s(out):
@@ -1590,25 +1924,30 @@ def phase_fit(workdir):
     run_dir = os.path.join(ckpt, "hg8_mpii")
     per_epoch = FIT_STEPS + FIT_VAL_BATCHES
     t0 = time.perf_counter()
-    rc, l1, out1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
+    rc, l1, out1, d1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
     s1 = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
+    _check_decode("fit", d1)
+    check(d1["ycc_canvas"] == FIT_EPOCHS * per_epoch,
+          f"fit: ycc_canvas launches {d1['ycc_canvas']}, want one a decoded batch")
     want1 = FIT_EPOCHS * per_epoch + WARMUP_STEPS + EVAL_WARMUP
     check(l1 == want1, f"fit launches {l1}, want {want1}")
     _check_run("fit", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_STEPS)
     t0 = time.perf_counter()
-    rc, l2, out2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
-                                                  "--resume", "auto"])
+    rc, l2, out2, d2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
+                                                      "--resume", "auto"])
     s2 = time.perf_counter() - t0
     check(rc == 0, f"resumed train cli returned {rc}")
+    _check_decode("fit resumed", d2)
     extra = FIT_RESUME_EPOCHS - FIT_EPOCHS
     check(l2 == extra * per_epoch + WARMUP_STEPS + EVAL_WARMUP, f"resumed fit launches {l2}")
     # the resumed run restored count and step (4) and added its 2 steps
     vals, best = _check_run("fit resumed", run_dir, FIT_RESUME_EPOCHS,
                             FIT_RESUME_EPOCHS * FIT_STEPS)
     t0 = time.perf_counter()
-    pckh, l3, out3 = _cli(eval_cli.main, common + (["--best"] if best else []))
+    pckh, l3, out3, d3 = _cli(eval_cli.main, common + (["--best"] if best else []))
     s3 = time.perf_counter() - t0
+    _check_decode("fit eval", d3)
     check(math.isfinite(pckh) and 0.0 <= pckh <= 100.0, f"PCKh {pckh}")
     check("PCKh@0.5" in out3, "eval printed no PCKh@0.5")
     check(l3 == FIT_VAL_BATCHES + EVAL_WARMUP, f"eval launches {l3}")
@@ -1620,8 +1959,46 @@ def phase_fit(workdir):
          images_per_sec=_img_per_s(out1) + _img_per_s(out2), log=vals,
          best_written=best, eval_from="best" if best else "latest", pckh=pckh,
          launches={"train": l1, "resumed": l2, "eval": l3},
-         launches_per_epoch=per_epoch, warmup_steps=WARMUP_STEPS)
-    return l1 + l2 + l3
+         launches_per_epoch=per_epoch, warmup_steps=WARMUP_STEPS,
+         decode_routes=d1["routes"] + d2["routes"] + d3["routes"],
+         ycc_canvas_launches=[d1["ycc_canvas"], d2["ycc_canvas"], d3["ycc_canvas"]])
+    return l1 + l2 + l3, d1["ycc_canvas"] + d2["ycc_canvas"] + d3["ycc_canvas"]
+
+
+def phase_fit_nvjpeg(loader_root, loader_results, workers):
+    """train.cli.main at full hg8_mpii width, bf16, batch 32, FIT_EPOCHS
+    epochs over the loader phase's 64 frames at 1280x720 (its 16 validation
+    frames validate), decoded by nvJPEG into the (768, 1280) canvas the
+    driver's auto-sizing picks: img/s of each epoch (the first captures the
+    graph) beside the loader phase's Pillow and WorkerLoader rates from
+    this run.  The ycc_canvas kernel launches once a decoded batch; the
+    counts are reset just before."""
+    ckpt = os.path.join(loader_root, "fit_nvjpeg")
+    steps, val_batches = LOADER_IMAGES // BATCH, -(-LOADER_VAL // BATCH)
+    t0 = time.perf_counter()
+    rc, launches, out, decode = _cli(train_cli.main, [
+        "--config", "hg8_mpii", "--json", os.path.join(loader_root, "annotations.json"),
+        "--image-path", os.path.join(loader_root, "images"), "--train-batch", str(BATCH),
+        "--checkpoint", ckpt, "--epochs", str(FIT_EPOCHS)])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"train cli returned {rc}")
+    _check_decode("fit_nvjpeg", decode)
+    check(f"pad_hw={LOADER_PAD}" in out, "fit_nvjpeg: the driver picked another pad_hw")
+    batches = FIT_EPOCHS * (steps + val_batches)
+    check(decode["ycc_canvas"] == batches,
+          f"fit_nvjpeg: ycc_canvas launches {decode['ycc_canvas']}, want {batches}")
+    want = batches + WARMUP_STEPS + EVAL_WARMUP
+    check(launches == want, f"fit_nvjpeg launches {launches}, want {want}")
+    vals, _ = _check_run("fit_nvjpeg", os.path.join(ckpt, "hg8_mpii"), FIT_EPOCHS,
+                         FIT_EPOCHS * steps)
+    emit("fit_nvjpeg", config="hg8_mpii", batch=BATCH, epochs=FIT_EPOCHS, images=LOADER_IMAGES,
+         res=list(LOADER_RES), pad_hw=list(LOADER_PAD), seconds=seconds,
+         images_per_sec=_img_per_s(out), log=vals, launches=launches,
+         ycc_canvas_launches=decode["ycc_canvas"], decode_routes=decode["routes"],
+         loader_img_per_s={r["route"]: r["img_per_s"] for r in loader_results},
+         worker_loader_img_per_s={w["workers"]: w["img_per_s"] for w in workers},
+         worker_loader_steady_img_per_s={w["workers"]: w["steady_img_per_s"] for w in workers})
+    return launches, decode["ycc_canvas"]
 
 
 def phase_fit_joint(workdir):
@@ -1629,15 +2006,16 @@ def phase_fit_joint(workdir):
     CLI at full width, batch 32, each joint step a CUDA graph of one step
     (K = 1): 2 rasterizer launches per joint step and per warm-up step
     before the capture, and 1 per validation batch."""
-    total, runs = 0, []
+    total, ycc_total, runs = 0, 0, []
     for name in ("hg8_mpii_asr", "hg8_lsp_aho"):
         ckpt = os.path.join(workdir, name)
         t0 = time.perf_counter()
-        rc, launches, out = _cli(train_cli.main, [
+        rc, launches, out, decode = _cli(train_cli.main, [
             "--config", name, "--synthetic", "--train-batch", str(BATCH),
             "--checkpoint", ckpt, "--epochs", "1"])
         seconds = time.perf_counter() - t0
         check(rc == 0, f"{name}: train cli returned {rc}")
+        _check_decode(name, decode)
         want = (JOINT_RASTER_LAUNCHES * (FIT_STEPS + WARMUP_STEPS) + FIT_VAL_BATCHES
                 + EVAL_WARMUP)
         check(launches == want, f"{name}: launches {launches}, want {want}")
@@ -1649,10 +2027,12 @@ def phase_fit_joint(workdir):
         check("agent" in out, f"{name}: no agent loss in the progress line")
         runs.append({"config": name, "seconds": seconds, "images_per_sec": _img_per_s(out),
                      "log": vals, "best_written": best, "launches": launches,
-                     "launches_want": want})
+                     "launches_want": want, "decode_routes": decode["routes"],
+                     "ycc_canvas_launches": decode["ycc_canvas"]})
         total += launches
+        ycc_total += decode["ycc_canvas"]
     emit("fit_joint", batch=BATCH, epochs=1, steps_per_epoch=FIT_STEPS, runs=runs)
-    return total
+    return total, ycc_total
 
 
 # dispatch: K train steps a CUDA graph at full width, and the dispatches
@@ -1874,11 +2254,12 @@ def phase_fit_dispatch(workdir, have_tensorboard):
     ckpt = os.path.join(workdir, "fit_dispatch")
     run_dir = os.path.join(ckpt, "hg8_mpii")
     t0 = time.perf_counter()
-    rc, launches, out = _cli(train_cli.main, [
+    rc, launches, out, decode = _cli(train_cli.main, [
         "--config", "hg8_mpii", "--synthetic", "--train-batch", str(BATCH),
         "--checkpoint", ckpt, "--epochs", str(FIT_EPOCHS), *FIT_DISPATCH])
     seconds = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
+    _check_decode("fit_dispatch", decode, route="pil")
     want = (FIT_EPOCHS * (FIT_STEPS + FIT_VAL_BATCHES) + FIT_STEPS + WARMUP_STEPS
             + EVAL_WARMUP)
     vals, best = _check_run("fit_dispatch", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_STEPS)
@@ -1890,7 +2271,8 @@ def phase_fit_dispatch(workdir, have_tensorboard):
               if n.startswith("events.out.tfevents")]
     emit("fit_dispatch", config="hg8_mpii", batch=BATCH, epochs=FIT_EPOCHS,
          flags=FIT_DISPATCH, seconds=seconds, images_per_sec=_img_per_s(out), log=vals,
-         launches=launches, launches_want=want, traces=traces, tensorboard_events=events)
+         launches=launches, launches_want=want, traces=traces, tensorboard_events=events,
+         decode_routes=decode["routes"])
     check(launches == want, f"fit_dispatch launches {launches}, want {want}")
     check(traces and all(n > 0 for n in traces.values()), f"trace files {traces}")
     check(bool(events) == have_tensorboard, f"tensorboard events {events}")
@@ -2160,17 +2542,19 @@ def phase_fit_joint_dispatch(workdir, have_tensorboard):
     per_epoch = JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + val_batches
     warmup = JOINT_RASTER_LAUNCHES * WARMUP_STEPS
     t0 = time.perf_counter()
-    rc, l1, out1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
+    rc, l1, out1, d1 = _cli(train_cli.main, common + ["--epochs", str(FIT_EPOCHS)])
     s1 = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
+    _check_decode("fit_joint_dispatch", d1, route="pil")
     want1 = (FIT_EPOCHS * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
              + EVAL_WARMUP)
     _check_run("fit_joint_dispatch", run_dir, FIT_EPOCHS, FIT_EPOCHS * FIT_JOINT_STEPS)
     t0 = time.perf_counter()
-    rc, l2, out2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
-                                                  "--resume", "auto"])
+    rc, l2, out2, d2 = _cli(train_cli.main, common + ["--epochs", str(FIT_RESUME_EPOCHS),
+                                                      "--resume", "auto"])
     s2 = time.perf_counter() - t0
     check(rc == 0, f"resumed train cli returned {rc}")
+    _check_decode("fit_joint_dispatch resumed", d2, route="pil")
     extra = FIT_RESUME_EPOCHS - FIT_EPOCHS
     want2 = (extra * per_epoch + JOINT_RASTER_LAUNCHES * FIT_JOINT_STEPS + warmup
              + EVAL_WARMUP)
@@ -2190,7 +2574,7 @@ def phase_fit_joint_dispatch(workdir, have_tensorboard):
          images_per_sec=_img_per_s(out1) + _img_per_s(out2), log=vals,
          launches={"train": l1, "resumed": l2}, launches_want={"train": want1, "resumed": want2},
          agent_count=agent["count"], agent_step=agent["step"], traces=traces,
-         tensorboard_events=events)
+         tensorboard_events=events, decode_routes=d1["routes"] + d2["routes"])
     check(l1 == want1 and l2 == want2, f"fit_joint_dispatch launches {l1}, {l2}, "
           f"want {want1}, {want2}")
     check(agent["count"] == agent["step"] == steps_total,
@@ -2262,7 +2646,10 @@ def phase_dp_config(workdir):
     cfg.checkpoint_dir = os.path.join(workdir, "dp_config")
     torch.cuda.empty_cache()
     exp = Experiment(cfg, device="cuda")
+    routes = (exp.loader.backend, exp.val_loader.backend)
+    nvjpeg.reset_launches()
     try:
+        check(routes == ("nvjpeg", "nvjpeg"), f"dp_config decode routes {routes}")
         check(exp.world == 1 and exp.group is None, "one rank")
         check(exp.state.agent.model.input_downscale == 2, "the agent's input downscale")
         exp.train_epoch(0)  # warm-up: cuDNN and cuBLAS set-up at 384²
@@ -2310,6 +2697,8 @@ def phase_dp_config(workdir):
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         exp.close()
+    ycc_launches = nvjpeg.LAUNCHES["ycc_canvas"]
+    check(ycc_launches > 0, "dp_config: ycc_canvas never launched")
     emit("dp_config", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
          batch=B, inp_res=list(cfg.aug.inp_res), out_res=list(cfg.aug.out_res),
          num_devices=cfg.num_devices, dtype="bfloat16", pad_hw=list(cfg.pad_hw),
@@ -2322,8 +2711,8 @@ def phase_dp_config(workdir):
          device_busy_ms_per_step=prof["device_busy_ms"] / DP_CONFIG_K,
          idle_share=prof["idle_share"], profile=prof, max_memory_allocated=peak,
          capture_seconds=dispatch.capture_seconds, pool_bytes=dispatch.pool_bytes,
-         launches=launches)
-    return launches
+         launches=launches, decode_routes=[routes], ycc_canvas_launches=ycc_launches)
+    return launches, ycc_launches
 
 
 def _dp_model(cfg, state_np, dev, group):
@@ -3148,11 +3537,12 @@ def phase_ckpt_interop(workdir):
     torch.cuda.empty_cache()
     ckpt = os.path.join(workdir, "interop")
     t0 = time.perf_counter()
-    rc, launches, out = _cli(train_cli.main, [
+    rc, launches, out, decode = _cli(train_cli.main, [
         "--config", "hg8_mpii", "--synthetic", "--train-batch", str(BATCH),
         "--checkpoint", ckpt, "--epochs", "1", "--blocks", "2", "--scan-stacks"])
     fit_s = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
+    _check_decode("ckpt_interop", decode)
     want = FIT_STEPS + FIT_VAL_BATCHES + WARMUP_STEPS + EVAL_WARMUP
     check(launches == want, f"ckpt_interop launches {launches}, want {want}")
     run_dir = os.path.join(ckpt, "hg8_mpii")
@@ -3467,12 +3857,12 @@ def main():
     smi = phase_device()
     at_start = set(_processes())
     try:
-        raster = _run_phases()
+        kernels = _run_phases()
     finally:
         left = phase_processes(at_start)
     emit("processes", left_running=left)
     check(not left, f"processes still running after the phases: {left}")
-    print(json.dumps({"kernels": [raster]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3483,9 +3873,14 @@ def main():
 
 
 def _run_phases():
-    """Every phase after ``device``; returns the kernel summary."""
+    """Every phase after ``device``; returns the kernel summaries."""
     phase_build()
     raster = phase_kernels()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ycc_summary = phase_nvjpeg(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     cfg = named_config("hg8_mpii")
     predictor, serve_launches = phase_serve(cfg)
     launches, eager_launches, graphed, eager = phase_validate(cfg, predictor)
@@ -3514,12 +3909,14 @@ def _run_phases():
     routes, have_tensorboard = phase_host()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        phase_loader(routes, workdir)
-        fit_launches = phase_fit(workdir)
-        fit_joint_launches = phase_fit_joint(workdir)
+        loader_root, loader_results, workers = phase_loader(routes, workdir)
+        fit_nvjpeg_launches, ycc_fit_nvjpeg = phase_fit_nvjpeg(loader_root, loader_results,
+                                                               workers)
+        fit_launches, ycc_fit = phase_fit(workdir)
+        fit_joint_launches, ycc_fit_joint = phase_fit_joint(workdir)
         fit_dispatch_launches = phase_fit_dispatch(workdir, have_tensorboard)
         fit_joint_dispatch_launches = phase_fit_joint_dispatch(workdir, have_tensorboard)
-        dp_config_launches = phase_dp_config(workdir)
+        dp_config_launches, ycc_dp_config = phase_dp_config(workdir)
         variants_launches = phase_variants(cfg, workdir)
         remat_launches = phase_remat()
         ckpt_interop_launches = phase_ckpt_interop(workdir)
@@ -3537,6 +3934,7 @@ def _run_phases():
                                   "joint": joint_launches["rasterize_gaussians"],
                                   "joint_lsp": lsp_launches["rasterize_gaussians"],
                                   "fit": fit_launches,
+                                  "fit_nvjpeg": fit_nvjpeg_launches,
                                   "fit_joint": fit_joint_launches,
                                   "dispatch": dispatch_launches,
                                   "dispatch_parity": dispatch_parity_launches,
@@ -3553,7 +3951,11 @@ def _run_phases():
                                   "ckpt_interop": ckpt_interop_launches,
                                   "profiling": profiling_launches,
                                   "adv_gain": adv_gain_launches}
-    return raster
+    ycc_summary["launches"] = ycc_fit_nvjpeg
+    ycc_summary["launches_by_path"] = {"fit_nvjpeg": ycc_fit_nvjpeg, "fit": ycc_fit,
+                                       "fit_joint": ycc_fit_joint,
+                                       "dp_config": ycc_dp_config}
+    return [raster, ycc_summary]
 
 
 if __name__ == "__main__":

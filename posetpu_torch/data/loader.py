@@ -222,6 +222,8 @@ def threaded_place_iter(src_iter, place, prefetch=2):
 class _CpuPlacer:
     """Batches as CPU tensors sharing the numpy arrays' memory."""
 
+    device = torch.device("cpu")
+
     def __call__(self, batch):
         return {k: torch.as_tensor(v) for k, v in batch.items()}
 
@@ -302,9 +304,17 @@ class HostLoader:
     """Iterable over static-shape batches with background decode prefetch.
 
     ``backend``: "pil" (Pillow), "native" (the C++ parallel JPEG pool,
-    :mod:`posetpu_torch.native`), or "auto" (native when it builds, Pillow
-    otherwise).  Files the native pool cannot decode fall back to Pillow per
-    sample, so the two backends give the same batch contract.
+    :mod:`posetpu_torch.native`), "nvjpeg" (nvJPEG and the ``ycc_canvas``
+    kernel on ``device``, :class:`~posetpu_torch.native.NvjpegDecoder`), or
+    "auto": on a CUDA ``device`` nvjpeg, which raises where it cannot build
+    (the card never quietly decodes with Pillow); elsewhere native when it
+    builds, Pillow otherwise.  Files the pool or nvJPEG cannot decode fall
+    back to Pillow per sample, so every backend gives the same batch
+    contract.  :attr:`backend` names the route taken.
+
+    ``device``: where "nvjpeg" decodes and what "auto" reads; None takes
+    the placer's device (``place.device``), or no device at all (the CPU's
+    routes; "nvjpeg" then defaults to CUDA).
 
     ``place``: an optional callable applied to each collated numpy batch in
     the prefetch thread, e.g. :func:`make_batch_placer`'s, so the copy to
@@ -349,6 +359,7 @@ class HostLoader:
         group=None,
         pad=False,
         shard=None,
+        device=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -369,8 +380,19 @@ class HostLoader:
         self.group = group
         self.epoch = 0
         self._decoder = None
-        if backend not in ("auto", "native", "pil"):
-            raise ValueError(f"unknown backend {backend!r} (auto, native or pil)")
+        if backend not in ("auto", "native", "pil", "nvjpeg"):
+            raise ValueError(f"unknown backend {backend!r} (auto, native, pil or nvjpeg)")
+        if device is None:
+            device = getattr(place, "device", None)
+        device = None if device is None else torch.device(device)
+        if backend == "auto" and device is not None and device.type == "cuda":
+            backend = "nvjpeg"
+        if backend == "nvjpeg":
+            from posetpu_torch.native.nvjpeg import NvjpegDecoder
+
+            self._decoder = NvjpegDecoder("cuda" if device is None else device)
+            self.backend = "nvjpeg"
+            return
         if backend in ("auto", "native"):
             try:
                 from posetpu_torch.native import NativeDecoder
@@ -397,8 +419,9 @@ class HostLoader:
         return buf.numpy(), buf
 
     def _native_batch(self, sel):
-        """Decode one batch through the C++ pool; Pillow fallback per
-        failure.  The pool writes straight into the batch's image buffer."""
+        """Decode one batch through the C++ pool or nvJPEG; Pillow fallback
+        per failure.  The decoder writes straight into the batch's image
+        buffer."""
         ds = self.dataset
         metas = [ds.meta(int(i)) for i in sel]
         paths = [ds.image_path(int(i)) for i in sel]

@@ -51,7 +51,64 @@ def _lib():
         ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32),
     ]
+    lib.pool_decode_planes.restype = ctypes.c_int64
+    lib.pool_decode_planes.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_void_p,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
     return lib
+
+
+# libjpeg's J_COLOR_SPACE values (jpeglib.h)
+JCS_GRAYSCALE, JCS_RGB, JCS_YCBCR, JCS_CMYK, JCS_YCCK = 1, 2, 3, 4, 5
+
+
+def read_planes(path):
+    """One JPEG file's component planes as stored, before libjpeg's
+    upsampling and color conversion (``pool_decode_planes``): returns
+    (jpeg_color_space, [(h_samp, v_samp) per component], [(rows, cols) uint8
+    array per component]), or None where libjpeg cannot decode the file.
+    The image's size is the first plane's when it has the largest
+    sampling factors.  Raises RuntimeError when the pool cannot build."""
+    lib = _lib()
+    info = np.zeros(4 + 4 * 4, np.int32)
+    info_p = info.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+    c_path = os.fsencode(path)
+    need = lib.pool_decode_planes(c_path, None, 0, info_p)
+    if need < 0:
+        return None
+    buf = np.empty(need, np.uint8)
+    if lib.pool_decode_planes(c_path, buf.ctypes.data, need, info_p) != need:
+        return None
+    factors, planes, at = [], [], 0
+    for c in range(int(info[2])):
+        h, v, cw, ch = (int(x) for x in info[4 + 4 * c: 8 + 4 * c])
+        factors.append((h, v))
+        planes.append(buf[at: at + cw * ch].reshape(ch, cw))
+        at += cw * ch
+    return int(info[3]), factors, planes
+
+
+def batch_args(paths, centers, pad_hw, out):
+    """A decoder's checked arguments: (n, (ph, pw), centers (n, 2) float32,
+    out), ``out`` a new array when None, else a writeable C-contiguous
+    uint8 array of shape (n, ph, pw, 3)."""
+    ph, pw = (int(v) for v in pad_hw)
+    n = len(paths)
+    if out is None:
+        out = np.empty((n, ph, pw, 3), np.uint8)
+    elif (out.dtype != np.uint8 or out.shape != (n, ph, pw, 3)
+          or not out.flags.c_contiguous or not out.flags.writeable):
+        raise ValueError(
+            f"out must be a writeable C-contiguous uint8 array of shape "
+            f"{(n, ph, pw, 3)}; got {out.dtype} {out.shape}"
+        )
+    centers = np.ascontiguousarray(centers, np.float32)
+    if centers.shape != (n, 2):
+        raise ValueError(f"centers must be ({n}, 2); got {centers.shape}")
+    return n, (ph, pw), centers, out
 
 
 class NativeDecoder:
@@ -80,19 +137,7 @@ class NativeDecoder:
         if self._pool is None:
             # a NULL pool handle would segfault inside the C++ call
             raise RuntimeError("NativeDecoder used after close()")
-        ph, pw = (int(v) for v in pad_hw)
-        n = len(paths)
-        if out is None:
-            out = np.empty((n, ph, pw, 3), np.uint8)
-        elif (out.dtype != np.uint8 or out.shape != (n, ph, pw, 3)
-              or not out.flags.c_contiguous or not out.flags.writeable):
-            raise ValueError(
-                f"out must be a writeable C-contiguous uint8 array of shape "
-                f"{(n, ph, pw, 3)}; got {out.dtype} {out.shape}"
-            )
-        centers = np.ascontiguousarray(centers, np.float32)
-        if centers.shape != (n, 2):
-            raise ValueError(f"centers must be ({n}, 2); got {centers.shape}")
+        n, (ph, pw), centers, out = batch_args(paths, centers, pad_hw, out)
         wh = np.zeros((n, 2), np.int32)
         offs = np.zeros((n, 2), np.int32)
         c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])

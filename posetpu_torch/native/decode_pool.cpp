@@ -16,6 +16,10 @@
 //     returns number of successfully decoded images; a failed slot reads
 //     out_wh = (0, 0) and an all-zero image (the caller falls back to PIL).
 //   pool_destroy(pool)
+//   pool_decode_planes(path, out, cap, info)
+//     one file's component planes as stored, before libjpeg's upsampling
+//     and color conversion (raw_data_out): the CPU source of the planes that
+//     nvJPEG gives on the card (posetpu_torch/native/nvjpeg.py).
 //
 // Oversized images are integer-cropped around the person center (same
 // lossless-translation rule as posetpu_torch.data.loader.load_sample).
@@ -171,9 +175,112 @@ bool process_one(const char* path, int pad_h, int pad_w, float cx, float cy,
   return true;
 }
 
+// info: image width, height, component count, libjpeg's jpeg_color_space,
+// then for each of up to 4 components h_samp, v_samp, stored width, stored
+// height (ceil(W * h / hmax), ceil(H * v / vmax)).
+int64_t decode_planes(const char* path, uint8_t* out, int64_t cap, int32_t* info) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  jpeg_decompress_struct cinfo;
+  JpegErrorMgr jerr;
+  // declared before setjmp: a longjmp back to it must not skip destructors
+  std::vector<uint8_t> rows;  // one iMCU row of every component
+  std::vector<JSAMPROW> ptrs[4];
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = jpeg_error_exit;
+  if (setjmp(jerr.setjmp_buffer)) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return -1;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_stdio_src(&cinfo, f);
+  jpeg_read_header(&cinfo, TRUE);
+  const int nc = cinfo.num_components;
+  if (nc > 4) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return -1;
+  }
+  const int64_t W = cinfo.image_width, H = cinfo.image_height;
+  info[0] = static_cast<int32_t>(W);
+  info[1] = static_cast<int32_t>(H);
+  info[2] = nc;
+  info[3] = static_cast<int32_t>(cinfo.jpeg_color_space);
+  int64_t need = 0;
+  int64_t cw[4], ch[4];
+  for (int c = 0; c < nc; ++c) {
+    const jpeg_component_info& comp = cinfo.comp_info[c];
+    cw[c] = (W * comp.h_samp_factor + cinfo.max_h_samp_factor - 1) / cinfo.max_h_samp_factor;
+    ch[c] = (H * comp.v_samp_factor + cinfo.max_v_samp_factor - 1) / cinfo.max_v_samp_factor;
+    int32_t* ci = info + 4 + 4 * c;
+    ci[0] = comp.h_samp_factor;
+    ci[1] = comp.v_samp_factor;
+    ci[2] = static_cast<int32_t>(cw[c]);
+    ci[3] = static_cast<int32_t>(ch[c]);
+    need += cw[c] * ch[c];
+  }
+  if (cap < need) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return need;
+  }
+  cinfo.raw_data_out = TRUE;
+  cinfo.out_color_space = cinfo.jpeg_color_space;
+  jpeg_start_decompress(&cinfo);
+  // jpeg_read_raw_data gives one iMCU row a call: v_samp * DCTSIZE rows of
+  // width_in_blocks * DCTSIZE samples for each component
+  JSAMPARRAY planes[4];
+  int64_t pitch[4], band[4], base[4];
+  size_t total = 0;
+  for (int c = 0; c < nc; ++c) {
+    const jpeg_component_info& comp = cinfo.comp_info[c];
+    pitch[c] = static_cast<int64_t>(comp.width_in_blocks) * DCTSIZE;
+    band[c] = static_cast<int64_t>(comp.v_samp_factor) * DCTSIZE;
+    total += static_cast<size_t>(pitch[c] * band[c]);
+  }
+  rows.resize(total);
+  uint8_t* at = rows.data();
+  int64_t dst = 0;
+  for (int c = 0; c < nc; ++c) {
+    ptrs[c].resize(band[c]);
+    for (int64_t r = 0; r < band[c]; ++r) ptrs[c][r] = at + r * pitch[c];
+    at += pitch[c] * band[c];
+    planes[c] = ptrs[c].data();
+    base[c] = dst;
+    dst += cw[c] * ch[c];
+  }
+  const JDIMENSION lines = cinfo.max_v_samp_factor * DCTSIZE;
+  for (int64_t imcu = 0; cinfo.output_scanline < cinfo.output_height; ++imcu) {
+    if (jpeg_read_raw_data(&cinfo, planes, lines) == 0) longjmp(jerr.setjmp_buffer, 1);
+    for (int c = 0; c < nc; ++c) {
+      for (int64_t r = 0; r < band[c]; ++r) {
+        const int64_t y = imcu * band[c] + r;
+        if (y >= ch[c]) break;
+        std::memcpy(out + base[c] + y * cw[c], planes[c][r], static_cast<size_t>(cw[c]));
+      }
+    }
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  fclose(f);
+  return need;
+}
+
 }  // namespace
 
 extern "C" {
+
+// returns the bytes one file's planes need, tightly packed, component after
+// component, and writes them to out when cap holds that many; -1 when the
+// file does not decode (or has more than 4 components)
+int64_t pool_decode_planes(const char* path, uint8_t* out, int64_t cap, int32_t* info) {
+  try {
+    return decode_planes(path, out, cap, info);
+  } catch (...) {  // std::bad_alloc from a forged header
+    return -1;
+  }
+}
 
 void* pool_create(int num_threads) {
   if (num_threads < 1) num_threads = 1;

@@ -1,0 +1,497 @@
+"""The card's JPEG decode route: nvJPEG planes and the ``ycc_canvas`` kernel.
+
+:class:`NvjpegDecoder` keeps :class:`~posetpu_torch.native.NativeDecoder`'s
+contract and answers.  On CUDA, nvJPEG (``nvjpeg_pool.cu``, the default
+backend: Huffman decode on the calling thread, IDCT on the card) writes each
+file's component planes at their stored sizes into device memory, the
+``ycc_canvas`` kernel (``kernels/ycc_canvas.cu``) upsamples, converts, crops
+and pads the whole batch in one launch, and the canvas is copied into the
+caller's (pinned) host buffer.  On the CPU the planes come from libjpeg's raw
+output (:func:`posetpu_torch.native.bindings.read_planes`) and the canvas from
+the plain functions of :mod:`posetpu_torch.native.ycc`, so the tests reach
+every step but nvJPEG and the kernel.
+
+:func:`ycc_canvas` is the kernel's wrapper: plain on CPU tensors, the kernel
+on CUDA tensors (or it raises), one launch counted in :data:`LAUNCHES`.
+Both libraries build at first use (:mod:`posetpu_torch.utils.cuda_build`);
+nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from posetpu_torch.native import bindings, ycc
+from posetpu_torch.native.bindings import (
+    JCS_CMYK,
+    JCS_GRAYSCALE,
+    JCS_RGB,
+    JCS_YCBCR,
+    JCS_YCCK,
+    batch_args,
+    read_planes,
+)
+from posetpu_torch.utils import cuda_build
+from posetpu_torch.utils.device import resolve_device
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+NVJPEG_SOURCE = os.path.join(_DIR, "nvjpeg_pool.cu")
+YCC_SOURCE = os.path.join(_DIR, "kernels", "ycc_canvas.cu")
+
+# the kernel sources of this module built with cuda_build.NVCC_FLAGS alone
+SOURCES = (YCC_SOURCE,)
+
+# launches of the kernel since the last reset_launches(), counted where the
+# wrapper launches it (the decode runs in loaders' producer threads)
+LAUNCHES = {"ycc_canvas": 0}
+_count_lock = threading.Lock()
+
+DESC_WORDS = 24  # ycc_canvas.cu's descriptor of one image, in int64 words
+PITCH_ALIGN = 256  # row pitch of the planes nvJPEG writes, in bytes
+
+# nvjpegStatus_t values (nvjpeg.h) that mean the file cannot be decoded:
+# BAD_JPEG, JPEG_NOT_SUPPORTED, INCOMPLETE_BITSTREAM.  Any other raises.
+_FILE_STATUSES = frozenset({3, 4, 10})
+
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def jpeg_color_space(data):
+    """libjpeg's ``jpeg_color_space`` for a file's bytes, by libjpeg-turbo's
+    rules (``jdapimin.c``, ``default_decompress_parms``): a JFIF marker means
+    YCbCr, else an Adobe marker's transform (0: RGB), else the component ids
+    ('R', 'G', 'B': RGB).  None when the header does not parse."""
+    if data[:2] != b"\xff\xd8":
+        return None
+    i, jfif, adobe = 2, False, None
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            return None
+        m = data[i + 1]
+        if m == 0xFF:  # fill byte
+            i += 1
+            continue
+        length = int.from_bytes(data[i + 2:i + 4], "big")
+        seg = data[i + 4:i + 2 + length]
+        if m == 0xE0 and length >= 16 and seg[:5] == b"JFIF\0":
+            jfif = True
+        elif m == 0xEE and length >= 14 and seg[:5] == b"Adobe":
+            adobe = seg[11]
+        elif m in _SOF:
+            nc = seg[5] if len(seg) > 5 else 0
+            ids = tuple(seg[6 + 3 * k] for k in range(nc)) if len(seg) >= 6 + 3 * nc else ()
+            if nc == 1:
+                return JCS_GRAYSCALE
+            if nc == 3:
+                if jfif:
+                    return JCS_YCBCR
+                if adobe is not None:
+                    return JCS_RGB if adobe == 0 else JCS_YCBCR
+                return JCS_RGB if ids == (82, 71, 66) else JCS_YCBCR
+            if nc == 4:
+                return JCS_YCCK if adobe == 2 else JCS_CMYK
+            return None
+        elif m == 0xDA:  # a scan before the frame header
+            return None
+        i += 2 + length
+    return None
+
+
+# --- the kernel ---------------------------------------------------------------
+
+
+@functools.cache
+def _ycc_fn():
+    fn = cuda_build.load_library(YCC_SOURCE).ycc_canvas_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _descriptors(planes, samplings, windows):
+    """(N, DESC_WORDS) int64: ycc_canvas.cu's descriptor of each image (an
+    image with a (0, 0) window needs no planes)."""
+    desc = np.zeros((len(planes), DESC_WORDS), np.int64)
+    for n, (pl, samp, win) in enumerate(zip(planes, samplings, windows)):
+        if win[2] <= 0 or win[3] <= 0:
+            continue  # all zero: a (0, 0) valid size
+        desc[n, 18] = len(pl)
+        desc[n, 19:23] = win
+        for c, (p, (hf, vf)) in enumerate(zip(pl, samp)):
+            if p.dtype != torch.uint8 or p.dim() != 2 or p.stride(1) != 1:
+                raise ValueError("planes must be 2-D uint8 with unit column stride")
+            desc[n, c] = p.data_ptr()
+            desc[n, 3 + c] = p.stride(0)
+            desc[n, 6 + c], desc[n, 9 + c] = p.shape[1], p.shape[0]
+            desc[n, 12 + c], desc[n, 15 + c] = hf, vf
+    return desc
+
+
+def ycc_canvas_cuda(planes, samplings, windows, pad_hw, out=None):
+    """Kernel counterpart of :func:`posetpu_torch.native.ycc.window_canvas`
+    for a batch, in one launch on the current stream.  ``planes``: per image
+    a tuple of 1 (grayscale) or 3 2-D uint8 CUDA tensors at their stored
+    sizes (rows may be padded: any row stride, unit column stride);
+    ``samplings``: per image per component (h, v) upsampling factors, the
+    luma's (1, 1), the others 1 or 2; ``windows``: (N, 4) (off_x, off_y,
+    valid_w, valid_h), (0, 0) sizes for an all-zero slot.  Returns ``out``
+    or a new (N, ph, pw, 3) uint8 tensor."""
+    ph, pw = (int(p) for p in pad_hw)
+    n = len(planes)
+    windows = np.asarray(windows, np.int64).reshape(n, 4)
+    dev = next((p.device for pl in planes if pl for p in pl), None)
+    if out is not None:
+        dev = out.device
+    if dev is None or dev.type != "cuda":
+        raise ValueError("ycc_canvas_cuda takes CUDA tensors")
+    for pl, samp, win in zip(planes, samplings, windows):
+        if win[2] <= 0 or win[3] <= 0:
+            continue
+        if len(pl) not in (1, 3) or len(samp) != len(pl) or tuple(samp[0]) != (1, 1):
+            raise ValueError(f"bad planes/sampling: {len(pl)} planes, sampling {samp}")
+        if any(p.device != dev for p in pl):
+            raise ValueError("ycc_canvas_cuda takes tensors on one CUDA device")
+        H, W = pl[0].shape
+        for p, (hf, vf) in zip(pl[1:], samp[1:]):
+            if hf not in (1, 2) or vf not in (1, 2):
+                raise ValueError(f"upsampling factors must be 1 or 2, got {(hf, vf)}")
+            if tuple(p.shape) != ycc.component_size(W, H, hf, vf)[::-1]:
+                raise ValueError(f"component of shape {tuple(p.shape)} for a {W}x{H} image "
+                                 f"at {(hf, vf)}")
+        if win[0] < 0 or win[1] < 0 or win[0] + win[2] > W or win[1] + win[3] > H \
+                or win[2] > pw or win[3] > ph:
+            raise ValueError(f"window {win.tolist()} outside a {W}x{H} image or the canvas")
+    if out is None:
+        out = torch.empty((n, ph, pw, 3), dtype=torch.uint8, device=dev)
+    elif out.dtype != torch.uint8 or tuple(out.shape) != (n, ph, pw, 3) \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous uint8 tensor of shape {(n, ph, pw, 3)}")
+    if n == 0:
+        return out
+    desc = torch.from_numpy(_descriptors(planes, samplings, windows)).pin_memory()
+    with torch.cuda.device(dev):
+        # the pinned block is not reused before this copy has run
+        desc_dev = desc.to(dev, non_blocking=True)
+        err = _ycc_fn()(desc_dev.data_ptr(), n, ph, pw, out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ycc_canvas launch failed: CUDA error {err}")
+    with _count_lock:
+        LAUNCHES["ycc_canvas"] += 1
+    return out
+
+
+def ycc_canvas(planes, samplings, windows, pad_hw, out=None):
+    """:func:`ycc_canvas_cuda` on CUDA tensors; on CPU tensors the plain
+    version, :func:`~posetpu_torch.native.ycc.window_canvas` image by image."""
+    on_cuda = (out is not None and out.is_cuda) or any(p.is_cuda for pl in planes for p in pl)
+    if on_cuda:
+        return ycc_canvas_cuda(planes, samplings, windows, pad_hw, out=out)
+    if out is None:
+        out = torch.empty((len(planes), *(int(p) for p in pad_hw), 3), dtype=torch.uint8)
+    for slot, pl, samp, win in zip(out, planes, samplings, np.asarray(windows).reshape(-1, 4)):
+        if pl:
+            slot.copy_(ycc.window_canvas(pl, samp, win, pad_hw))
+        else:
+            slot.zero_()
+    return out
+
+
+# --- nvJPEG ---------------------------------------------------------------------
+
+
+def _cuda_lib_dir():
+    """The toolkit's library directory, which holds libnvjpeg."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    lib_dir = os.path.join(CUDA_HOME or "/usr/local/cuda", "lib64")
+    if not os.path.exists(os.path.join(lib_dir, "libnvjpeg.so")):
+        raise RuntimeError(f"no libnvjpeg.so in {lib_dir}: the nvJPEG route cannot build")
+    return lib_dir
+
+
+def _nvjpeg_libs(lib_dir):
+    return (f"-L{lib_dir}", "-lnvjpeg")
+
+
+@functools.cache
+def _nvjpeg_lib():
+    """The decoder's library, built if needed, its functions typed once.
+    libnvjpeg is loaded first from the toolkit's directory, so the
+    library's dependency resolves without a search path."""
+    lib_dir = _cuda_lib_dir()
+    ctypes.CDLL(os.path.join(lib_dir, "libnvjpeg.so"), mode=ctypes.RTLD_GLOBAL)
+    lib = cuda_build.load_library(NVJPEG_SOURCE, libs=_nvjpeg_libs(lib_dir))
+    lib.nvj_create.restype = ctypes.c_void_p
+    lib.nvj_create.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.nvj_destroy.restype = None
+    lib.nvj_destroy.argtypes = [ctypes.c_void_p]
+    lib.nvj_info.restype = ctypes.c_int
+    lib.nvj_info.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+                             ctypes.POINTER(ctypes.c_int)]
+    lib.nvj_decode.restype = ctypes.c_int
+    lib.nvj_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t] + \
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    return lib
+
+
+def build_all():
+    """Build every library of this module at once (the kernel and the
+    nvJPEG decoder): {source: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lib_dir = _cuda_lib_dir()
+    with ThreadPoolExecutor(2) as ex:
+        jobs = [ex.submit(cuda_build.build, SOURCES),
+                ex.submit(cuda_build.build, [NVJPEG_SOURCE], libs=_nvjpeg_libs(lib_dir))]
+        paths = {}
+        for j in jobs:
+            paths.update(j.result())
+    return paths
+
+
+def _read(path):
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError:
+        return None
+
+
+def _supported(color_space, samplings):
+    """Whether libjpeg's JCS_RGB output is this route's: YCbCr at chroma
+    factors of 1 or 2 (4:4:4, 4:2:2, 4:4:0, 4:2:0), or grayscale.  CMYK and
+    YCCK fail in the pool too; RGB-coded and other subsamplings go to the
+    caller's Pillow path."""
+    if color_space == JCS_GRAYSCALE:
+        return len(samplings) == 1
+    return (color_space == JCS_YCBCR and len(samplings) == 3
+            and tuple(samplings[0]) == (1, 1)
+            and all(h in (1, 2) and v in (1, 2) for h, v in samplings[1:]))
+
+
+class NvjpegDecoder:
+    """JPEG batch decoder on the card, with :class:`NativeDecoder`'s
+    contract: ``decode_batch(paths, centers, pad_hw, out=None) -> (images,
+    valid_wh, offsets, ok)`` (see ``native/bindings.py``).  A file that
+    does not decode, or that libjpeg's ``JCS_RGB`` output would not give
+    through upsampling and YCbCr conversion (CMYK, RGB-coded, 4:1:1),
+    reads all zero with ``ok`` False, for the caller's Pillow path.
+
+    ``device``: "cuda" (the default; raises without CUDA), "cuda:N", or
+    "cpu" for the plain route.  A CUDA decoder decodes on its device
+    whatever thread calls it, on a stream of its own, and returns once the
+    canvas is in ``out``.  Calls are serialised (one nvJPEG state).  A failed
+    build, a CUDA error or any other nvJPEG status raises.
+
+    ``timing=True`` appends to :attr:`times` one dict a batch: ``host_ms``
+    (reading the files and nvJPEG's decode of each), ``canvas_ms`` (from
+    the decodes' end to the canvas: the descriptors' host work, their copy
+    and the kernel) and ``copy_ms`` (the canvas into ``out``), both from
+    CUDA events on the decoder's stream, and ``total_ms``.
+    """
+
+    def __init__(self, device="cuda", timing=False):
+        dev = resolve_device(device)
+        self.timing = timing
+        self.times = []
+        self._lock = threading.Lock()
+        self._ctx = None
+        if dev.type == "cpu":
+            bindings._lib()  # build now: a failed build raises here
+            self.device = dev
+            return
+        self.device = torch.device("cuda", torch.cuda.current_device()
+                                   if dev.index is None else dev.index)
+        self._lib = _nvjpeg_lib()
+        _ycc_fn()
+        status = ctypes.c_int(0)
+        with torch.cuda.device(self.device):  # restores this thread's device
+            ctx = self._lib.nvj_create(self.device.index, ctypes.byref(status))
+        if not ctx:
+            raise RuntimeError(f"nvJPEG decoder on {self.device} failed: status {status.value}")
+        self._ctx = ctx
+        self.stream = torch.cuda.Stream(self.device)
+        self._buf = None
+        self._canvas = None
+
+    def close(self):
+        if self._ctx:
+            with torch.cuda.device(self.device):
+                self._lib.nvj_destroy(self._ctx)
+            self._ctx = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """Serialised, on the decoder's device and stream."""
+        if not self._ctx:
+            raise RuntimeError("NvjpegDecoder used after close()")
+        with self._lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            yield
+
+    def decode_planes(self, paths):
+        """Each file's component planes as this route has them before the
+        canvas: (planes, samplings), per file a tuple of 2-D uint8 tensors
+        at their stored sizes and their (h, v) upsampling factors, () for a
+        file the route refuses.  On CUDA the planes are nvJPEG's, views of
+        the decoder's buffer, valid until its next call."""
+        if self.device.type == "cpu":
+            return self._planes_cpu(paths)
+        with self._on_device():
+            got = self._planes_cuda(paths)
+            self.stream.synchronize()
+        return got
+
+    def decode_batch(self, paths, centers, pad_hw, out=None):
+        n, (ph, pw), centers, out = batch_args(paths, centers, pad_hw, out)
+        if self.device.type == "cpu":
+            planes, samplings = self._planes_cpu(paths)
+            windows = _windows(planes, centers, (ph, pw))
+            ycc_canvas(planes, samplings, windows, (ph, pw), out=torch.from_numpy(out))
+            return out, *_results(windows)
+        with self._on_device():
+            t0 = time.perf_counter()
+            planes, samplings = self._planes_cuda(paths)
+            windows = _windows(planes, centers, (ph, pw))
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            if self.timing:
+                marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                marks[0].record(self.stream)
+            canvas = ycc_canvas_cuda(planes, samplings, windows, (ph, pw),
+                                     out=self._canvas_for((n, ph, pw, 3)))
+            if self.timing:
+                marks[1].record(self.stream)
+            # the caller's buffer is pinned on the loader's path: a DMA
+            torch.from_numpy(out).copy_(canvas, non_blocking=True)
+            if self.timing:
+                marks[2].record(self.stream)
+            self.stream.synchronize()
+        if self.timing:
+            self.times.append({"host_ms": host_ms,
+                               "canvas_ms": marks[0].elapsed_time(marks[1]),
+                               "copy_ms": marks[1].elapsed_time(marks[2]),
+                               "total_ms": 1e3 * (time.perf_counter() - t0)})
+        return out, *_results(windows)
+
+    def _planes_cpu(self, paths):
+        planes, samplings = [()] * len(paths), [()] * len(paths)
+        for i, path in enumerate(paths):
+            got = read_planes(path)
+            if got is None:
+                continue
+            color, factors, pl = got
+            hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+            samp = [(hmax // h, vmax // v) if hmax % h == 0 and vmax % v == 0 else (0, 0)
+                    for h, v in factors]
+            if _supported(color, samp):
+                planes[i] = tuple(torch.from_numpy(p) for p in pl)
+                samplings[i] = samp
+        return planes, samplings
+
+    def _buffer(self, nbytes):
+        """The planes' device buffer, grown as needed (used on this
+        decoder's stream only, and idle between calls)."""
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = None
+            self._buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=self.device)
+        return self._buf
+
+    def _canvas_for(self, shape):
+        if self._canvas is None or tuple(self._canvas.shape) != shape:
+            self._canvas = None
+            self._canvas = torch.empty(shape, dtype=torch.uint8, device=self.device)
+        return self._canvas
+
+    def _planes_cuda(self, paths):
+        """Read the files, parse their headers, lay their planes out in the
+        buffer (rows padded to PITCH_ALIGN) and decode each with nvJPEG on
+        the decoder's stream (``nvj_decode`` waits for each file: nvJPEG's
+        next host phase reuses the state's pinned buffer)."""
+        lib, n = self._lib, len(paths)
+        datas = [_read(p) for p in paths]
+        info = np.zeros(11, np.int32)
+        info_p = info.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+        layout, at = [None] * n, 0  # per file: (samplings, [(w, h, pitch, offset)])
+        for i, data in enumerate(datas):
+            if data is None:
+                continue
+            st = lib.nvj_info(self._ctx, data, len(data), info_p)
+            if st in _FILE_STATUSES:
+                continue
+            if st != 0:
+                raise RuntimeError(f"nvjpegGetImageInfo failed on {paths[i]}: status {st}")
+            nc, hf, vf = int(info[0]), int(info[1]), int(info[2])
+            W, H = int(info[4]), int(info[7])
+            samp = [(1, 1)] + [(hf, vf)] * (nc - 1) if nc in (1, 3) else []
+            if not samp or not _supported(jpeg_color_space(data), samp):
+                continue
+            sizes = [(W, H)] + [ycc.component_size(W, H, hf, vf)] * (nc - 1)
+            got = [(int(info[4 + c]), int(info[7 + c])) for c in range(nc)]
+            if got != sizes:
+                raise RuntimeError(f"nvJPEG's component sizes {got} for {paths[i]} are not "
+                                   f"libjpeg's {sizes}")
+            if nc == 1:
+                sizes = sizes * 3  # room for the chroma planes YUV output may write
+            comps = []
+            for w, h in sizes:
+                pitch = -(-w // PITCH_ALIGN) * PITCH_ALIGN
+                comps.append((w, h, pitch, at))
+                at += pitch * h
+            layout[i] = (samp, comps)
+        buf = self._buffer(at)
+        base = buf.data_ptr()
+        planes, samplings = [()] * n, [()] * n
+        for i, lay in enumerate(layout):
+            if lay is None:
+                continue
+            samp, comps = lay
+            st = lib.nvj_decode(self._ctx, datas[i], len(datas[i]),
+                                *[base + off for *_, off in comps],
+                                *[pitch for _, _, pitch, _ in comps], self.stream.cuda_stream)
+            if st in _FILE_STATUSES:
+                continue
+            if st != 0:
+                raise RuntimeError(f"nvjpegDecode failed on {paths[i]}: status {st}")
+            planes[i] = tuple(buf[off:off + pitch * h].view(h, pitch)[:, :w]
+                              for w, h, pitch, off in comps[:len(samp)])
+            samplings[i] = samp
+        return planes, samplings
+
+
+def _windows(planes, centers, pad_hw):
+    """(N, 4) int64 crop windows of the decoded files, zero for the others."""
+    windows = np.zeros((len(planes), 4), np.int64)
+    for i, pl in enumerate(planes):
+        if pl:
+            H, W = pl[0].shape
+            windows[i] = ycc.crop_window(W, H, centers[i], pad_hw)
+    return windows
+
+
+def _results(windows):
+    """(valid_wh (N, 2) int32, offsets (N, 2) int32, ok (N,) bool)."""
+    wh = np.ascontiguousarray(windows[:, 2:], np.int32)
+    offs = np.ascontiguousarray(windows[:, :2], np.int32)
+    ok = (wh > 0).all(axis=1)
+    offs[~ok] = 0
+    return wh, offs, ok

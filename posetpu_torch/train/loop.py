@@ -8,9 +8,9 @@ logs the reference's txt columns (and, with ``cfg.tensorboard``, the
 reference's TensorBoard scalars), checkpoints (best on validation
 improvement), resumes, and writes the validation predictions
 (``preds.mat``).  ``cfg.loader_backend`` picks the loader ("host":
-:class:`HostLoader`; "grain": :class:`WorkerLoader`, decode in
-``cfg.loader_workers`` processes).  The train step, pose-only or joint
-(with the agent), runs ``cfg.steps_per_dispatch`` = K steps a dispatch
+:class:`HostLoader`, which decodes with nvJPEG on CUDA; "grain":
+:class:`WorkerLoader`, Pillow in ``cfg.loader_workers`` processes).  The
+train step, pose-only or joint (with the agent), runs ``cfg.steps_per_dispatch`` = K steps a dispatch
 (:func:`posetpu_torch.train.step.make_dispatch_step`,
 :func:`posetpu_torch.train.adversarial.make_joint_dispatch_step`), on CUDA
 as one CUDA graph, K = 1 included; the validation step
@@ -129,13 +129,14 @@ def seeded_init_(module, seed):
     return module
 
 
-def loader_class(cfg):
+def loader_class(cfg, device):
     """(loader class, its extra arguments) for ``cfg.loader_backend``: the
-    reference's values, "host" or "grain"."""
+    reference's values, "host" or "grain".  The host loader decodes on
+    ``device`` (nvJPEG on CUDA); the worker loader's processes use Pillow."""
     if cfg.loader_backend == "grain":
         return WorkerLoader, {"num_workers": cfg.loader_workers}
     if cfg.loader_backend == "host":
-        return HostLoader, {}
+        return HostLoader, {"device": device}
     raise ValueError(f"unknown loader_backend {cfg.loader_backend!r} "
                      "(expected 'host' or 'grain')")
 
@@ -183,7 +184,7 @@ class Experiment:
         self.group = _process_group(rank, world)
         self.is_main = rank == 0
         self.K = max(1, int(cfg.steps_per_dispatch))
-        loader_cls, loader_kw = loader_class(cfg)
+        loader_cls, loader_kw = loader_class(cfg, self.device)
         if self.group is not None:
             loader_kw["shard"] = (rank, world)
         self.train_ds = build_dataset(cfg, "train")
