@@ -22,11 +22,14 @@ Phases, each printing one JSON line:
              differing samples; the gap must stay within NVJPEG_PLANE_GAP);
              the ycc_canvas kernel against its plain version on nvJPEG's own
              planes, exactly, one launch a batch, at the loader's canvas and
-             at crops with centers near every edge; the whole route against
-             Pillow's load_sample (images within NVJPEG_LSB, windows
-             exactly, no Pillow fallback); the kernel timed beside its bound
-             and the write floor, the decode of a batch (host ms, kernel
-             and copy-back ms, img/s)
+             at crops with centers near every edge, then on the planes
+             copied into misaligned rows of odd pitch, at odd window offsets
+             and with (0, 0) slots (also into a canvas of odd width); the
+             whole route against Pillow's load_sample (images within
+             NVJPEG_LSB, windows exactly, no Pillow fallback); the kernel
+             alone and through its wrapper timed beside its bound and the
+             write floor, the decode of a batch (host ms, the wrapper's host
+             ms, canvas and copy-back ms, img/s)
   serve      PosePredictor at the full hg8_mpii width (seeded random
              weights, bf16): predict_iter(depth=2) over 4 batches of 32
              through the CUDA graph of their shape, bit for bit equal to the
@@ -591,6 +594,8 @@ NVJPEG_LSB = NVJPEG_PLANE_GAP + max(
 NVJPEG_SMALL = (("444", 97, 131), ("422", 50, 61), ("440", 31, 45), ("420", 161, 121),
                 ("gray", 33, 17), ("420", 3, 2), ("422", 4, 5))
 NVJPEG_PADS = (LOADER_PAD, (400, 600), (64, 48))  # the loader's, then crops
+# a canvas whose rows start at every byte offset (pw * 3 = 999 bytes)
+NVJPEG_ODD_PAD = (45, 333)
 # integer operations of one output pixel of a 3-component file: two h2v2
 # upsamplings (2 column sums of a multiply and an add, 3 more ops to
 # combine, a shift: 8 each), the two -128s, and the conversion (R 6, G 8,
@@ -658,6 +663,26 @@ def _pillow_planes(path):
     return [arr[..., c] for c in range(3)]
 
 
+def _misaligned(p):
+    """Plane ``p`` copied into rows of an odd pitch that start 1 byte past a
+    16-byte boundary: a (h, w) view."""
+    h, w = p.shape
+    pitch = w + 1 + (w % 2)  # odd
+    buf = torch.empty(1 + pitch * h, dtype=torch.uint8, device=p.device)
+    view = buf[1:].view(h, pitch)[:, :w]
+    view.copy_(p)
+    check(view.data_ptr() % 16 == 1 and view.stride(0) % 2 == 1, "misaligned plane layout")
+    return view
+
+
+def _odd_window(rng, w, h, pad_hw):
+    """A window of a w x h image at odd offsets (x and y, where the image
+    has room), inside the canvas."""
+    ox = 2 * rng.randint(0, (w - 2) // 2 + 1) + 1 if w > 1 else 0
+    oy = 2 * rng.randint(0, (h - 2) // 2 + 1) + 1 if h > 1 else 0
+    return ox, oy, min(w - ox, pad_hw[1]), min(h - oy, pad_hw[0])
+
+
 def _ycc_bound(planes, n, pad_hw, valid_pixels):
     """Least time for ycc_canvas's work: the planes read once and the
     canvas written once, against its integer operations at the card's
@@ -671,10 +696,12 @@ def _ycc_bound(planes, n, pad_hw, valid_pixels):
 def phase_nvjpeg(workdir):
     """The nvJPEG route on the card: nvJPEG's planes against Pillow's
     YCbCr decode, the ycc_canvas kernel against its plain version on those
-    planes (exactly, one launch a batch), the whole route against Pillow's
-    load_sample (within NVJPEG_LSB, windows exactly, every file decoded),
-    then the kernel timed beside its bound and the write floor, and the
-    decode of the loader's batch (host ms, kernel and copy-back ms)."""
+    planes and on misaligned rows, odd offsets and (0, 0) slots (exactly,
+    one launch a batch), the whole route against Pillow's load_sample
+    (within NVJPEG_LSB, windows exactly, every file decoded), then the
+    kernel alone and through its wrapper timed beside its bound and the
+    write floor, and the decode of the loader's batch (host ms, the
+    wrapper's host ms, canvas and copy-back ms)."""
     root = os.path.join(workdir, "nvjpeg")
     make_synthetic_dataset(root, num_train=BATCH, num_val=0, res=LOADER_RES, seed=SEED)
     ds = MpiiDataset(os.path.join(root, "annotations.json"), os.path.join(root, "images"),
@@ -741,6 +768,41 @@ def phase_nvjpeg(workdir):
             cases.append({"files": name, "pad_hw": list(pad), "max_abs_err": err,
                           "cropped": int((windows[:, :2] > 0).any(axis=1).sum())})
 
+    # the kernel against its plain version where rows, windows and slots are
+    # not the decoder's: planes in rows of odd pitch from a base 1 byte off
+    # a 16-byte boundary, windows at odd offsets, (0, 0) slots (every third,
+    # with and without planes), at every pad and at one whose rows start at
+    # every byte offset
+    for name, batch in sets.items():
+        planes, samplings = dec.decode_planes(batch)
+        moved = [tuple(_misaligned(p) for p in pl) for pl in planes]
+        rng = np.random.RandomState(SEED + 1)
+        for pad in (*NVJPEG_PADS, NVJPEG_ODD_PAD):
+            centers = np.array([[0.3 * w, 0.7 * h] for w, h in sizes[name]], np.float32)
+            crops = np.array([ycc.crop_window(w, h, c, pad) for (w, h), c in
+                              zip(sizes[name], centers)], np.int64)
+            odd = np.array([_odd_window(rng, w, h, pad) for w, h in sizes[name]], np.int64)
+            zero = odd.copy()
+            zero[::3] = 0
+            holes = [() if i % 6 == 3 else pl for i, pl in enumerate(moved)]
+            for variant, pl_set, wins in (("misaligned_rows", moved, crops),
+                                          ("odd_offsets", planes, odd),
+                                          ("zero_slots", holes, zero)):
+                before = nvjpeg.LAUNCHES["ycc_canvas"]
+                got = nvjpeg.ycc_canvas(pl_set, samplings, wins, pad)
+                torch.cuda.synchronize()
+                check(nvjpeg.LAUNCHES["ycc_canvas"] == before + 1,
+                      "the ycc_canvas wrapper did not launch its kernel once")
+                want = torch.stack([ycc.window_canvas(pl, s, w, pad) if pl
+                                    else torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
+                                    for pl, s, w in zip(pl_set, samplings, wins)])
+                err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+                check(torch.equal(got, want), f"ycc_canvas {name} {pad} {variant}: "
+                                              f"max abs err {err}")
+                cases.append({"files": name, "pad_hw": list(pad), "variant": variant,
+                              "max_abs_err": err, "zero_slots": int((wins[:, 2] == 0).sum())})
+        del moved, holes
+
     # the whole route against Pillow's canvas
     route_lsb, fallbacks = 0, 0
     for name, batch in sets.items():
@@ -768,16 +830,28 @@ def phase_nvjpeg(workdir):
     windows = np.array([ycc.crop_window(pl[0].shape[1], pl[0].shape[0], c, pad)
                         for pl, c in zip(planes, centers)], np.int64)
     out = torch.empty((BATCH, *pad, 3), dtype=torch.uint8, device="cuda")
+    # the kernel alone, its descriptors already on the card
+    desc = torch.from_numpy(nvjpeg._descriptors(planes, samplings, windows, pad,
+                                                out.device)).cuda()
+    fn, stream = nvjpeg._ycc_fn(), torch.cuda.current_stream().cuda_stream
+    out.fill_(7)
+    check(fn(desc.data_ptr(), BATCH, *pad, out.data_ptr(), stream) == 0, "ycc_canvas launch")
+    alone = out.clone()
+    ms = cuda_ms(lambda: fn(desc.data_ptr(), BATCH, *pad, out.data_ptr(), stream))
+    # the wrapper: its checks, the descriptors, their staging and copy, the
+    # launch (a call's host waits for the kernel of the call nvjpeg.STAGING_SLOTS
+    # before it, so back to back this reads the host's time where it is longer)
     before = nvjpeg.LAUNCHES["ycc_canvas"]
-    ms = cuda_ms(lambda: nvjpeg.ycc_canvas(planes, samplings, windows, pad, out=out))
+    wrapper_ms = cuda_ms(lambda: nvjpeg.ycc_canvas(planes, samplings, windows, pad, out=out))
     check(nvjpeg.LAUNCHES["ycc_canvas"] > before, "ycc_canvas did not launch")
+    check(torch.equal(out, alone), "the kernel alone and through its wrapper differ")
     plain_ms = cuda_ms(lambda: torch.stack([ycc.window_canvas(pl, s, w, pad) for pl, s, w
                                             in zip(planes, samplings, windows)]),
                        reps=2, samples=5)
     floor_ms = cuda_ms(out.zero_)
     valid = int(windows[:, 2].astype(np.int64) @ windows[:, 3])
     nbytes, ops, bound_ms, bound_by = _ycc_bound(planes, BATCH, pad, valid)
-    del out, planes
+    del out, planes, desc, alone
 
     # the route at the loader's batch: host phase, kernel and copy back
     pinned = torch.empty((BATCH, *pad, 3), dtype=torch.uint8, pin_memory=True)
@@ -793,11 +867,13 @@ def phase_nvjpeg(workdir):
          planes_equal_on_a_busy_stream=busy_equal,
          route_max_lsb_vs_pillow=route_lsb, route_bound_lsb=NVJPEG_LSB,
          pillow_fallbacks=fallbacks, kernel_cases=cases,
-         kernel={"batch": BATCH, "pad_hw": list(pad), "ms": ms, "plain_ms": plain_ms,
-                 "write_floor_ms": floor_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                 "bytes": nbytes, "operations": ops},
+         kernel={"batch": BATCH, "pad_hw": list(pad), "ms": ms, "wrapper_ms": wrapper_ms,
+                 "plain_ms": plain_ms, "write_floor_ms": floor_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                 "gb_per_s": nbytes / ms / 1e6, "bytes": nbytes, "operations": ops},
          decode_ms_per_batch=[t["total_ms"] for t in timed],
          host_ms_per_batch=[t["host_ms"] for t in timed],
+         desc_ms_per_batch=[t["desc_ms"] for t in timed],
          canvas_ms_per_batch=[t["canvas_ms"] for t in timed],
          copy_back_ms_per_batch=[t["copy_ms"] for t in timed],
          img_per_s=[BATCH * 1e3 / t["total_ms"] for t in timed])
@@ -810,6 +886,7 @@ def phase_nvjpeg(workdir):
         "launches": None,  # filled from fit_nvjpeg
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": ms,
+        "wrapper_ms": wrapper_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

@@ -1,6 +1,7 @@
 """Count the SASS instructions of the port's kernels on a CUDA machine.
 
     python -m posetpu_torch.tools.sass_report [SOURCE.cu ...] [--out DIR]
+        [--path START STOP [--taken ADDR ...]]
 
 Builds each source (default: every kernel source of the port) with the
 port's ``nvcc`` flags, disassembles the library with ``cuobjdump -sass``
@@ -9,7 +10,10 @@ loops (each backward branch, with the instructions between its target and
 itself) and its basic blocks (address range, instruction count, last
 instruction).  With ``--out`` the full listing of each
 library is written there as ``<library>.sass``.  Reading the blocks on a
-kernel's path gives the instructions one pixel costs.
+kernel's path gives the instructions one pixel costs; ``--path START STOP
+[--taken ADDR ...]`` counts them along one path through the listing (the
+branches named taken, every other conditional branch falling through),
+in all and by opcode.
 """
 
 from __future__ import annotations
@@ -19,9 +23,14 @@ import json
 import os
 import re
 import subprocess
+from collections import Counter
 
 from posetpu_torch.aug import cuda_kernels
+from posetpu_torch.native import nvjpeg
 from posetpu_torch.utils import cuda_build
+
+# every kernel source of the port built with cuda_build.NVCC_FLAGS alone
+SOURCES = (*cuda_kernels.SOURCES, *nvjpeg.SOURCES)
 
 _FUNCTION = re.compile(r"Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -71,6 +80,45 @@ def blocks(instructions):
     return [tuple(b) for b in out]
 
 
+def path(instructions, start, stop, taken=()):
+    """The instructions issued on one path through a function's listing,
+    from address ``start`` through ``stop``: an unconditional branch is
+    followed, a conditional one (a predicate, or a modifier such as
+    ``.DIV``) is taken where its address is in ``taken`` and falls through
+    elsewhere.  Raises ValueError if the path runs off the listing or
+    loops."""
+    at = {a: i for i, (a, _) in enumerate(instructions)}
+    if start not in at or stop not in at:
+        raise ValueError(f"no instruction at {start:#x} or {stop:#x}")
+    i, issued = at[start], []
+    while True:
+        addr, ins = instructions[i]
+        issued.append(ins)
+        if addr == stop:
+            return issued
+        if len(issued) > len(instructions):
+            raise ValueError(f"the path from {start:#x} loops")
+        words = ins.split()
+        if _opcode(ins) == "EXIT" and not words[0].startswith("@"):
+            raise ValueError(f"the path exits at {addr:#x} before {stop:#x}")
+        target = _target(ins) if _opcode(ins) == "BRA" else None
+        if target is not None:
+            conditional = words[0].startswith("@") or words[0] != "BRA" or len(words) > 2
+            if not conditional or addr in taken:
+                if target not in at:
+                    raise ValueError(f"branch to {target:#x} outside the listing")
+                i = at[target]
+                continue
+        i += 1
+        if i == len(instructions):
+            raise ValueError(f"the path from {start:#x} runs off the listing")
+
+
+def path_length(instructions, start, stop, taken=()):
+    """The number of instructions :func:`path` issues."""
+    return len(path(instructions, start, stop, taken))
+
+
 def summarize(functions):
     out = []
     for name, instructions in functions.items():
@@ -97,11 +145,22 @@ def _cuobjdump():
     return os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
 
 
-def main(argv=None):
+def parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sources", nargs="*", default=list(cuda_kernels.SOURCES))
+    ap.add_argument("sources", nargs="*", default=list(SOURCES))
     ap.add_argument("--out", help="directory for the full listings")
-    args = ap.parse_args(argv)
+    ap.add_argument("--path", nargs=2, metavar=("START", "STOP"),
+                    help="also count the instructions from address START through STOP "
+                         "(hex), in each function whose listing holds both")
+    ap.add_argument("--taken", nargs="*", default=[], metavar="ADDR",
+                    help="conditional branches (hex addresses) the path takes")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    span = [int(a, 16) for a in args.path] if args.path else None
+    taken = {int(a, 16) for a in args.taken}
     libs = cuda_build.build(args.sources)
     for src in args.sources:
         text = subprocess.run(
@@ -113,7 +172,15 @@ def main(argv=None):
             name = os.path.basename(libs[src]) + ".sass"
             with open(os.path.join(args.out, name), "w") as f:
                 f.write(text)
-        for entry in summarize(parse_sass(text)):
+        functions = parse_sass(text)
+        for entry in summarize(functions):
+            addresses = {a for a, _ in functions[entry["function"]]}
+            if span and set(span) <= addresses:
+                issued = path(functions[entry["function"]], *span, taken)
+                entry["path"] = {"from": f"{span[0]:#06x}", "to": f"{span[1]:#06x}",
+                                 "taken": sorted(f"{a:#06x}" for a in taken),
+                                 "instructions": len(issued),
+                                 "opcodes": dict(Counter(map(_opcode, issued)).most_common())}
             print(json.dumps({"source": src, **entry}), flush=True)
 
 

@@ -10,8 +10,9 @@ reached is 0: every canvas equals Pillow's exactly (the reference's own pool
 is held to 2.5 LSB, tests/test_native.py).  Crop windows equal the JAX
 package's ``NativeDecoder`` and ``load_sample`` exactly.
 
-Cases marked ``cuda`` hold the ycc_canvas kernel to its plain version and
-the card's route to Pillow (within chip_smoke's NVJPEG_LSB); they skip
+Cases marked ``cuda`` hold the ycc_canvas kernel to its plain version (on
+nvJPEG's planes, and on random planes of every layout in misaligned rows)
+and the card's route to Pillow (within chip_smoke's NVJPEG_LSB); they skip
 without a card: ``python -m pytest --noconftest tests/test_torch_nvjpeg.py
 -m cuda`` on the card.
 """
@@ -335,9 +336,190 @@ def test_ycc_canvas_cpu_is_the_plain_version_and_refuses_bad_input(libjpeg, file
         nvjpeg.ycc_canvas_cuda([planes], [sampling], windows[:1], (32, 48))
 
 
+# every component layout the kernel takes: the luma's (1, 1), then each
+# chroma plane's (h, v); the last two mix factors between the chroma planes
+LAYOUTS = {"444": [(1, 1)] * 3, "422": [(1, 1), (2, 1), (2, 1)],
+           "440": [(1, 1), (1, 2), (1, 2)], "420": [(1, 1), (2, 2), (2, 2)],
+           "gray": [(1, 1)], "420/440": [(1, 1), (2, 2), (1, 2)],
+           "422/444": [(1, 1), (2, 1), (1, 1)]}
+# image sizes: chroma 1 or 2 samples wide at h = 2 (replicated), odd sizes,
+# wider than the kernel's 256-column tiles
+SIZES = ((1, 1), (3, 2), (4, 5), (33, 17), (161, 121), (300, 20), (520, 19))
+# canvases: pw a multiple of 16 (rows on 16-byte boundaries), pw % 16 == 8,
+# odd (rows off 4-byte alignment), across two and three column tiles
+KERNEL_PADS = ((40, 48), (24, 600), (17, 53), (9, 261), (121, 530))
+
+
+def _plane_in(arr, device, extra=0, base=0):
+    """``arr`` (h, w) uint8 in rows of pitch w + ``extra`` bytes, the first
+    row ``base`` bytes past an allocation's (16-byte aligned) start: a
+    (h, w) view."""
+    h, w = arr.shape
+    pitch = w + extra
+    buf = torch.zeros(base + pitch * h + 16, dtype=torch.uint8, device=device)
+    view = buf[base:base + pitch * h].view(h, pitch)[:, :w]
+    view.copy_(torch.from_numpy(arr))
+    return view
+
+
+def _random_batch(rng, device, pad_hw, misaligned):
+    """Random planes of every layout and size, each with a random window
+    inside the image and the canvas (odd offsets among them), then a slot
+    with planes and a (0, 0) window and a slot without planes.  With
+    ``misaligned`` the rows have odd pitches and bases off 16-byte
+    alignment."""
+    ph, pw = pad_hw
+    planes, samplings, windows = [], [], []
+    for samp in LAYOUTS.values():
+        for W, H in SIZES:
+            pl = []
+            for hf, vf in samp:
+                w, h = ycc.component_size(W, H, hf, vf)
+                # the extremes too, so the conversion clamps
+                arr = rng.choice([0, 1, 127, 128, 254, 255, *range(256)], (h, w)).astype(np.uint8)
+                pl.append(_plane_in(arr, device, 2 * rng.randint(0, 20) + 1, rng.randint(1, 16))
+                          if misaligned else _plane_in(arr, device))
+            vw, vh = rng.randint(1, min(W, pw) + 1), rng.randint(1, min(H, ph) + 1)
+            planes.append(tuple(pl))
+            samplings.append(samp)
+            windows.append((rng.randint(0, W - vw + 1), rng.randint(0, H - vh + 1), vw, vh))
+    planes += [planes[0], ()]
+    samplings += [samplings[0], ()]
+    windows += [(0, 0, 0, 0)] * 2
+    return planes, samplings, np.array(windows, np.int64)
+
+
+def test_descriptors_are_the_documented_words():
+    """ycc_canvas.cu's descriptor, word for word, for every layout, odd
+    pitches and bases, grayscale, and (0, 0) windows (with and without
+    planes: an all-zero row)."""
+    planes, samplings, windows = _random_batch(np.random.RandomState(3), "cpu", (121, 530),
+                                               misaligned=True)
+    desc = nvjpeg._descriptors(planes, samplings, windows, (121, 530), torch.device("cpu"))
+    assert desc.dtype == np.int64 and desc.shape == (len(planes), nvjpeg.DESC_WORDS)
+    assert {len(pl) for pl in planes} == {0, 1, 3}
+    assert any(w[0] % 2 and w[1] % 2 for w in windows)
+    for d, pl, samp, win in zip(desc, planes, samplings, windows):
+        want = [0] * nvjpeg.DESC_WORDS
+        if win[2] > 0:
+            for c, (p, (hf, vf)) in enumerate(zip(pl, samp)):
+                want[c], want[3 + c] = p.data_ptr(), p.stride(0)
+                want[6 + c], want[9 + c] = p.shape[1], p.shape[0]
+                want[12 + c], want[15 + c] = hf, vf
+            want[18] = len(pl)
+            want[19:23] = win.tolist()
+        assert d.tolist() == want
+
+
+def test_ycc_canvas_refuses_what_the_kernel_does_not_take():
+    """Every input the kernel's wrapper refuses, checked without a card."""
+    cpu = torch.device("cpu")
+    planes, samplings, windows = _random_batch(np.random.RandomState(4), "cpu", (40, 48), False)
+    i = list(LAYOUTS).index("420") * len(SIZES) + SIZES.index((33, 17))
+    pl, samp, win = list(planes[i]), samplings[i], windows[i:i + 1]
+
+    def refused(match, pl=pl, samp=samp, win=win, device=cpu):
+        with pytest.raises(ValueError, match=match):
+            nvjpeg._descriptors([tuple(pl)], [samp], win, (40, 48), device)
+
+    nvjpeg._descriptors([tuple(pl)], [samp], win, (40, 48), cpu)  # the unchanged inputs pass
+    refused("bad planes/sampling", pl=pl[:2], samp=samp[:2])
+    refused("bad planes/sampling", samp=samp[:2])
+    refused("bad planes/sampling", samp=[(2, 1)] + samp[1:])
+    refused("one CUDA device", device=torch.device("cuda", 0))
+    refused("2-D uint8", pl=[pl[0]] + [pl[1].to(torch.int16), pl[2]])
+    refused("2-D uint8", pl=[pl[0][None]] + pl[1:])
+    refused("2-D uint8", pl=[pl[0]] + [torch.zeros(9, 34, dtype=torch.uint8)[:, ::2], pl[2]])
+    refused("upsampling factors", samp=[(1, 1), (3, 2), (2, 2)])
+    refused("component of shape", pl=[pl[0], pl[1][:, :-1], pl[2]])
+    for bad in ([-1, 0, 5, 5], [0, 0, 34, 17], [30, 0, 4, 5], [0, 14, 5, 4]):
+        refused("outside", win=np.array([bad]))
+    # a window inside its image but wider than the canvas
+    wide = [torch.zeros(9, 60, dtype=torch.uint8), *(torch.zeros(5, 30, dtype=torch.uint8),) * 2]
+    nvjpeg._descriptors([tuple(wide)], [samp], np.array([[0, 0, 48, 9]]), (40, 48), cpu)
+    refused("outside", pl=wide, win=np.array([[0, 0, 49, 9]]))
+    # a (0, 0) window's planes are not read, so not checked
+    nvjpeg._descriptors([(torch.zeros(3, dtype=torch.int16),)], [()], np.zeros((1, 4)), (4, 4), cpu)
+    with pytest.raises(ValueError, match="CUDA"):
+        nvjpeg.ycc_canvas_cuda([tuple(pl)], [samp], win, (40, 48))
+    for out in (torch.zeros(1, 40, 48, 3), torch.zeros(1, 40, 47, 3, dtype=torch.uint8),
+                torch.zeros(1, 48, 40, 3, dtype=torch.uint8).transpose(1, 2)):
+        with pytest.raises(ValueError, match="out must be"):
+            nvjpeg._canvas_out(out, (1, 40, 48, 3), cpu)
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad_hw", KERNEL_PADS)
+def test_cuda_kernel_equals_the_plain_version_on_every_layout_and_alignment(pad_hw):
+    """On the card: random planes of every layout and size, in rows with
+    and without odd pitches and bases off 16-byte alignment, windows with
+    odd offsets and (0, 0) slots, into canvases whose rows start anywhere:
+    the kernel against the plain version bit for bit, one launch a batch."""
+    _cuda()
+    rng = np.random.RandomState(pad_hw[1])
+    for misaligned in (False, True):
+        planes, samplings, windows = _random_batch(rng, "cuda", pad_hw, misaligned)
+        before = nvjpeg.LAUNCHES["ycc_canvas"]
+        got = nvjpeg.ycc_canvas(planes, samplings, windows, pad_hw)
+        torch.cuda.synchronize()
+        assert nvjpeg.LAUNCHES["ycc_canvas"] == before + 1
+        for i, (pl, samp, win) in enumerate(zip(planes, samplings, windows)):
+            want = ycc.window_canvas(pl, samp, win, pad_hw) if pl else torch.zeros_like(got[i])
+            assert torch.equal(got[i], want), (i, samp, win.tolist(), misaligned)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_reuses_its_pinned_descriptors_safely():
+    """On the card: back-to-back calls on a stream held by a sleep kernel,
+    and calls from two threads on their own streams, each with its own
+    windows: every canvas is its own call's (no slot of pinned descriptors
+    is rewritten before its copy and its kernel have run)."""
+    import threading
+
+    _cuda()
+    pad = (40, 48)
+    planes, samplings, windows = _random_batch(np.random.RandomState(7), "cuda", pad, True)
+    rng = np.random.RandomState(8)
+    calls = []
+    for _ in range(6):
+        w = windows.copy()
+        w[:, 2:] = np.maximum(w[:, 2:] - rng.randint(0, 3, w[:, 2:].shape), 0) * (w[:, 2:] > 0)
+        calls.append(w)
+
+    def want(w):
+        return torch.stack([ycc.window_canvas(pl, s, x, pad) if pl and x[2] > 0 and x[3] > 0
+                            else torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
+                            for pl, s, x in zip(planes, samplings, w)])
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(50_000_000)
+        outs = [nvjpeg.ycc_canvas(planes, samplings, w, pad) for w in calls]
+    stream.synchronize()
+    for w, got in zip(calls, outs):
+        assert torch.equal(got, want(w))
+
+    results = {}
+
+    def worker(k):
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            results[k] = [nvjpeg.ycc_canvas(planes, samplings, w, pad) for w in calls[k::2]]
+        s.synchronize()
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for k in range(2):
+        for w, got in zip(calls[k::2], results[k]):
+            assert torch.equal(got, want(w))
 
 
 @pytest.mark.cuda
