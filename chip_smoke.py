@@ -15,6 +15,17 @@ Phases, each printing one JSON line:
              (exactly, for the rasterizer, on random and edge points), and
              both timed with CUDA events beside the card's write floor at
              the main path's shape and at one beyond the L2
+  bench      every mode of python -m posetpu_torch.bench at full width with
+             fewer steps and trials (the default K steps a graph,
+             --scan-stacks, --serve and --serve --pipeline 2, --joint,
+             --joint --fused at hg8_mpii_asr and hg8_lsp_aho, --loader host
+             at K = 1 and 4, --loader grain with 4 workers), each in a
+             process of its own: one JSON line and the last, every key, a
+             positive rate, 0 <= idle < 1, the device phase's nvidia-smi
+             line; the rasterizer launched in every mode's timed window but
+             serving's, and on the host loader one ycc_canvas launch in the
+             window for every batch it took, give or take the loader's
+             prefetch
   nvjpeg     the card's decode route on 32 of the loader phase's 1280x720
              frames (quality 92, 4:2:0) and small odd-sized files at 4:4:4,
              4:2:2, 4:4:0, 4:2:0 and gray: nvJPEG's planes, upsampled by the
@@ -198,7 +209,7 @@ Then ``processes``: the worker loaders' server and resource tracker are
 stopped (the script waits for both), and anything else the run started
 that still runs is ended and fails the run.  Then the kernel summary line
 (the rasterizer's launches from validate, ycc_canvas's from fit_nvjpeg, and
-both by path), the nvidia-smi line, and last
+both by path, the bench's modes as bench_<mode>), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure
 raises (non-zero exit, no final line); without CUDA it exits non-zero at
 once.  Nothing falls back to the CPU or to a plain version.
@@ -550,6 +561,94 @@ def phase_kernels():
     emit("kernels", cases=len(cases), max_abs_err=max_err,
          cases_detail=cases, shapes=shapes)
     return summary
+
+
+# bench: every mode of python -m posetpu_torch.bench at full width, with
+# fewer steps and trials than its defaults, each in a process of its own
+BENCH_MODES = (
+    ("default", ["--steps", "4", "--trials", "1"]),
+    ("scan_stacks", ["--scan-stacks", "--steps", "2", "--trials", "1"]),
+    ("serve", ["--serve", "--steps", "5", "--warmup", "1"]),
+    ("serve_pipeline", ["--serve", "--pipeline", "2", "--steps", "5", "--warmup", "1"]),
+    ("joint", ["--joint", "--steps", "2", "--warmup", "1"]),
+    ("joint_fused", ["--joint", "--fused", "--steps", "2", "--trials", "1"]),
+    ("joint_fused_lsp", ["--joint", "--fused", "--config", "hg8_lsp_aho", "--steps", "2",
+                         "--trials", "1"]),
+    ("loader_host", ["--loader", "host", "--steps", "8", "--warmup", "1"]),
+    ("loader_host_k4", ["--loader", "host", "--k-per-dispatch", "4", "--steps", "20",
+                        "--warmup", "1"]),
+    ("loader_grain", ["--loader", "grain", "--loader-workers", "4", "--steps", "4",
+                      "--warmup", "1"]),
+)
+BENCH_TIMEOUT = 180  # seconds a mode's process may take
+# the keys of the bench's line in every mode (the loader modes add theirs)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "trials", "device_ms", "idle",
+              "device_clock", "peak_gb", "capture_s", "batch", "stacks", "feats", "res",
+              "steps", "K", "config", "launches", "device", "gpu"}
+BENCH_LOADER_KEYS = {"backend", "workers", "loader_batches", "prefetch", "loader_wait_ms",
+                     "loader_wait_s", "host_ms", "canvas_ms", "copy_ms"}
+
+
+def _bench_line(stdout):
+    """The bench's result: the last line of its standard output, the only
+    one that is a JSON object."""
+    lines = stdout.strip().splitlines()
+    objects = []
+    for ln in lines:
+        with contextlib.suppress(ValueError):
+            if isinstance(json.loads(ln), dict):
+                objects.append(ln)
+    check(len(objects) == 1 and lines and objects[0] == lines[-1],
+          f"bench printed {len(objects)} JSON lines, the last line {lines[-1:]}")
+    return json.loads(lines[-1])
+
+
+def phase_bench(smi, workdir):
+    """Every mode of ``python -m posetpu_torch.bench`` (BENCH_MODES) in a
+    process of its own, its temp directory (the loader modes' synthetic
+    split) in ``workdir``: exit code 0, one JSON line and the last, every
+    key, a positive rate, 0 <= idle < 1, the card's nvidia-smi line, the
+    rasterizer launched in the timed window of every mode but serving
+    (none there), and on the host loader the window's ycc_canvas launches
+    within the superbatches decoded ahead (``prefetch`` + 1) of the batches
+    it took.  Returns {mode: launches}."""
+    torch.cuda.empty_cache()  # the modes' processes share the card with this one
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    env["TMPDIR"] = workdir
+    out = {}
+    for name, argv in BENCH_MODES:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "posetpu_torch.bench", *argv], cwd=REPO,
+                             env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        check(run.returncode == 0,
+              f"bench {name} exited {run.returncode}: {run.stderr[-3000:]}")
+        line = _bench_line(run.stdout)
+        emit("bench", mode=name, argv=argv, seconds=seconds, line=line,
+             stderr=run.stderr.strip().splitlines()[-4:])
+        loader = name.startswith("loader")
+        missing = (BENCH_KEYS | (BENCH_LOADER_KEYS if loader else set())) - set(line)
+        check(not missing, f"bench {name}: keys missing {sorted(missing)}")
+        check(line["value"] > 0 and line["unit"] == "images/sec/chip",
+              f"bench {name}: {line['value']} {line['unit']}")
+        check(0 <= line["idle"] < 1, f"bench {name}: idle {line['idle']}")
+        check(line["gpu"] == smi, f"bench {name}: gpu {line['gpu']!r}, want {smi!r}")
+        raster = line["launches"]["rasterize_gaussians"]
+        if name.startswith("serve"):
+            check(raster == 0, f"bench {name}: the rasterizer launched {raster} times")
+        else:
+            check(raster > 0, f"bench {name}: the rasterizer never launched")
+        if name.startswith("loader_host"):
+            check(line["backend"] == "nvjpeg", f"bench {name}: decoded by {line['backend']}")
+            # the window's launches: one a batch decoded in it, which is a
+            # batch it took, give or take the superbatches decoded ahead
+            ahead = (line["prefetch"] + 1) * line["K"]
+            taken, ycc = line["loader_batches"], line["launches"]["ycc_canvas"]
+            check(taken - ahead > 0 and taken - ahead <= ycc <= taken + ahead,
+                  f"bench {name}: {ycc} ycc_canvas launches for {taken} batches taken, "
+                  f"{ahead} decoded ahead at most")
+        out[name] = line["launches"]
+    return out
 
 
 # loader: MPII's own image size and a synthetic split of it; the pre-pad
@@ -3934,7 +4033,7 @@ def main():
     smi = phase_device()
     at_start = set(_processes())
     try:
-        kernels = _run_phases()
+        kernels = _run_phases(smi)
     finally:
         left = phase_processes(at_start)
     emit("processes", left_running=left)
@@ -3949,10 +4048,15 @@ def main():
     return 0
 
 
-def _run_phases():
+def _run_phases(smi):
     """Every phase after ``device``; returns the kernel summaries."""
     phase_build()
     raster = phase_kernels()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        bench_launches = phase_bench(smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         ycc_summary = phase_nvjpeg(workdir)
@@ -4027,11 +4131,16 @@ def _run_phases():
                                   "remat": remat_launches,
                                   "ckpt_interop": ckpt_interop_launches,
                                   "profiling": profiling_launches,
-                                  "adv_gain": adv_gain_launches}
+                                  "adv_gain": adv_gain_launches,
+                                  **{f"bench_{name}": n["rasterize_gaussians"]
+                                     for name, n in bench_launches.items()}}
     ycc_summary["launches"] = ycc_fit_nvjpeg
     ycc_summary["launches_by_path"] = {"fit_nvjpeg": ycc_fit_nvjpeg, "fit": ycc_fit,
                                        "fit_joint": ycc_fit_joint,
-                                       "dp_config": ycc_dp_config}
+                                       "dp_config": ycc_dp_config,
+                                       **{f"bench_{name}": n["ycc_canvas"]
+                                          for name, n in bench_launches.items()
+                                          if name.startswith("loader_host")}}
     return [raster, ycc_summary]
 
 

@@ -17,5 +17,6 @@ the data layer and host loader (:mod:`posetpu_torch.data`) with its C++ JPEG
 pool (:mod:`posetpu_torch.native`), the epoch driver
 (:class:`posetpu_torch.train.loop.Experiment`), the command lines
 ``python -m posetpu_torch.train.cli`` and ``python -m posetpu_torch.eval.cli``,
-and data parallelism across GPUs (:mod:`posetpu_torch.parallel`).
+data parallelism across GPUs (:mod:`posetpu_torch.parallel`), and the
+bench, ``python -m posetpu_torch.bench`` (:mod:`posetpu_torch.bench`).
 """

@@ -403,6 +403,13 @@ class HostLoader:
                     raise
         self.backend = "native" if self._decoder is not None else "pil"
 
+    @property
+    def decoder(self):
+        """The decoder of the native and nvJPEG routes (``None`` on Pillow's):
+        an :class:`~posetpu_torch.native.nvjpeg.NvjpegDecoder`'s ``timing``
+        and ``times`` time each batch's decode."""
+        return self._decoder
+
     def _host_image(self):
         return getattr(self.place, "host_image", None)
 

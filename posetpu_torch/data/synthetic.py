@@ -10,9 +10,10 @@ is imported by the functions that draw, not by the module.
 from __future__ import annotations
 
 import os
+import shutil
 
 import numpy as np
-from posetpu_torch.data.schema import SampleMeta, dump_annotations
+from posetpu_torch.data.schema import SampleMeta, dump_annotations, load_annotations
 
 # canonical 16-joint MPII-order template in unit pose space (x, y)
 MPII_TEMPLATE = np.array(
@@ -213,4 +214,21 @@ def make_synthetic_dataset(
         )
     json_path = os.path.join(out_dir, "annotations.json")
     dump_annotations(samples, json_path)
+    return json_path
+
+
+def whole_group_split(root, num_images, unit, res, num_val=8):
+    """The annotation file of a synthetic train split under ``root`` of
+    whole ``unit``-image groups, at least ``num_images`` images, made
+    (again) when the one there is not such a split: a loader goes over the
+    whole split, so a split of another size would yield a ragged group
+    every epoch.  ``res`` is the frames' (W, H)."""
+    json_path = os.path.join(root, "annotations.json")
+    n_train = -(-num_images // unit) * unit
+    if os.path.exists(json_path):
+        n_have = sum(not s.is_validation for s in load_annotations(json_path))
+        if n_have < n_train or n_have % unit:
+            shutil.rmtree(root)
+    if not os.path.exists(json_path):
+        make_synthetic_dataset(root, num_train=n_train, num_val=num_val, res=res)
     return json_path

@@ -65,8 +65,9 @@ _SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:  # a loader's thread may be launching
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def jpeg_color_space(data):

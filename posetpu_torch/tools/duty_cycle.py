@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import shutil
 import tempfile
 
 # images of the split before it is rounded up to whole K x B groups
@@ -35,22 +34,11 @@ def split_root():
 
 
 def make_split(unit):
-    """The annotation file of a train split of whole ``unit``-image groups
-    (at least :data:`NUM_IMAGES`), made again when the one on disk is not
-    such a split: the loader goes over the whole split, so a split of
-    another size would yield a ragged group every epoch."""
-    from posetpu_torch.data import make_synthetic_dataset, schema
+    """The annotation file of the train split, whole ``unit``-image groups
+    of at least :data:`NUM_IMAGES` (:func:`posetpu_torch.data.synthetic.whole_group_split`)."""
+    from posetpu_torch.data.synthetic import whole_group_split
 
-    root = split_root()
-    json_path = os.path.join(root, "annotations.json")
-    n_train = -(-NUM_IMAGES // unit) * unit
-    if os.path.exists(json_path):
-        n_have = sum(not s.is_validation for s in schema.load_annotations(json_path))
-        if n_have < n_train or n_have % unit:
-            shutil.rmtree(root)
-    if not os.path.exists(json_path):
-        make_synthetic_dataset(root, num_train=n_train, num_val=8, res=IMAGE_RES)
-    return json_path
+    return whole_group_split(split_root(), NUM_IMAGES, unit, IMAGE_RES)
 
 
 def main(argv=None):

@@ -133,13 +133,17 @@ class ShapeGraphs(GraphCache):
     tensors or CUDA tensors; each keeps its dtype.  The outputs returned
     are the graph's static ones: copy them before the next call.
 
-    The captures are counted as :class:`GraphCache` counts them.
+    The captures are counted as :class:`GraphCache` counts them.  A
+    :class:`posetpu_torch.utils.profiling.DeviceTimer` set as ``timer``
+    times each call on the card: the copies in and the replay, from once
+    the host's staging is done.
     """
 
     def __init__(self, fn, weights, device):
         super().__init__()  # graphs: signature -> _ShapeGraph
         self.fn, self.weights, self.dev = fn, weights, device
         self.pool = None
+        self.timer = None
 
     def __call__(self, inputs):
         inputs = {n: _as_tensor(v) for n, v in inputs.items()}
@@ -148,26 +152,32 @@ class ShapeGraphs(GraphCache):
         g = self.graphs.get(key)
         if g is None:
             g = self.graphs[key] = self._capture(inputs)
-        self._fill(g, inputs)
+        self._fill(g, inputs, self.timer)
         g.graph.replay()
+        if self.timer is not None:
+            self.timer.stop()
         cuda_kernels.add_replay(g.launches)
         return g.out
 
-    def _fill(self, g, inputs):
-        """Copy ``inputs`` into the static buffers on the current stream."""
+    def _fill(self, g, inputs, timer=None):
+        """Copy ``inputs`` into the static buffers on the current stream:
+        host data into the staging buffers first, then every copy to the
+        card; ``timer`` starts between the two."""
         host = [n for n, v in inputs.items() if v.device.type == "cpu"]
         if host and g.copied is not None:
             g.copied.synchronize()  # the previous copy out of the staging buffers
-        for n, v in inputs.items():
-            if v.device.type == "cpu":
-                stage = g.staging.get(n)
-                if stage is None:
-                    stage = g.staging[n] = torch.empty(v.shape, dtype=v.dtype,
-                                                       pin_memory=True)
-                stage.copy_(v)
-                g.static_in[n].copy_(stage, non_blocking=True)
-            else:
-                g.static_in[n].copy_(v)
+        src = dict(inputs)
+        for n in host:
+            v = inputs[n]
+            stage = g.staging.get(n)
+            if stage is None:
+                stage = g.staging[n] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            stage.copy_(v)
+            src[n] = stage
+        if timer is not None:
+            timer.start()
+        for n, v in src.items():
+            g.static_in[n].copy_(v, non_blocking=True)
         if host:
             if g.copied is None:
                 g.copied = torch.cuda.Event()

@@ -5,6 +5,8 @@
   activity where a card is present) and writes a Chrome trace
   (``chrome://tracing``, Perfetto) into a directory;
   :mod:`posetpu_torch.tools.profile_step` reads it.
+* :class:`DeviceTimer` is the card's clock: pairs of CUDA events around
+  units of work on the current stream.
 * :func:`time_device_step` is the device time of a train (or joint) step:
   K steps replayed as one CUDA graph over one batch resident on the card.
 * :func:`measure_duty_cycle` and :func:`measure_duty_cycle_fused` are the
@@ -92,6 +94,43 @@ def _leading(superbatch):
     return next(iter(superbatch.values())).shape[0]
 
 
+class DeviceTimer:
+    """The card's clock: a pair of CUDA events around each unit of work
+    enqueued on the current stream, ``with timer.span(): ...`` or
+    :meth:`start` then :meth:`stop`.  An event fires when the stream
+    reaches it, so a span holds the stream's work between the two and any
+    wait of the stream for the host inside it: start a span once the
+    host's own part of the unit (a staging copy, a decode) is done."""
+
+    def __init__(self):
+        self._spans = []
+        self._start = None
+
+    def start(self):
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record()
+
+    def stop(self):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self._spans.append((self._start, end))
+        self._start = None
+
+    @contextlib.contextmanager
+    def span(self):
+        self.start()
+        yield
+        self.stop()
+
+    def ms(self):
+        """The ms of every span so far (waits for the last)."""
+        out = []
+        for start, end in self._spans:
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+
 def time_device_step(dispatch, state, batch, warmup=1):
     """Average device time of one step: ``batch`` stacked K =
     ``dispatch.steps`` times on the device, ``warmup`` dispatches (the
@@ -104,14 +143,11 @@ def time_device_step(dispatch, state, batch, warmup=1):
     for _ in range(warmup):
         _fetch(dispatch(state, superbatch))
     if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = dispatch(state, superbatch)
-        end.record()
+        timer = DeviceTimer()
+        with timer.span():
+            m = dispatch(state, superbatch)
         _fetch(m)
-        end.synchronize()
-        seconds = start.elapsed_time(end) / 1e3
+        seconds = timer.ms()[0] / 1e3
     else:
         t0 = time.perf_counter()
         _fetch(dispatch(state, superbatch))

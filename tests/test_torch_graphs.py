@@ -11,7 +11,8 @@ two batches in flight keep their own outputs; weights loaded in place are
 read by the graphs without a capture, and weights whose storage moved are
 captured again; each input shape, and each set of optional validation
 fields, takes a graph of its own; three validation batches keep three
-different predictions; the rasterizer counts one launch a replay.
+different predictions; the rasterizer counts one launch a replay; a
+``DeviceTimer`` set on the graphs spans each call.
 """
 
 import numpy as np
@@ -120,6 +121,23 @@ def test_serving_graph_equals_eager_and_keeps_two_in_flight():
         _equal(out, _eager(predictor, b))
     for a, b in zip(outs, outs[1:]):
         assert not np.array_equal(a["conf"], b["conf"])
+
+
+@pytest.mark.cuda
+def test_serving_timer_spans_each_call_on_the_card():
+    _card()
+    from posetpu_torch.utils.profiling import DeviceTimer
+
+    predictor = PosePredictor(_model(), inp_res=(64, 64), out_res=(16, 16))
+    rng = np.random.RandomState(5)
+    batches = [_serve_batch(rng) for _ in range(3)]
+    predictor(*batches[0])  # captures, untimed
+    predictor.graphs.timer = DeviceTimer()
+    outs = list(predictor.predict_iter(iter(batches), depth=2))
+    ms = predictor.graphs.timer.ms()
+    assert len(ms) == 3 and all(t > 0 for t in ms)
+    for out, b in zip(outs, batches):
+        _equal(out, _eager(predictor, b))
 
 
 @pytest.mark.cuda

@@ -46,7 +46,7 @@ def test_importing_every_module_loads_no_jax():
             "posetpu_torch.utils.graphs", "posetpu_torch.tools.adversarial_gain",
             "posetpu_torch.tools.duty_cycle", "posetpu_torch.tools.profile_step",
             "posetpu_torch.tools.visualize", "posetpu_torch.native.nvjpeg",
-            "posetpu_torch.native.ycc"} <= set(mods)
+            "posetpu_torch.native.ycc", "posetpu_torch.bench"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,6 +72,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert {os.path.join(REPO, "posetpu_torch", "parallel", n)
             for n in ("__init__.py", "dp.py", "launch.py")} <= set(files)
     assert os.path.join(REPO, "posetpu_torch", "ckpt", "torch_export.py") in files
+    assert os.path.join(REPO, "posetpu_torch", "bench.py") in files
     assert {os.path.join(REPO, "posetpu_torch", "tools", n) for n in (
         "adversarial_gain.py", "duty_cycle.py", "profile_step.py", "visualize.py")} <= set(files)
     assert {os.path.join(REPO, "posetpu_torch", "native", n)
