@@ -31,6 +31,10 @@ Phases, each printing one JSON line:
              4:2:2, 4:4:0, 4:2:0 and gray: nvJPEG's planes, upsampled by the
              plain version, against Pillow's YCbCr decode (max and count of
              differing samples; the gap must stay within NVJPEG_PLANE_GAP);
+             the decoder at its default worker threads (N) against one
+             thread, planes and canvases (host and device) bit for bit, and
+             the planes unchanged with the decoder's and every worker's
+             stream held by a sleep kernel, at 1 and at N threads;
              the ycc_canvas kernel against its plain version on nvJPEG's own
              planes, exactly, one launch a batch, at the loader's canvas and
              at crops with centers near every edge, then on the planes
@@ -39,8 +43,11 @@ Phases, each printing one JSON line:
              whole route against Pillow's load_sample (images within
              NVJPEG_LSB, windows exactly, no Pillow fallback); the kernel
              alone and through its wrapper timed beside its bound and the
-             write floor, the decode of a batch (host ms, the wrapper's host
-             ms, canvas and copy-back ms, img/s)
+             write floor, the decode of a batch into a canvas on the card
+             and into pinned memory (read, host, wrapper, canvas and
+             copy-back ms, img/s), and the route's img/s into the card's
+             canvas at 1, 2, 4, 8 and N threads beside the host's CPU count
+             and affinity
   serve      PosePredictor at the full hg8_mpii width (seeded random
              weights, bf16): predict_iter(depth=2) over 4 batches of 32
              through the CUDA graph of their shape, bit for bit equal to the
@@ -85,14 +92,17 @@ Phases, each printing one JSON line:
              1280x720): one epoch of HostLoader at batch 32 per decode route,
              host-only (decode ms a batch), then through
              make_batch_placer("cuda") (img/s, copy ms a batch on the copy
-             stream, bytes a batch); the placed batches equal the host ones
+             stream, bytes a batch; the nvJPEG route keeps its canvas on
+             the card); the placed batches equal the host ones
              exactly, and the routes agree with Pillow (images within 2.5
              LSB, the nvJPEG route's within NVJPEG_LSB; metadata exactly)
   fit_nvjpeg the train CLI at full hg8_mpii width, bf16, batch 32, one epoch
              over the loader phase's 64 frames at 1280x720 (its 16
              validation frames validate) in the (768, 1280) canvas, decoded
              by nvJPEG: img/s beside the loader's Pillow and WorkerLoader
-             rates; ycc_canvas launches once a decoded batch
+             rates; every train batch decoded into a canvas on the card
+             (none copied back to the host, no image stacked there);
+             ycc_canvas launches once a decoded batch
   fit        posetpu_torch.train.cli.main at full hg8_mpii width, bf16,
              batch 32 on the synthetic split (2 train steps, each a CUDA
              graph of one step, and 1 padded validation batch an epoch): 2
@@ -586,7 +596,8 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "trials", "device_ms", "
               "device_clock", "peak_gb", "capture_s", "batch", "stacks", "feats", "res",
               "steps", "K", "config", "launches", "device", "gpu"}
 BENCH_LOADER_KEYS = {"backend", "workers", "loader_batches", "prefetch", "loader_wait_ms",
-                     "loader_wait_s", "host_ms", "canvas_ms", "copy_ms"}
+                     "loader_wait_s", "threads", "read_ms", "info_ms", "host_ms", "canvas_ms",
+                     "copy_ms"}
 
 
 def _bench_line(stdout):
@@ -640,6 +651,9 @@ def phase_bench(smi, workdir):
             check(raster > 0, f"bench {name}: the rasterizer never launched")
         if name.startswith("loader_host"):
             check(line["backend"] == "nvjpeg", f"bench {name}: decoded by {line['backend']}")
+            # the decoder's default workers, and the canvas kept on the card
+            check(line["threads"] == nvjpeg.default_threads() and line["copy_ms"] == 0,
+                  f"bench {name}: {line['threads']} threads, copy back {line['copy_ms']} ms")
             # the window's launches: one a batch decoded in it, which is a
             # batch it took, give or take the superbatches decoded ahead
             ahead = (line["prefetch"] + 1) * line["K"]
@@ -702,6 +716,7 @@ NVJPEG_ODD_PAD = (45, 333)
 YCC_OPS_PER_PIXEL = 38
 NVJPEG_TIMED = 3  # decoded batches timed, after one
 NVJPEG_BUSY_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at 2 GHz
+NVJPEG_THREADS = (1, 2, 4, 8)  # the route's img/s at each, and at the default
 
 
 def _small_jpeg(sub, w, h, seed):
@@ -792,9 +807,37 @@ def _ycc_bound(planes, n, pad_hw, valid_pixels):
     return nbytes, ops, max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def _busy_planes_equal(dec, frames):
+    """nvJPEG's planes of ``frames`` with the decoder's stream and every
+    worker's held by a sleep kernel queued ahead of the decode, so that
+    nvJPEG's queued copies and IDCTs run late, as on a card shared with
+    other work, against those of idle streams."""
+    idle = [tuple(p.clone() for p in pl) for pl in dec.decode_planes(frames)[0]]
+    for stream in (dec.stream, *dec.worker_streams()):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(NVJPEG_BUSY_CYCLES)
+    busy = dec.decode_planes(frames)[0]
+    return all(torch.equal(a, b) for x, y in zip(idle, busy) for a, b in zip(x, y))
+
+
+def _route_times(dec, frames, centers, pad, keep):
+    """NVJPEG_TIMED decodes of ``frames`` timed after one: into a new
+    tensor on the card each (``keep``, the loader's path) or into one
+    pinned host buffer.  Returns ``dec.times`` of the timed ones."""
+    pinned = None if keep else torch.empty((len(frames), *pad, 3), dtype=torch.uint8,
+                                            pin_memory=True)
+    dec.times.clear()
+    for _ in range(NVJPEG_TIMED + 1):
+        out = dec.canvas((len(frames), *pad, 3)) if keep else pinned.numpy()
+        dec.decode_batch(frames, centers, pad, out=out)
+    torch.cuda.synchronize()
+    return dec.times[1:]
+
+
 def phase_nvjpeg(workdir):
     """The nvJPEG route on the card: nvJPEG's planes against Pillow's
-    YCbCr decode, the ycc_canvas kernel against its plain version on those
+    YCbCr decode, N worker threads against one (planes and canvases
+    exactly, and on busy streams), the ycc_canvas kernel against its plain version on those
     planes and on misaligned rows, odd offsets and (0, 0) slots (exactly,
     one launch a batch), the whole route against Pillow's load_sample
     (within NVJPEG_LSB, windows exactly, every file decoded), then the
@@ -811,7 +854,8 @@ def phase_nvjpeg(workdir):
         small.append(os.path.join(root, f"small_{k}_{sub}.jpg"))
         with open(small[-1], "wb") as f:
             f.write(_small_jpeg(sub, w, h, SEED + k))
-    dec = NvjpegDecoder("cuda", timing=True)
+    dec = NvjpegDecoder("cuda", timing=True)  # default_threads() workers
+    one = NvjpegDecoder("cuda", num_threads=1)
 
     # the planes: nvJPEG's, upsampled by the plain version, against Pillow's
     sets = {"frames": frames, "small": small}
@@ -831,16 +875,31 @@ def phase_nvjpeg(workdir):
     check(plane_gap <= NVJPEG_PLANE_GAP,
           f"nvJPEG's planes {plane_gap} from libjpeg's: NVJPEG_LSB's premise fails")
 
-    # the decoder's stream held by a sleep kernel queued ahead of the
-    # decode, so nvJPEG's queued copies and IDCTs run late, as on a card
-    # shared with other work: the planes must be those of an idle stream
-    idle = [tuple(p.clone() for p in pl) for pl in dec.decode_planes(frames)[0]]
-    with torch.cuda.stream(dec.stream):
-        torch.cuda._sleep(NVJPEG_BUSY_CYCLES)
-    busy = dec.decode_planes(frames)[0]
-    busy_equal = all(torch.equal(a, b) for x, y in zip(idle, busy) for a, b in zip(x, y))
-    check(busy_equal, "nvJPEG's planes change when its stream is busy")
-    del idle, busy
+    # N worker threads against one: the planes, then the canvases into host
+    # memory and into a tensor on the card, bit for bit
+    threads_equal = True
+    for name, batch in sets.items():
+        want = [tuple(p.clone() for p in pl) for pl in one.decode_planes(batch)[0]]
+        got = dec.decode_planes(batch)[0]
+        threads_equal &= all(torch.equal(a, b) for x, y in zip(want, got)
+                             for a, b in zip(x, y))
+        for pad in (NVJPEG_PADS[0], NVJPEG_PADS[-1]):
+            centers = np.array([[0.4 * w, 0.6 * h] for w, h in sizes[name]], np.float32)
+            host_one = one.decode_batch(batch, centers, pad)[0]
+            host_n = dec.decode_batch(batch, centers, pad)[0]
+            kept = dec.decode_batch(batch, centers, pad, out=dec.canvas((len(batch), *pad, 3)))[0]
+            torch.cuda.current_stream().wait_event(kept.ready)
+            threads_equal &= (np.array_equal(host_one, host_n)
+                              and np.array_equal(kept.tensor.cpu().numpy(), host_one))
+        del want, got
+    check(threads_equal, f"{dec.num_threads} worker threads and one decode differently")
+
+    # the decoder's and its workers' streams held by a sleep kernel each:
+    # the planes must be those of idle streams, at one thread and at N
+    busy_equal = {t: _busy_planes_equal(d, frames)
+                  for t, d in ((1, one), (dec.num_threads, dec))}
+    check(all(busy_equal.values()), f"nvJPEG's planes change on busy streams: {busy_equal}")
+    one.close()
 
     # the kernel against its plain version on nvJPEG's own planes
     cases = []
@@ -952,30 +1011,46 @@ def phase_nvjpeg(workdir):
     nbytes, ops, bound_ms, bound_by = _ycc_bound(planes, BATCH, pad, valid)
     del out, planes, desc, alone
 
-    # the route at the loader's batch: host phase, kernel and copy back
-    pinned = torch.empty((BATCH, *pad, 3), dtype=torch.uint8, pin_memory=True)
-    dec.times.clear()
-    for _ in range(NVJPEG_TIMED + 1):
-        dec.decode_batch(frames, centers, pad, out=pinned.numpy())
-    timed = dec.times[1:]  # after the first
+    # the route at the loader's batch: into the card's canvas (the loader's
+    # path) and into pinned memory (the copy back); then into the card's
+    # canvas at each thread count
+    kept = _route_times(dec, frames, centers, pad, keep=True)
+    timed = _route_times(dec, frames, centers, pad, keep=False)
+    sweep = []
+    for t in sorted({*NVJPEG_THREADS, dec.num_threads}):
+        d = dec if t == dec.num_threads else NvjpegDecoder("cuda", timing=True, num_threads=t)
+        times = _route_times(d, frames, centers, pad, keep=True)
+        sweep.append({"threads": t, "img_per_s": [BATCH * 1e3 / x["total_ms"] for x in times],
+                      **{k: [x[k] for x in times] for k in ("read_ms", "info_ms", "host_ms", "total_ms")}})
+        if d is not dec:
+            d.close()
     dec.close()
     emit("nvjpeg", files=len(frames) + len(small), frame_res=list(LOADER_RES),
          small=[list(c) for c in NVJPEG_SMALL],
          plane_gap_max=plane_gap, plane_samples_differing=plane_diff,
          plane_samples=plane_samples, plane_gap_premise=NVJPEG_PLANE_GAP,
-         planes_equal_on_a_busy_stream=busy_equal,
+         threads=dec.num_threads, cpu_count=os.cpu_count(),
+         affinity=len(os.sched_getaffinity(0)), threads_equal_one=threads_equal,
+         planes_equal_on_busy_streams=busy_equal,
          route_max_lsb_vs_pillow=route_lsb, route_bound_lsb=NVJPEG_LSB,
          pillow_fallbacks=fallbacks, kernel_cases=cases,
          kernel={"batch": BATCH, "pad_hw": list(pad), "ms": ms, "wrapper_ms": wrapper_ms,
                  "plain_ms": plain_ms, "write_floor_ms": floor_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "share_of_bound": bound_ms / ms,
                  "gb_per_s": nbytes / ms / 1e6, "bytes": nbytes, "operations": ops},
-         decode_ms_per_batch=[t["total_ms"] for t in timed],
-         host_ms_per_batch=[t["host_ms"] for t in timed],
-         desc_ms_per_batch=[t["desc_ms"] for t in timed],
-         canvas_ms_per_batch=[t["canvas_ms"] for t in timed],
-         copy_back_ms_per_batch=[t["copy_ms"] for t in timed],
-         img_per_s=[BATCH * 1e3 / t["total_ms"] for t in timed])
+         decode_ms_per_batch=[t["total_ms"] for t in kept],
+         read_ms_per_batch=[t["read_ms"] for t in kept],
+         info_ms_per_batch=[t["info_ms"] for t in kept],
+         host_ms_per_batch=[t["host_ms"] for t in kept],
+         desc_ms_per_batch=[t["desc_ms"] for t in kept],
+         canvas_ms_per_batch=[t["canvas_ms"] for t in kept],
+         img_per_s=[BATCH * 1e3 / t["total_ms"] for t in kept],
+         pinned={"decode_ms_per_batch": [t["total_ms"] for t in timed],
+                 "host_ms_per_batch": [t["host_ms"] for t in timed],
+                 "canvas_ms_per_batch": [t["canvas_ms"] for t in timed],
+                 "copy_back_ms_per_batch": [t["copy_ms"] for t in timed],
+                 "img_per_s": [BATCH * 1e3 / t["total_ms"] for t in timed]},
+         thread_sweep=sweep)
     return {
         "name": "ycc_canvas",
         "route": "cuda",
@@ -2141,24 +2216,59 @@ def phase_fit(workdir):
     return l1 + l2 + l3, d1["ycc_canvas"] + d2["ycc_canvas"] + d3["ycc_canvas"]
 
 
+@contextlib.contextmanager
+def _canvas_routes():
+    """Records, for every NvjpegDecoder.decode_batch call inside, whether
+    its canvas stayed on the card (a CUDA tensor ``out``) or came back to
+    the host, and every superbatch whose images the loader stacked on the
+    host (its ``_stack`` without the group's tensor)."""
+    from posetpu_torch.data import loader as loader_mod
+
+    seen = {"card": [], "host": [], "host_stacks": []}  # list.append: thread-safe
+    decode, stack = NvjpegDecoder.decode_batch, loader_mod._stack
+
+    def decode_batch(self, paths, centers, pad_hw, out=None):
+        seen["card" if torch.is_tensor(out) and out.is_cuda else "host"].append(len(paths))
+        return decode(self, paths, centers, pad_hw, out=out)
+
+    def recording_stack(items, host_image=None, image=None):
+        if image is None and "image" in items[0]:
+            seen["host_stacks"].append(len(items))
+        return stack(items, host_image, image)
+
+    NvjpegDecoder.decode_batch, loader_mod._stack = decode_batch, recording_stack
+    try:
+        yield seen
+    finally:
+        NvjpegDecoder.decode_batch, loader_mod._stack = decode, stack
+
+
 def phase_fit_nvjpeg(loader_root, loader_results, workers):
     """train.cli.main at full hg8_mpii width, bf16, batch 32, FIT_EPOCHS
     epochs over the loader phase's 64 frames at 1280x720 (its 16 validation
     frames validate), decoded by nvJPEG into the (768, 1280) canvas the
     driver's auto-sizing picks: img/s of each epoch (the first captures the
     graph) beside the loader phase's Pillow and WorkerLoader rates from
-    this run.  The ycc_canvas kernel launches once a decoded batch; the
-    counts are reset just before."""
+    this run.  Every train batch is decoded into a canvas on the card (none
+    copied back, no image stacked on the host; the validation loader's
+    stay on the host); the ycc_canvas kernel launches once a decoded batch;
+    the counts are reset just before."""
     ckpt = os.path.join(loader_root, "fit_nvjpeg")
     steps, val_batches = LOADER_IMAGES // BATCH, -(-LOADER_VAL // BATCH)
     t0 = time.perf_counter()
-    rc, launches, out, decode = _cli(train_cli.main, [
-        "--config", "hg8_mpii", "--json", os.path.join(loader_root, "annotations.json"),
-        "--image-path", os.path.join(loader_root, "images"), "--train-batch", str(BATCH),
-        "--checkpoint", ckpt, "--epochs", str(FIT_EPOCHS)])
+    with _canvas_routes() as canvases:
+        rc, launches, out, decode = _cli(train_cli.main, [
+            "--config", "hg8_mpii", "--json", os.path.join(loader_root, "annotations.json"),
+            "--image-path", os.path.join(loader_root, "images"), "--train-batch", str(BATCH),
+            "--checkpoint", ckpt, "--epochs", str(FIT_EPOCHS)])
     seconds = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
     _check_decode("fit_nvjpeg", decode)
+    check(len(canvases["card"]) == FIT_EPOCHS * steps and not canvases["host_stacks"]
+          and len(canvases["host"]) == FIT_EPOCHS * val_batches,
+          f"fit_nvjpeg: {len(canvases['card'])} train batches decoded on the card, "
+          f"{len(canvases['host'])} to the host, {len(canvases['host_stacks'])} stacked "
+          f"there; want {FIT_EPOCHS * steps}, {FIT_EPOCHS * val_batches} (validation), 0")
     check(f"pad_hw={LOADER_PAD}" in out, "fit_nvjpeg: the driver picked another pad_hw")
     batches = FIT_EPOCHS * (steps + val_batches)
     check(decode["ycc_canvas"] == batches,
@@ -2171,6 +2281,8 @@ def phase_fit_nvjpeg(loader_root, loader_results, workers):
          res=list(LOADER_RES), pad_hw=list(LOADER_PAD), seconds=seconds,
          images_per_sec=_img_per_s(out), log=vals, launches=launches,
          ycc_canvas_launches=decode["ycc_canvas"], decode_routes=decode["routes"],
+         canvases_on_card=len(canvases["card"]), canvases_to_host=len(canvases["host"]),
+         host_stacks=len(canvases["host_stacks"]),
          loader_img_per_s={r["route"]: r["img_per_s"] for r in loader_results},
          worker_loader_img_per_s={w["workers"]: w["img_per_s"] for w in workers},
          worker_loader_steady_img_per_s={w["workers"]: w["steady_img_per_s"] for w in workers})

@@ -24,9 +24,11 @@ nvidia-smi name and power-limit line).  The loader modes add
 ``loader_batches`` (the batches the timed window took) and ``prefetch``
 (the loader's queue: the producer thread decodes up to ``prefetch`` + 1
 superbatches ahead of the step, so a window's ``ycc_canvas`` launches
-differ from its batches by at most that many superbatches), the medians
-of ``NvjpegDecoder.times`` in the window (``host_ms``, ``canvas_ms``,
-``copy_ms``, on the nvJPEG route) and the step's wait on the loader
+differ from its batches by at most that many superbatches), on the nvJPEG
+route ``threads`` (its decoder's worker threads) and the medians of
+``NvjpegDecoder.times`` in the window (``read_ms``, ``info_ms``,
+``host_ms``, ``canvas_ms``, and ``copy_ms``, 0 there: the loader keeps
+the canvas on the card), and the step's wait on the loader
 (``loader_wait_ms``, the median of a dispatch's, and ``loader_wait_s``,
 the window's sum).  Everything else goes to stderr.  Every mode runs on
 CUDA unless ``--cpu``; without a card it raises and prints no JSON line.
@@ -409,8 +411,9 @@ def run_bench_loader(dev, batch=16, stacks=8, feats=128, steps=20, warmup=3, res
            "device_ms": [t / group for t in ms], "device_s": sum(ms) / 1e3,
            "capture_s": sum(step.capture_seconds) if timer else None, "launches": launches,
            "loader_batches": steps_run, "prefetch": loader.prefetch,
+           "threads": decoder.num_threads if decoder is not None else None,
            "loader_wait_ms": 1e3 * statistics.median(waits), "loader_wait_s": sum(waits)}
-    for key in ("host_ms", "canvas_ms", "copy_ms"):
+    for key in ("read_ms", "info_ms", "host_ms", "canvas_ms", "copy_ms"):
         out[key] = statistics.median(t[key] for t in times) if times else None
     return out
 

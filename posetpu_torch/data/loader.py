@@ -14,7 +14,9 @@ while the device runs batch N.  :func:`make_batch_placer` builds the
 ``place`` step for the CUDA path: decode into pinned host memory, copy with
 ``non_blocking=True`` on a stream of its own, record an event; the loader
 then orders the consumer's stream after that event before it yields the
-batch.
+batch.  The nvJPEG route on the placer's device decodes into a tensor on
+the card instead, which the placer passes through after the decoder's
+event (:data:`IMAGE_READY`): no image goes through the host.
 
 Under data parallelism (``shard=(rank, world)``) every rank shuffles
 with the same seed and cuts the same global batches, then decodes only its
@@ -121,6 +123,29 @@ def pad_batch(batch, size):
     return out
 
 
+# the key of a batch whose image was decoded on the card: the event after
+# which the image may be read (the placer's stream waits for it and drops it)
+IMAGE_READY = "image_ready"
+
+
+def _stack(items, host_image=None, image=None):
+    """One superbatch of ``items``: every field stacked along a new leading
+    dim; the images into ``host_image(shape)`` when given, or ``image``
+    taken as they are (the group's tensor they were decoded into)."""
+    out = {}
+    for k in items[0]:
+        if k == "image" and image is not None:
+            out[k] = image
+            continue
+        parts = [np.asarray(it[k]) for it in items]
+        if k == "image" and host_image is not None:
+            out[k] = host_image((len(items), *parts[0].shape))
+            np.stack(parts, out=out[k].numpy())
+        else:
+            out[k] = np.stack(parts)
+    return out
+
+
 def group_stack(src_iter, group, host_image=None):
     """Stack every ``group`` consecutive batches into one superbatch whose
     fields carry a leading (K, ...) group dim: the input of K train steps
@@ -130,25 +155,13 @@ def group_stack(src_iter, group, host_image=None):
     stacked into the tensor it returns, so the copy to the device reads
     pinned memory."""
     buf = []
-
-    def stack(items):
-        out = {}
-        for k in items[0]:
-            parts = [np.asarray(it[k]) for it in items]
-            if k == "image" and host_image is not None:
-                out[k] = host_image((len(items), *parts[0].shape))
-                np.stack(parts, out=out[k].numpy())
-            else:
-                out[k] = np.stack(parts)
-        return out
-
     for b in src_iter:
         buf.append(b)
         if len(buf) == group:
-            yield stack(buf)
+            yield _stack(buf, host_image)
             buf = []
     if buf:
-        yield stack(buf)
+        yield _stack(buf, host_image)
 
 
 # seconds an early exit waits for the producer thread to stop: the batch it
@@ -228,25 +241,44 @@ class _CpuPlacer:
         return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
+def place_field(v, device):
+    """One field of a batch on ``device``, on the current stream: a tensor
+    already there as it is (an image decoded on the card), anything else
+    pinned and copied with ``non_blocking=True``."""
+    if torch.is_tensor(v) and v.device == device:
+        return v
+    t = torch.as_tensor(v)
+    if not t.is_pinned():
+        # a pinned copy of the small metadata arrays: a copy from pageable
+        # memory would stall this thread
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 class CudaBatchPlacer:
     """The loader's ``place`` step on a CUDA device.
 
     In the producer thread: :meth:`host_image` hands the loader a pinned
     uint8 tensor to decode the batch's images into; :meth:`__call__`
-    pins the small arrays, copies every field with ``non_blocking=True`` on
-    this placer's own stream and records an event there.  In the consumer
+    makes this placer's own stream wait for a batch's :data:`IMAGE_READY`
+    event (an image decoded on the card, passed through without a copy),
+    copies every other field with ``non_blocking=True`` on that stream
+    (:func:`place_field`) and records an event there.  In the consumer
     thread, :meth:`ready` makes the consumer's current stream wait for
     that event and calls ``record_stream`` on each device tensor, so that
     the caching allocator does not hand the batch's memory to the copy
-    stream again while the compute stream may still read it.
+    stream (or the decoder's) again while the compute stream may still
+    read it.
 
     ``timing=True`` also records CUDA timing events around each copy;
     :meth:`copy_ms` reads them (it synchronizes).
     """
 
     def __init__(self, device, timing=False):
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
+        device = torch.device(device)
+        self.device = torch.device("cuda", torch.cuda.current_device()
+                                   if device.index is None else device.index)
+        self.stream = torch.cuda.Stream(self.device)
         self.timing = timing
         self._copy_events = []
 
@@ -255,17 +287,13 @@ class CudaBatchPlacer:
 
     def __call__(self, batch):
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            decoded = batch.get(IMAGE_READY)
+            if decoded is not None:
+                self.stream.wait_event(decoded)
             if self.timing:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record(self.stream)
-            out = {}
-            for k, v in batch.items():
-                t = torch.as_tensor(v)
-                if not t.is_pinned():
-                    # a pinned copy of the small metadata arrays: a copy from
-                    # pageable memory would stall this thread
-                    t = t.pin_memory()
-                out[k] = t.to(self.device, non_blocking=True)
+            out = {k: place_field(v, self.device) for k, v in batch.items() if k != IMAGE_READY}
             done = torch.cuda.Event(enable_timing=self.timing)
             done.record(self.stream)
             if self.timing:
@@ -322,12 +350,21 @@ class HostLoader:
     ``host_image(shape)`` method gets the batch's images decoded straight
     into the (pinned) tensor it returns, and one with ``ready(placed)`` has
     it called on each placed batch in the consuming thread before the batch
-    is yielded.
+    is yielded.  On the nvjpeg route with a ``place`` on the decoder's
+    device (its ``device``), the images are decoded into a tensor there
+    instead (:meth:`NvjpegDecoder.canvas
+    <posetpu_torch.native.nvjpeg.NvjpegDecoder.canvas>`): a new one for
+    each batch, or superbatch with ``group``, so the batches in flight
+    each hold their own (on CUDA 94.4 MB a batch of (32, 768, 1280, 3), up
+    to ``prefetch`` + 2 batches or superbatches at once); the batch
+    carries the decoder's event as :data:`IMAGE_READY` for the placer.
 
     ``group``: None (the default) yields (B, ...) batches; an int K >= 1
     stacks every K batches into one (K, B, ...) superbatch
     (:func:`group_stack`) before ``place``, K = 1 included, and the images
-    then go into the placer's pinned buffer at the stacking.
+    then go into the placer's pinned buffer at the stacking; on the card
+    batch k of a group is decoded straight into slot k of the group's
+    (K, B, H, W, 3) tensor and no image is stacked.
 
     ``pad``: with ``drop_last`` False (validation), pad the ragged last
     batch to ``batch_size`` by :func:`pad_batch` on its dataset indices
@@ -380,6 +417,7 @@ class HostLoader:
         self.group = group
         self.epoch = 0
         self._decoder = None
+        self._keep_canvas = False  # images decoded into a tensor on the placer's device
         if backend not in ("auto", "native", "pil", "nvjpeg"):
             raise ValueError(f"unknown backend {backend!r} (auto, native, pil or nvjpeg)")
         if device is None:
@@ -392,6 +430,7 @@ class HostLoader:
 
             self._decoder = NvjpegDecoder("cuda" if device is None else device)
             self.backend = "nvjpeg"
+            self._keep_canvas = getattr(place, "device", None) == self._decoder.device
             return
         if backend in ("auto", "native"):
             try:
@@ -414,10 +453,13 @@ class HostLoader:
         return getattr(self.place, "host_image", None)
 
     def _image_buffer(self, n):
-        """(host array to decode into, what the batch carries as "image").
-        Grouped batches decode into plain memory: their group is stacked
-        into the pinned buffer."""
+        """(host array or tensor to decode into, what the batch carries as
+        "image").  Grouped batches decode into plain memory: their group is
+        stacked into the pinned buffer.  On the card a new tensor there."""
         shape = (n, *self.pad_hw, 3)
+        if self._keep_canvas:
+            t = self._decoder.canvas(shape)
+            return t, t
         alloc = self._host_image() if self.group is None else None
         if alloc is None:
             arr = np.empty(shape, np.uint8)
@@ -425,15 +467,16 @@ class HostLoader:
         buf = alloc(shape)
         return buf.numpy(), buf
 
-    def _native_batch(self, sel):
+    def _native_batch(self, sel, out=None):
         """Decode one batch through the C++ pool or nvJPEG; Pillow fallback
         per failure.  The decoder writes straight into the batch's image
-        buffer."""
+        buffer (``out``, a slot of its group's tensor on the card, or
+        :meth:`_image_buffer`'s)."""
         ds = self.dataset
         metas = [ds.meta(int(i)) for i in sel]
         paths = [ds.image_path(int(i)) for i in sel]
         centers = np.stack([m[0] for m in metas]).astype(np.float32)
-        arr, image = self._image_buffer(len(sel))
+        arr, image = (out, out) if out is not None else self._image_buffer(len(sel))
         images, wh, offs, ok = self._decoder.decode_batch(
             paths, centers, self.pad_hw, out=arr
         )
@@ -455,7 +498,7 @@ class HostLoader:
                     item["vis"].astype(np.float64),
                 )
         offs_f = offs.astype(np.float64)
-        return {
+        batch = {
             "image": image,
             "valid_wh": wh,
             "center": np.stack(
@@ -469,6 +512,12 @@ class HostLoader:
             "index": np.asarray(sel, np.int32),
             "offset": report_off,
         }
+        # on the card: the event after the last write to the image (the
+        # kernel's, or a Pillow row's)
+        ready = getattr(images, "ready", None)
+        if ready is not None:
+            batch[IMAGE_READY] = ready
+        return batch
 
     def _pil_batch(self, sel):
         arr, image = self._image_buffer(len(sel))
@@ -514,12 +563,37 @@ class HostLoader:
                 out["mask"] = mask
             yield out
 
+    def _card_groups(self, order):
+        """The epoch's superbatches with their images on the decoder's
+        device: batch k of a group decoded straight into slot k of one
+        (K', rows, H, W, 3) tensor, the other fields stacked as
+        :func:`group_stack` does, and the group's :data:`IMAGE_READY` its
+        last batch's (one stream writes them all, in order)."""
+        sels = list(self._selections(order))
+        for start in range(0, len(sels), self.group):
+            group = sels[start:start + self.group]
+            canvas = self._decoder.canvas((len(group), len(group[0][0]), *self.pad_hw, 3))
+            items = []
+            for k, (sel, mask) in enumerate(group):
+                items.append(self._native_batch(sel, out=canvas[k]))
+                if mask is not None:
+                    items[-1]["mask"] = mask
+            ready = items[-1].get(IMAGE_READY)
+            out = _stack([{k: v for k, v in it.items() if k != IMAGE_READY} for it in items],
+                         image=canvas)
+            if ready is not None:
+                out[IMAGE_READY] = ready
+            yield out
+
     def __iter__(self):
         order = self._order()
         self.epoch += 1
-        src = self._batches(order)
-        if self.group is not None:
-            src = group_stack(src, self.group, host_image=self._host_image())
+        if self.group is None:
+            src = self._batches(order)
+        elif self._keep_canvas:
+            src = self._card_groups(order)
+        else:
+            src = group_stack(self._batches(order), self.group, host_image=self._host_image())
         place = self.place if self.place is not None else (lambda b: b)
         ready = getattr(self.place, "ready", None)
         # decode, collate, stacking and the copy run in the producer

@@ -105,10 +105,15 @@ def batch_args(paths, centers, pad_hw, out):
             f"out must be a writeable C-contiguous uint8 array of shape "
             f"{(n, ph, pw, 3)}; got {out.dtype} {out.shape}"
         )
+    return n, (ph, pw), checked_centers(centers, n), out
+
+
+def checked_centers(centers, n):
+    """A decoder's ``centers`` as a C-contiguous (n, 2) float32 array."""
     centers = np.ascontiguousarray(centers, np.float32)
     if centers.shape != (n, 2):
         raise ValueError(f"centers must be ({n}, 2); got {centers.shape}")
-    return n, (ph, pw), centers, out
+    return centers
 
 
 class NativeDecoder:

@@ -2,13 +2,15 @@
 
 :class:`NvjpegDecoder` keeps :class:`~posetpu_torch.native.NativeDecoder`'s
 contract and answers.  On CUDA, nvJPEG (``nvjpeg_pool.cu``, the default
-backend: Huffman decode on the calling thread, IDCT on the card) writes each
-file's component planes at their stored sizes into device memory, the
-``ycc_canvas`` kernel (``kernels/ycc_canvas.cu``) upsamples, converts, crops
-and pads the whole batch in one launch, and the canvas is copied into the
-caller's (pinned) host buffer.  On the CPU the planes come from libjpeg's raw
-output (:func:`posetpu_torch.native.bindings.read_planes`) and the canvas from
-the plain functions of :mod:`posetpu_torch.native.ycc`, so the tests reach
+backend: Huffman decode on a host thread, IDCT on the card) writes each
+file's component planes at their stored sizes into device memory, on
+``num_threads`` worker threads as the host pool decodes, the ``ycc_canvas``
+kernel (``kernels/ycc_canvas.cu``) upsamples, converts, crops and pads the
+whole batch in one launch, and the canvas is copied into the caller's
+(pinned) host buffer, or stays on the card in the caller's tensor.  On the
+CPU the planes come from libjpeg's raw output
+(:func:`posetpu_torch.native.bindings.read_planes`) and the canvas from the
+plain functions of :mod:`posetpu_torch.native.ycc`, so the tests reach
 every step but nvJPEG and the kernel.
 
 :func:`ycc_canvas` is the kernel's wrapper: plain on CPU tensors, the kernel
@@ -37,6 +39,7 @@ from posetpu_torch.native.bindings import (
     JCS_YCBCR,
     JCS_YCCK,
     batch_args,
+    checked_centers,
     read_planes,
 )
 from posetpu_torch.utils import cuda_build
@@ -57,9 +60,14 @@ _count_lock = threading.Lock()
 DESC_WORDS = 24  # ycc_canvas.cu's descriptor of one image, in int64 words
 PITCH_ALIGN = 256  # row pitch of the planes nvJPEG writes, in bytes
 
-# nvjpegStatus_t values (nvjpeg.h) that mean the file cannot be decoded:
-# BAD_JPEG, JPEG_NOT_SUPPORTED, INCOMPLETE_BITSTREAM.  Any other raises.
-_FILE_STATUSES = frozenset({3, 4, 10})
+# nvjpeg_pool.cu's status for a C++ exception inside a worker (a forged
+# header's allocation, say): that file goes to the Pillow path, as the host
+# pool's catch sends it
+NVJ_STATUS_EXCEPTION = 65536
+# statuses that mean the file cannot be decoded: nvjpegStatus_t's (nvjpeg.h)
+# BAD_JPEG, JPEG_NOT_SUPPORTED, INCOMPLETE_BITSTREAM, and the exception's.
+# Any other raises.
+_FILE_STATUSES = frozenset({3, 4, 10, NVJ_STATUS_EXCEPTION})
 
 _SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 
@@ -227,8 +235,9 @@ def _canvas_out(out, shape, device):
     """``out`` once checked, or a new uint8 tensor of ``shape`` on ``device``."""
     if out is None:
         return torch.empty(shape, dtype=torch.uint8, device=device)
-    if out.dtype != torch.uint8 or tuple(out.shape) != shape or not out.is_contiguous():
-        raise ValueError(f"out must be a contiguous uint8 tensor of shape {shape}")
+    if (out.dtype != torch.uint8 or tuple(out.shape) != shape or not out.is_contiguous()
+            or out.device != device):
+        raise ValueError(f"out must be a contiguous uint8 tensor of shape {shape} on {device}")
     return out
 
 
@@ -289,6 +298,25 @@ def ycc_canvas(planes, samplings, windows, pad_hw, out=None):
 
 # --- nvJPEG ---------------------------------------------------------------------
 
+_P = ctypes.POINTER
+# nvjpeg_pool.cu's C functions: (restype, argtypes), in its order
+SIGNATURES = {
+    "nvj_create": (ctypes.c_void_p, [ctypes.c_int, ctypes.c_int, _P(ctypes.c_int)]),
+    "nvj_destroy": (None, [ctypes.c_void_p]),
+    "nvj_stream": (ctypes.c_void_p, [ctypes.c_void_p, ctypes.c_int]),
+    "nvj_info": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+                                _P(ctypes.c_int)]),
+    "nvj_decode_batch": (None, [ctypes.c_void_p, _P(ctypes.c_char_p), _P(ctypes.c_size_t),
+                                ctypes.c_int, _P(ctypes.c_void_p), _P(ctypes.c_longlong),
+                                _P(ctypes.c_int)]),
+}
+
+
+def default_threads():
+    """The workers of a decoder by default: the host pool's rule
+    (``NativeDecoder``), ``min(16, os.cpu_count() or 4)``."""
+    return min(16, os.cpu_count() or 4)
+
 
 def _cuda_lib_dir():
     """The toolkit's library directory, which holds libnvjpeg."""
@@ -301,7 +329,7 @@ def _cuda_lib_dir():
 
 
 def _nvjpeg_libs(lib_dir):
-    return (f"-L{lib_dir}", "-lnvjpeg")
+    return (f"-L{lib_dir}", "-lnvjpeg", "-lpthread")
 
 
 @functools.cache
@@ -312,16 +340,9 @@ def _nvjpeg_lib():
     lib_dir = _cuda_lib_dir()
     ctypes.CDLL(os.path.join(lib_dir, "libnvjpeg.so"), mode=ctypes.RTLD_GLOBAL)
     lib = cuda_build.load_library(NVJPEG_SOURCE, libs=_nvjpeg_libs(lib_dir))
-    lib.nvj_create.restype = ctypes.c_void_p
-    lib.nvj_create.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.nvj_destroy.restype = None
-    lib.nvj_destroy.argtypes = [ctypes.c_void_p]
-    lib.nvj_info.restype = ctypes.c_int
-    lib.nvj_info.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
-                             ctypes.POINTER(ctypes.c_int)]
-    lib.nvj_decode.restype = ctypes.c_int
-    lib.nvj_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t] + \
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
     return lib
 
 
@@ -360,6 +381,60 @@ def _supported(color_space, samplings):
             and all(h in (1, 2) and v in (1, 2) for h, v in samplings[1:]))
 
 
+def plane_sizes(samplings, W, H):
+    """The (w, h) of the three planes nvJPEG's YUV output may write for a
+    W x H file at ``samplings`` (per component (h, v)): a grayscale file's
+    luma, and room for chroma planes of its size."""
+    if len(samplings) == 1:
+        return [(W, H)] * 3
+    return [(W, H)] + [ycc.component_size(W, H, *s) for s in samplings[1:]]
+
+
+def plane_layout(sizes):
+    """Where the files' planes go in one device buffer.  ``sizes``: per
+    file None (not decoded) or its planes' (w, h).  Returns (per file None
+    or [(w, h, pitch, offset)] a plane, the buffer's bytes): rows padded to
+    PITCH_ALIGN bytes, each plane after the previous one, so every plane
+    starts PITCH_ALIGN-aligned and no two overlap."""
+    layout, at = [], 0
+    for planes in sizes:
+        if planes is None:
+            layout.append(None)
+            continue
+        comps = []
+        for w, h in planes:
+            pitch = -(-w // PITCH_ALIGN) * PITCH_ALIGN
+            comps.append((w, h, pitch, at))
+            at += pitch * h
+        layout.append(comps)
+    return layout, at
+
+
+class DecodedCanvas:
+    """A batch's canvas left on the decoder's device, as
+    :meth:`NvjpegDecoder.decode_batch` returns it for a tensor ``out``:
+    ``tensor`` (``out``) and ``ready``, the event recorded on the decoder's
+    stream after the last write to it (None on the CPU, where every write
+    has ended when it returns).  ``canvas[j] = image`` writes a host image
+    ((ph, pw, 3) uint8) into row j on that stream and records ``ready``
+    again: the loader's Pillow path for a file the route refused."""
+
+    def __init__(self, tensor, stream=None):
+        self.tensor, self.stream, self.ready = tensor, stream, None
+        if stream is not None:
+            self.ready = torch.cuda.Event()
+            self.ready.record(stream)
+
+    def __setitem__(self, j, image):
+        src = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
+        if self.stream is None:
+            self.tensor[j].copy_(src)
+            return
+        with torch.cuda.stream(self.stream):
+            self.tensor[j].copy_(src)  # from pageable memory: returns once copied
+        self.ready.record(self.stream)
+
+
 class NvjpegDecoder:
     """JPEG batch decoder on the card, with :class:`NativeDecoder`'s
     contract: ``decode_batch(paths, centers, pad_hw, out=None) -> (images,
@@ -369,25 +444,41 @@ class NvjpegDecoder:
     reads all zero with ``ok`` False, for the caller's Pillow path.
 
     ``device``: "cuda" (the default; raises without CUDA), "cuda:N", or
-    "cpu" for the plain route.  A CUDA decoder decodes on its device
-    whatever thread calls it, on a stream of its own, and returns once the
-    canvas is in ``out``.  Calls are serialised (one nvJPEG state).  A failed
-    build, a CUDA error or any other nvJPEG status raises.
+    "cpu" for the plain route.  ``num_threads``: nvJPEG's worker threads on
+    CUDA, each with its own nvJPEG state and stream (None:
+    :func:`default_threads`, the host pool's rule); the decoder raises if
+    it cannot start them all.  A batch's files are decoded on the workers
+    in one call (the GIL released), then the kernel makes the canvas on the
+    decoder's own stream, whatever thread calls it.  Calls are serialised.
+    The CPU route is the plain version and reads the files in turn: its
+    batch is the same for every ``num_threads``.  A failed build, a CUDA
+    error or any other nvJPEG status raises.
 
-    ``timing=True`` appends to :attr:`times` one dict a batch: ``host_ms``
-    (reading the files and nvJPEG's decode of each), ``desc_ms`` (the host
-    clock of the kernel's wrapper: its checks, the descriptors, their
-    staging and the launch), ``canvas_ms`` (from the
-    decodes' end to the canvas: ``desc_ms`` while the stream waits, then
-    the descriptors' copy and the kernel) and ``copy_ms`` (the canvas into
-    ``out``), both from CUDA events on the decoder's stream, and
-    ``total_ms``.
+    ``out``: None or a host uint8 array, as ``NativeDecoder`` takes (on
+    CUDA the canvas is copied into it, and the call returns once it is
+    there); or a contiguous (n, ph, pw, 3) uint8 tensor on the decoder's
+    device (see :meth:`canvas`): the kernel writes into it, nothing comes
+    back to the host, and ``images`` is a :class:`DecodedCanvas` whose
+    ``ready`` event orders a reader after the last write.
+
+    ``timing=True`` appends to :attr:`times` one dict a batch: ``threads``,
+    ``read_ms`` (reading the files), ``info_ms`` (parsing their headers and
+    laying out their planes; on the buffer's reuse, the wait for the last
+    kernel that read it), ``host_ms`` (the wall time of the workers'
+    decode of the batch), ``desc_ms`` (the host clock of the kernel's wrapper: its
+    checks, the descriptors, their staging and the launch), ``canvas_ms``
+    (from the decodes' end to the canvas: ``desc_ms`` while the stream
+    waits, then the descriptors' copy and the kernel) and ``copy_ms`` (the
+    canvas into a host ``out``; 0 for a tensor ``out``), both from CUDA
+    events on the decoder's stream, and ``total_ms``.  With a tensor
+    ``out`` a timed call waits for its canvas before it returns.
     """
 
-    def __init__(self, device="cuda", timing=False):
+    def __init__(self, device="cuda", timing=False, num_threads=None):
         dev = resolve_device(device)
         self.timing = timing
         self.times = []
+        self.num_threads = int(num_threads or default_threads())
         self._lock = threading.Lock()
         self._ctx = None
         if dev.type == "cpu":
@@ -400,13 +491,15 @@ class NvjpegDecoder:
         _ycc_fn()
         status = ctypes.c_int(0)
         with torch.cuda.device(self.device):  # restores this thread's device
-            ctx = self._lib.nvj_create(self.device.index, ctypes.byref(status))
+            ctx = self._lib.nvj_create(self.device.index, self.num_threads, ctypes.byref(status))
         if not ctx:
-            raise RuntimeError(f"nvJPEG decoder on {self.device} failed: status {status.value}")
+            raise RuntimeError(f"nvJPEG decoder on {self.device} with {self.num_threads} "
+                               f"threads failed: status {status.value}")
         self._ctx = ctx
         self.stream = torch.cuda.Stream(self.device)
         self._buf = None
         self._canvas = None
+        self._planes_read = None  # recorded after the last kernel that read the buffer
 
     def close(self):
         if self._ctx:
@@ -420,6 +513,14 @@ class NvjpegDecoder:
         except Exception:
             pass
 
+    def worker_streams(self):
+        """The workers' streams (``torch.cuda.ExternalStream``), where
+        nvJPEG's copies and IDCTs run."""
+        if not self._ctx:
+            raise RuntimeError("NvjpegDecoder used after close()")
+        return [torch.cuda.ExternalStream(self._lib.nvj_stream(self._ctx, i), self.device)
+                for i in range(self.num_threads)]
+
     @contextlib.contextmanager
     def _on_device(self):
         """Serialised, on the decoder's device and stream."""
@@ -427,6 +528,16 @@ class NvjpegDecoder:
             raise RuntimeError("NvjpegDecoder used after close()")
         with self._lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             yield
+
+    def canvas(self, shape):
+        """A new uint8 tensor of ``shape`` on the decoder's device, for
+        ``decode_batch``'s tensor ``out``: on CUDA from the caching
+        allocator on the decoder's stream, where the kernel writes it, so
+        every batch in flight has its own."""
+        if self.device.type == "cpu":
+            return torch.empty(shape, dtype=torch.uint8)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            return torch.empty(shape, dtype=torch.uint8, device=self.device)
 
     def decode_planes(self, paths):
         """Each file's component planes as this route has them before the
@@ -437,42 +548,57 @@ class NvjpegDecoder:
         if self.device.type == "cpu":
             return self._planes_cpu(paths)
         with self._on_device():
-            got = self._planes_cuda(paths)
+            planes, samplings, _ = self._planes_cuda(paths)
             self.stream.synchronize()
-        return got
+        return planes, samplings
 
     def decode_batch(self, paths, centers, pad_hw, out=None):
-        n, (ph, pw), centers, out = batch_args(paths, centers, pad_hw, out)
+        keep = torch.is_tensor(out)  # the canvas stays on the decoder's device
+        if keep:
+            n, (ph, pw) = len(paths), (int(v) for v in pad_hw)
+            centers = checked_centers(centers, n)
+            out = _canvas_out(out, (n, ph, pw, 3), self.device)
+        else:
+            n, (ph, pw), centers, out = batch_args(paths, centers, pad_hw, out)
         if self.device.type == "cpu":
             planes, samplings = self._planes_cpu(paths)
             windows = _windows(planes, centers, (ph, pw))
-            ycc_canvas(planes, samplings, windows, (ph, pw), out=torch.from_numpy(out))
-            return out, *_results(windows)
+            ycc_canvas(planes, samplings, windows, (ph, pw),
+                       out=out if keep else torch.from_numpy(out))
+            return (DecodedCanvas(out) if keep else out), *_results(windows)
         with self._on_device():
             t0 = time.perf_counter()
-            planes, samplings = self._planes_cuda(paths)
+            planes, samplings, ms = self._planes_cuda(paths)
             windows = _windows(planes, centers, (ph, pw))
-            host_ms = 1e3 * (time.perf_counter() - t0)
             if self.timing:
                 marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
                 marks[0].record(self.stream)
             t1 = time.perf_counter()
             canvas = ycc_canvas_cuda(planes, samplings, windows, (ph, pw),
-                                     out=self._canvas_for((n, ph, pw, 3)))
+                                     out=out if keep else self._canvas_for((n, ph, pw, 3)))
             desc_ms = 1e3 * (time.perf_counter() - t1)
+            self._planes_read = torch.cuda.Event()
+            self._planes_read.record(self.stream)
             if self.timing:
                 marks[1].record(self.stream)
-            # the caller's buffer is pinned on the loader's path: a DMA
-            torch.from_numpy(out).copy_(canvas, non_blocking=True)
+            if keep:
+                images = DecodedCanvas(out, self.stream)
+            else:
+                # the caller's buffer is pinned on the loader's path: a DMA
+                torch.from_numpy(out).copy_(canvas, non_blocking=True)
+                images = out
             if self.timing:
                 marks[2].record(self.stream)
-            self.stream.synchronize()
+            if not keep:
+                self.stream.synchronize()
+            elif self.timing:
+                marks[2].synchronize()
         if self.timing:
-            self.times.append({"host_ms": host_ms, "desc_ms": desc_ms,
+            self.times.append({"threads": self.num_threads, **ms, "desc_ms": desc_ms,
                                "canvas_ms": marks[0].elapsed_time(marks[1]),
-                               "copy_ms": marks[1].elapsed_time(marks[2]),
+                               "copy_ms": 0.0 if keep else marks[1].elapsed_time(marks[2]),
                                "total_ms": 1e3 * (time.perf_counter() - t0)})
-        return out, *_results(windows)
+        return images, *_results(windows)
 
     def _planes_cpu(self, paths):
         planes, samplings = [()] * len(paths), [()] * len(paths)
@@ -490,8 +616,9 @@ class NvjpegDecoder:
         return planes, samplings
 
     def _buffer(self, nbytes):
-        """The planes' device buffer, grown as needed (used on this
-        decoder's stream only, and idle between calls)."""
+        """The planes' device buffer, grown as needed (written by the
+        workers and read by the kernel on this decoder's stream; the caller
+        has waited for the last kernel that read it)."""
         if self._buf is None or self._buf.numel() < nbytes:
             self._buf = None
             self._buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=self.device)
@@ -503,60 +630,71 @@ class NvjpegDecoder:
             self._canvas = torch.empty(shape, dtype=torch.uint8, device=self.device)
         return self._canvas
 
+    def _header(self, path, data, info):
+        """(samplings, plane sizes) of a file the route decodes, else None."""
+        if data is None:
+            return None
+        st = self._lib.nvj_info(self._ctx, data, len(data),
+                                info.ctypes.data_as(_P(ctypes.c_int)))
+        if st in _FILE_STATUSES:
+            return None
+        if st != 0:
+            raise RuntimeError(f"nvjpegGetImageInfo failed on {path}: status {st}")
+        nc, hf, vf = int(info[0]), int(info[1]), int(info[2])
+        W, H = int(info[4]), int(info[7])
+        samp = [(1, 1)] + [(hf, vf)] * (nc - 1) if nc in (1, 3) else []
+        if not samp or not _supported(jpeg_color_space(data), samp):
+            return None
+        sizes = plane_sizes(samp, W, H)
+        got = [(int(info[4 + c]), int(info[7 + c])) for c in range(nc)]
+        if got != sizes[:nc]:
+            raise RuntimeError(f"nvJPEG's component sizes {got} for {path} are not "
+                               f"libjpeg's {sizes[:nc]}")
+        return samp, sizes
+
     def _planes_cuda(self, paths):
         """Read the files, parse their headers, lay their planes out in the
-        buffer (rows padded to PITCH_ALIGN) and decode each with nvJPEG on
-        the decoder's stream (``nvj_decode`` waits for each file: nvJPEG's
-        next host phase reuses the state's pinned buffer)."""
-        lib, n = self._lib, len(paths)
+        buffer (rows padded to PITCH_ALIGN) and decode them all with one
+        ``nvj_decode_batch`` on the workers (each waits for its own file's
+        work: nvJPEG's next host phase reuses its state's pinned buffer).
+        The reads and headers stay on the calling thread: on an H100
+        host, threads read these files no faster, and the headers take
+        about a millisecond a batch (PERF.md §6).  Returns
+        (planes, samplings, {"read_ms", "info_ms", "host_ms"})."""
+        t0 = time.perf_counter()
         datas = [_read(p) for p in paths]
+        t1 = time.perf_counter()
         info = np.zeros(11, np.int32)
-        info_p = info.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
-        layout, at = [None] * n, 0  # per file: (samplings, [(w, h, pitch, offset)])
-        for i, data in enumerate(datas):
-            if data is None:
-                continue
-            st = lib.nvj_info(self._ctx, data, len(data), info_p)
-            if st in _FILE_STATUSES:
-                continue
-            if st != 0:
-                raise RuntimeError(f"nvjpegGetImageInfo failed on {paths[i]}: status {st}")
-            nc, hf, vf = int(info[0]), int(info[1]), int(info[2])
-            W, H = int(info[4]), int(info[7])
-            samp = [(1, 1)] + [(hf, vf)] * (nc - 1) if nc in (1, 3) else []
-            if not samp or not _supported(jpeg_color_space(data), samp):
-                continue
-            sizes = [(W, H)] + [ycc.component_size(W, H, hf, vf)] * (nc - 1)
-            got = [(int(info[4 + c]), int(info[7 + c])) for c in range(nc)]
-            if got != sizes:
-                raise RuntimeError(f"nvJPEG's component sizes {got} for {paths[i]} are not "
-                                   f"libjpeg's {sizes}")
-            if nc == 1:
-                sizes = sizes * 3  # room for the chroma planes YUV output may write
-            comps = []
-            for w, h in sizes:
-                pitch = -(-w // PITCH_ALIGN) * PITCH_ALIGN
-                comps.append((w, h, pitch, at))
-                at += pitch * h
-            layout[i] = (samp, comps)
-        buf = self._buffer(at)
-        base = buf.data_ptr()
-        planes, samplings = [()] * n, [()] * n
-        for i, lay in enumerate(layout):
-            if lay is None:
-                continue
-            samp, comps = lay
-            st = lib.nvj_decode(self._ctx, datas[i], len(datas[i]),
-                                *[base + off for *_, off in comps],
-                                *[pitch for _, _, pitch, _ in comps], self.stream.cuda_stream)
+        heads = [self._header(p, d, info) for p, d in zip(paths, datas)]
+        layout, nbytes = plane_layout([h and h[1] for h in heads])
+        live = [i for i, lay in enumerate(layout) if lay is not None]
+        ptrs = np.array([off for i in live for *_, off in layout[i]], np.uint64)
+        pitches = np.array([pitch for i in live for _, _, pitch, _ in layout[i]], np.int64)
+        lengths = np.array([len(datas[i]) for i in live], np.uint64)
+        statuses = np.zeros(len(live), np.int32)
+        if self._planes_read is not None:
+            self._planes_read.synchronize()  # the last kernel no longer reads the buffer
+        buf = self._buffer(nbytes)
+        ptrs += np.uint64(buf.data_ptr())
+        t2 = time.perf_counter()
+        self._lib.nvj_decode_batch(
+            self._ctx, (ctypes.c_char_p * len(live))(*[datas[i] for i in live]),
+            lengths.ctypes.data_as(_P(ctypes.c_size_t)), len(live),
+            ptrs.ctypes.data_as(_P(ctypes.c_void_p)), pitches.ctypes.data_as(_P(ctypes.c_longlong)),
+            statuses.ctypes.data_as(_P(ctypes.c_int)))
+        t3 = time.perf_counter()
+        planes, samplings = [()] * len(paths), [()] * len(paths)
+        for i, st in zip(live, statuses.tolist()):
             if st in _FILE_STATUSES:
                 continue
             if st != 0:
                 raise RuntimeError(f"nvjpegDecode failed on {paths[i]}: status {st}")
+            samp = heads[i][0]
             planes[i] = tuple(buf[off:off + pitch * h].view(h, pitch)[:, :w]
-                              for w, h, pitch, off in comps[:len(samp)])
+                              for w, h, pitch, off in layout[i][:len(samp)])
             samplings[i] = samp
-        return planes, samplings
+        return planes, samplings, {"read_ms": 1e3 * (t1 - t0), "info_ms": 1e3 * (t2 - t1),
+                                   "host_ms": 1e3 * (t3 - t2)}
 
 
 def _windows(planes, centers, pad_hw):

@@ -195,8 +195,9 @@ class Experiment:
 
         self.loader = loader_cls(
             self.train_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), seed=cfg.seed,
-            # decode into pinned memory and copy on a stream of its own while
-            # the previous step runs; K batches stacked per dispatch
+            # decode while the previous step runs, on the card into a tensor
+            # there (nvJPEG), else into pinned memory copied on a stream of
+            # its own; K batches a superbatch per dispatch
             place=make_batch_placer(self.device), group=self.K, **loader_kw,
         )
         # validation batches stay on the host until the eval step copies
