@@ -8,9 +8,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases, each printing one JSON line:
 
   device     the card's name and its nvidia-smi name/power-limit line
-  build      every kernel source of the port compiled with nvcc (all at
-             once): the rasterizer, the ycc_canvas kernel and the nvJPEG
-             decoder (linked with libnvjpeg)
+  build      every native source of the port compiled at once: the
+             rasterizer, the idct_islow and ycc_canvas kernels (nvcc) and
+             the decode route's entropy decoder (g++)
   kernels    each kernel against its plain PyTorch version on the card
              (exactly, for the rasterizer, on random and edge points), and
              both timed with CUDA events beside the card's write floor at
@@ -23,31 +23,35 @@ Phases, each printing one JSON line:
              process of its own: one JSON line and the last, every key, a
              positive rate, 0 <= idle < 1, the device phase's nvidia-smi
              line; the rasterizer launched in every mode's timed window but
-             serving's, and on the host loader one ycc_canvas launch in the
-             window for every batch it took, give or take the loader's
-             prefetch
-  nvjpeg     the card's decode route on 32 of the loader phase's 1280x720
+             serving's, and on the host loader one idct_islow and one
+             ycc_canvas launch in the window for every batch it took, give
+             or take the loader's prefetch
+  jpeg_gpu   the card's decode route on 32 of the loader phase's 1280x720
              frames (quality 92, 4:2:0) and small odd-sized files at 4:4:4,
-             4:2:2, 4:4:0, 4:2:0 and gray: nvJPEG's planes, upsampled by the
-             plain version, against Pillow's YCbCr decode (max and count of
-             differing samples; the gap must stay within NVJPEG_PLANE_GAP);
-             the decoder at its default worker threads (N) against one
-             thread, planes and canvases (host and device) bit for bit, and
-             the planes unchanged with the decoder's and every worker's
-             stream held by a sleep kernel, at 1 and at N threads;
-             the ycc_canvas kernel against its plain version on nvJPEG's own
-             planes, exactly, one launch a batch, at the loader's canvas and
-             at crops with centers near every edge, then on the planes
-             copied into misaligned rows of odd pitch, at odd window offsets
-             and with (0, 0) slots (also into a canvas of odd width); the
-             whole route against Pillow's load_sample (images within
-             NVJPEG_LSB, windows exactly, no Pillow fallback); the kernel
-             alone and through its wrapper timed beside its bound and the
-             write floor, the decode of a batch into a canvas on the card
-             and into pinned memory (read, host, wrapper, canvas and
-             copy-back ms, img/s), and the route's img/s into the card's
-             canvas at 1, 2, 4, 8 and N threads beside the host's CPU count
-             and affinity
+             4:2:2, 4:4:0, 4:2:0 and gray, one with restart markers and one
+             progressive file (the one refused): the route's planes,
+             upsampled by the plain version, equal to Pillow's YCbCr decode
+             (gap 0); the decoder at its default worker threads (N) against
+             one thread, planes and canvases (host and device) bit for bit,
+             and the planes and canvases unchanged with the decoder's
+             stream held by a sleep kernel, at 1 and at N threads; the
+             idct_islow kernel against its plain version on the route's
+             coefficients and on random blocks with the 8-bit data's
+             extremes, exactly, one launch a batch; the ycc_canvas kernel
+             against its plain version on the route's own planes, exactly,
+             one launch a batch, at the loader's canvas and at crops with
+             centers near every edge, then on the planes copied into
+             misaligned rows of odd pitch, at odd window offsets and with
+             (0, 0) slots (also into a canvas of odd width); the whole
+             route against Pillow's load_sample (images and windows
+             exactly, the progressive file ok False and counted, and its
+             row Pillow's through the loader onto the card); both kernels
+             alone and through their wrappers timed beside their bounds,
+             the plain versions and the write floor, the decode of a batch
+             into a canvas on the card and into pinned memory (read, host,
+             copy-in, IDCT, wrapper, canvas and copy-back ms, img/s), and
+             the route's img/s into the card's canvas at 1, 2, 4, 8 and N
+             threads beside the host's CPU count and affinity
   serve      PosePredictor at the full hg8_mpii width (seeded random
              weights, bf16): predict_iter(depth=2) over 4 batches of 32
              through the CUDA graph of their shape, bit for bit equal to the
@@ -86,23 +90,23 @@ Phases, each printing one JSON line:
              metrics, both updates and statistics within derived bounds,
              the agent unchanged on its non-update step)
   host       what the machine decodes with: Pillow, libjpeg (header and
-             library), nvJPEG's header, CPU count, matplotlib; the decode
-             routes this run takes ("nvjpeg" must start)
+             library), CPU count, matplotlib; the decode routes this run
+             takes ("gpu" must start)
   loader     a synthetic MPII split at MPII's image size (64 JPEGs of
              1280x720): one epoch of HostLoader at batch 32 per decode route,
              host-only (decode ms a batch), then through
              make_batch_placer("cuda") (img/s, copy ms a batch on the copy
-             stream, bytes a batch; the nvJPEG route keeps its canvas on
-             the card); the placed batches equal the host ones
-             exactly, and the routes agree with Pillow (images within 2.5
-             LSB, the nvJPEG route's within NVJPEG_LSB; metadata exactly)
-  fit_nvjpeg the train CLI at full hg8_mpii width, bf16, batch 32, one epoch
+             stream, bytes a batch; the gpu route keeps its canvas on the
+             card); the placed batches equal the host ones exactly, and the
+             routes agree with Pillow (images within 2.5 LSB, the gpu
+             route's exactly; metadata exactly)
+  fit_jpeg_gpu  the train CLI at full hg8_mpii width, bf16, batch 32, one epoch
              over the loader phase's 64 frames at 1280x720 (its 16
              validation frames validate) in the (768, 1280) canvas, decoded
-             by nvJPEG: img/s beside the loader's Pillow and WorkerLoader
-             rates; every train batch decoded into a canvas on the card
-             (none copied back to the host, no image stacked there);
-             ycc_canvas launches once a decoded batch
+             by the card's route: img/s beside the loader's Pillow and
+             WorkerLoader rates; every train batch decoded into a canvas on
+             the card (none copied back to the host, no image stacked
+             there); idct_islow and ycc_canvas launch once a decoded batch
   fit        posetpu_torch.train.cli.main at full hg8_mpii width, bf16,
              batch 32 on the synthetic split (2 train steps, each a CUDA
              graph of one step, and 1 padded validation batch an epoch): 2
@@ -111,7 +115,7 @@ Phases, each printing one JSON line:
              preds.mat, and the rasterizer's launches (train steps +
              validation batches + each run's warm-up steps before its
              capture); every Experiment of a host-loader run decodes through
-             nvJPEG (train and validation loaders), a worker-loader run
+             the gpu route (train and validation loaders), a worker-loader run
              (fit_dispatch, fit_joint_dispatch) with Pillow in its workers
   fit_joint  one epoch each of hg8_mpii_asr and hg8_lsp_aho (a synthetic LSP
              split, 14 joints) through the same CLI, each joint step a CUDA
@@ -218,8 +222,9 @@ the first batch; the host phase reports TensorBoard and /dev/shm.
 Then ``processes``: the worker loaders' server and resource tracker are
 stopped (the script waits for both), and anything else the run started
 that still runs is ended and fails the run.  Then the kernel summary line
-(the rasterizer's launches from validate, ycc_canvas's from fit_nvjpeg, and
-both by path, the bench's modes as bench_<mode>), the nvidia-smi line, and last
+(the rasterizer's launches from validate, idct_islow's and ycc_canvas's
+from fit_jpeg_gpu, and each by path, the bench's modes as bench_<mode>),
+the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure
 raises (non-zero exit, no final line); without CUDA it exits non-zero at
 once.  Nothing falls back to the CPU or to a plain version.
@@ -271,7 +276,7 @@ from posetpu_torch.data.worker_loader import (
 from posetpu_torch.eval import cli as eval_cli
 from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
-from posetpu_torch.native import NvjpegDecoder, nvjpeg, ycc
+from posetpu_torch.native import GpuJpegDecoder, islow, jpeg_gpu, ycc
 from posetpu_torch.models import hg
 from posetpu_torch.models.batchnorm import BatchNorm2d, convert_cross_replica_
 from posetpu_torch.parallel import (
@@ -439,15 +444,16 @@ def phase_device():
 
 
 def phase_build():
-    """Every kernel source at once: the augmentation kernels and the
-    decode route's (the ycc_canvas kernel and the nvJPEG decoder, which
-    links libnvjpeg), one nvcc each, all started together."""
+    """Every native source at once: the augmentation kernels and the
+    decode route's (the idct_islow and ycc_canvas kernels, and the entropy
+    decoder built with g++), one compiler process each, all started
+    together."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         aug = ex.submit(cuda_build.build, cuda_kernels.SOURCES)
-        native = ex.submit(nvjpeg.build_all)
+        native = ex.submit(jpeg_gpu.build_all)
         paths = {**aug.result(), **native.result()}
     seconds = time.perf_counter() - t0
     ptxas = []
@@ -596,8 +602,8 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "trials", "device_ms", "
               "device_clock", "peak_gb", "capture_s", "batch", "stacks", "feats", "res",
               "steps", "K", "config", "launches", "device", "gpu"}
 BENCH_LOADER_KEYS = {"backend", "workers", "loader_batches", "prefetch", "loader_wait_ms",
-                     "loader_wait_s", "threads", "read_ms", "info_ms", "host_ms", "canvas_ms",
-                     "copy_ms"}
+                     "loader_wait_s", "threads", "read_ms", "info_ms", "host_ms",
+                     "copy_in_ms", "idct_ms", "canvas_ms", "copy_ms", "refused"}
 
 
 def _bench_line(stdout):
@@ -620,9 +626,9 @@ def phase_bench(smi, workdir):
     split) in ``workdir``: exit code 0, one JSON line and the last, every
     key, a positive rate, 0 <= idle < 1, the card's nvidia-smi line, the
     rasterizer launched in the timed window of every mode but serving
-    (none there), and on the host loader the window's ycc_canvas launches
-    within the superbatches decoded ahead (``prefetch`` + 1) of the batches
-    it took.  Returns {mode: launches}."""
+    (none there), and on the host loader the window's idct_islow and
+    ycc_canvas launches within the superbatches decoded ahead (``prefetch``
+    + 1) of the batches it took, and no file refused.  Returns {mode: launches}."""
     torch.cuda.empty_cache()  # the modes' processes share the card with this one
     env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
     env["TMPDIR"] = workdir
@@ -650,20 +656,26 @@ def phase_bench(smi, workdir):
         else:
             check(raster > 0, f"bench {name}: the rasterizer never launched")
         if name.startswith("loader_host"):
-            check(line["backend"] == "nvjpeg", f"bench {name}: decoded by {line['backend']}")
+            check(line["backend"] == "gpu", f"bench {name}: decoded by {line['backend']}")
             # the decoder's default workers, and the canvas kept on the card
-            check(line["threads"] == nvjpeg.default_threads() and line["copy_ms"] == 0,
+            check(line["threads"] == jpeg_gpu.default_threads() and line["copy_ms"] == 0
+                  and line["refused"] == 0,
                   f"bench {name}: {line['threads']} threads, copy back {line['copy_ms']} ms")
             # the window's launches: one a batch decoded in it, which is a
             # batch it took, give or take the superbatches decoded ahead
             ahead = (line["prefetch"] + 1) * line["K"]
-            taken, ycc = line["loader_batches"], line["launches"]["ycc_canvas"]
-            check(taken - ahead > 0 and taken - ahead <= ycc <= taken + ahead,
-                  f"bench {name}: {ycc} ycc_canvas launches for {taken} batches taken, "
-                  f"{ahead} decoded ahead at most")
+            taken = line["loader_batches"]
+            for kernel in ("idct_islow", "ycc_canvas"):
+                n = line["launches"][kernel]
+                check(taken - ahead > 0 and taken - ahead <= n <= taken + ahead,
+                      f"bench {name}: {n} {kernel} launches for {taken} batches taken, "
+                      f"{ahead} decoded ahead at most")
         out[name] = line["launches"]
     return out
 
+
+# the decode route's kernels, as the launch counts name them
+DECODE_KERNELS = ("idct_islow", "ycc_canvas")
 
 # loader: MPII's own image size and a synthetic split of it; the pre-pad
 # window the driver's auto-sizing picks for such a split (the whole frame:
@@ -682,46 +694,45 @@ FIT_EPOCHS, FIT_RESUME_EPOCHS = 2, 3
 FIT_STEPS, FIT_VAL_BATCHES = 64 // BATCH, 1
 
 
-# nvjpeg: the card's decode route.  nvJPEG's IDCT is not libjpeg's
-# JDCT_ISLOW: on the card (H100 80GB HBM3, 700 W, CUDA 12.8) its planes
-# differ from libjpeg-turbo's by at most 1 in about 2% of the samples of a
-# quality-92 1280x720 frame, at every subsampling.  The phase checks that
-# premise (NVJPEG_PLANE_GAP) and derives the route's bound against Pillow
-# from it.  Fancy upsampling takes rounded convex combinations (3:1 taps),
-# so a gap of g in every input sample stays within g in its output.
-# jdcolor.c then adds to Y (gap g) a rounded multiple of Cr - 128 and
-# Cb - 128: floor((F*x + 2^15) / 2^16) moves by at most ceil(F*g / 2^16)
-# when x moves by g, which for g = 1 is 2 for R (1.402), G (0.34414 +
-# 0.71414) and B (1.772).  So R, G and B lie within g + 2 = 3 of libjpeg's,
-# and Pillow decodes with libjpeg-turbo's ISLOW (equal to the plain chain
-# on libjpeg's planes: tests/test_torch_nvjpeg.py).  LOADER_LSB (2.5)
-# stays the bound of the other routes.
-NVJPEG_PLANE_GAP = 1
-NVJPEG_LSB = NVJPEG_PLANE_GAP + max(
-    math.ceil(f * NVJPEG_PLANE_GAP / 65536)
-    for f in (ycc.FIX_1_40200, ycc.FIX_0_34414 + ycc.FIX_0_71414, ycc.FIX_1_77200))
+# jpeg_gpu: the card's decode route.  Its hand entropy decoder, the
+# idct_islow kernel (libjpeg's jpeg_idct_islow) and the ycc_canvas kernel
+# give libjpeg's decode with its defaults: the planes equal Pillow's YCbCr
+# decode and every canvas equals Pillow's load_sample exactly, so the
+# route's bound against Pillow is 0 LSB (LOADER_LSB, 2.5, stays the bound
+# of the other routes).
+JPEG_LSB = 0
 # the phase's files: 32 of the loader phase's 1280x720 frames (Pillow,
 # quality 92, 4:2:0), and small odd-sized ones at every subsampling the
 # route takes (4:4:0 by relabelling a 4:2:2 file's frame header: Pillow
-# writes no 4:4:0)
-NVJPEG_SMALL = (("444", 97, 131), ("422", 50, 61), ("440", 31, 45), ("420", 161, 121),
-                ("gray", 33, 17), ("420", 3, 2), ("422", 4, 5))
-NVJPEG_PADS = (LOADER_PAD, (400, 600), (64, 48))  # the loader's, then crops
+# writes no 4:4:0), one with restart markers every 3 MCUs, and one
+# progressive file, the one the route refuses
+JPEG_SMALL = (("444", 97, 131), ("422", 50, 61), ("440", 31, 45), ("420", 161, 121),
+              ("gray", 33, 17), ("420", 3, 2), ("422", 4, 5), ("restart", 77, 53),
+              ("progressive", 41, 29))
+JPEG_REFUSED = ("progressive",)
+JPEG_PADS = (LOADER_PAD, (400, 600), (64, 48))  # the loader's, then crops
 # a canvas whose rows start at every byte offset (pw * 3 = 999 bytes)
-NVJPEG_ODD_PAD = (45, 333)
+JPEG_ODD_PAD = (45, 333)
 # integer operations of one output pixel of a 3-component file: two h2v2
 # upsamplings (2 column sums of a multiply and an add, 3 more ops to
 # combine, a shift: 8 each), the two -128s, and the conversion (R 6, G 8,
 # B 6, each with its add, shift and two-sided clamp)
 YCC_OPS_PER_PIXEL = 38
-NVJPEG_TIMED = 3  # decoded batches timed, after one
-NVJPEG_BUSY_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at 2 GHz
-NVJPEG_THREADS = (1, 2, 4, 8)  # the route's img/s at each, and at the default
+# integer operations of one 8x8 block of idct_islow: 64 dequantising
+# multiplies, 16 one-dimensional passes of 12 multiplies, 32 adds and
+# subtracts, 2 shifts left, 8 rounding adds and 8 shifts right (62), and
+# the range limit of 64 samples (a mask and 3 compares each)
+IDCT_OPS_PER_BLOCK = 64 + 16 * 62 + 64 * 4
+JPEG_TIMED = 3  # decoded batches timed, after one
+JPEG_BUSY_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at 2 GHz
+JPEG_THREADS = (1, 2, 4, 8)  # the route's img/s at each, and at the default
 
 
 def _small_jpeg(sub, w, h, seed):
     """A w x h JPEG's bytes at subsampling ``sub`` (444, 422, 420, 440 or
-    gray) from seeded smooth content with noise, at quality 92."""
+    gray; restart: 4:2:0 with a restart interval of 3 MCUs; progressive:
+    4:2:0 progressive) from seeded smooth content with noise, at quality
+    92."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -730,9 +741,13 @@ def _small_jpeg(sub, w, h, seed):
                      (xx + yy) * 7 % 256], -1)
     im = Image.fromarray(np.clip(base + rng.randint(-40, 40, (h, w, 3)), 0, 255)
                          .astype(np.uint8))
-    kw = {"subsampling": {"444": 0, "422": 1, "420": 2, "440": 1}[sub]} if sub != "gray" else {}
+    kw = {"subsampling": {"444": 0, "422": 1, "440": 1}.get(sub, 2)}
+    if sub == "restart":
+        kw["restart_marker_blocks"] = 3
+    if sub == "progressive":
+        kw["progressive"] = True
     if sub == "gray":
-        im = im.convert("L")
+        im, kw = im.convert("L"), {}
     if sub == "440":
         im = im.transpose(Image.TRANSPOSE)
     buf = io.BytesIO()
@@ -744,6 +759,8 @@ def _small_jpeg(sub, w, h, seed):
         data[i + 5:i + 9] = data[i + 7:i + 9] + data[i + 5:i + 7]
         check(data[i + 11] == 0x21, "4:2:2 luma sampling byte")
         data[i + 11] = 0x12
+    if sub == "restart":
+        check(b"\xff\xdd" in data and b"\xff\xd0" in data, "restart markers written")
     return bytes(data)
 
 
@@ -761,6 +778,14 @@ class _Files:
 
     def meta(self, i):
         return (self.centers[i].astype(np.float64), 1.0, np.zeros((16, 2)), np.zeros(16))
+
+
+def _jpeg_size(path):
+    """A JPEG's (width, height) from its header, as Pillow reads it."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.size
 
 
 def _pillow_planes(path):
@@ -807,83 +832,160 @@ def _ycc_bound(planes, n, pad_hw, valid_pixels):
     return nbytes, ops, max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def _busy_planes_equal(dec, frames):
-    """nvJPEG's planes of ``frames`` with the decoder's stream and every
-    worker's held by a sleep kernel queued ahead of the decode, so that
-    nvJPEG's queued copies and IDCTs run late, as on a card shared with
-    other work, against those of idle streams."""
-    idle = [tuple(p.clone() for p in pl) for pl in dec.decode_planes(frames)[0]]
-    for stream in (dec.stream, *dec.worker_streams()):
-        with torch.cuda.stream(stream):
-            torch.cuda._sleep(NVJPEG_BUSY_CYCLES)
-    busy = dec.decode_planes(frames)[0]
-    return all(torch.equal(a, b) for x, y in zip(idle, busy) for a, b in zip(x, y))
+def _idct_bound(blocks, plane_bytes, tables):
+    """Least time for idct_islow's work: the coefficients of the blocks
+    that cover the planes (128 bytes each) and the tables (128 bytes a
+    component) read once, the planes written once, against its integer
+    operations at the card's float32 rate (the table's nearest entry)."""
+    nbytes = blocks * 128 + tables * 128 + plane_bytes
+    ops = blocks * IDCT_OPS_PER_BLOCK
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return nbytes, ops, max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _planes_equal(a, b):
+    return all(len(x) == len(y) and all(torch.equal(p, q) for p, q in zip(x, y))
+               for x, y in zip(a, b))
+
+
+def _busy_stream_equal(dec, sets):
+    """The route's planes and canvases with the decoder's stream held by a
+    sleep kernel, against those of an idle stream: three batches queued
+    behind the sleep, so each of the two pinned coefficient buffers comes
+    round again before its copy has run."""
+    pad = JPEG_PADS[-1]
+    batches = [sets["frames"], sets["small"], sets["frames"]]
+    centers = [np.array([[0.4 * i, 0.3 * i]] * len(b), np.float32) for i, b in
+               enumerate(batches)]
+    idle_planes = [tuple(p.clone() for p in pl) for pl in dec.decode_planes(sets["frames"])[0]]
+    idle = [dec.decode_batch(b, c, pad)[0].copy() for b, c in zip(batches, centers)]
+    with torch.cuda.stream(dec.stream):
+        torch.cuda._sleep(JPEG_BUSY_CYCLES)
+    kept = [dec.decode_batch(b, c, pad, out=dec.canvas((len(b), *pad, 3)))[0]
+            for b, c in zip(batches, centers)]
+    for k in kept:
+        torch.cuda.current_stream().wait_event(k.ready)
+    canvases = all(np.array_equal(k.tensor.cpu().numpy(), i) for k, i in zip(kept, idle))
+    with torch.cuda.stream(dec.stream):
+        torch.cuda._sleep(JPEG_BUSY_CYCLES)
+    planes = _planes_equal(idle_planes, dec.decode_planes(sets["frames"])[0])
+    return {"planes": planes, "canvases": canvases}
 
 
 def _route_times(dec, frames, centers, pad, keep):
-    """NVJPEG_TIMED decodes of ``frames`` timed after one: into a new
-    tensor on the card each (``keep``, the loader's path) or into one
-    pinned host buffer.  Returns ``dec.times`` of the timed ones."""
+    """JPEG_TIMED decodes of ``frames`` timed after one: into a new tensor
+    on the card each (``keep``, the loader's path) or into one pinned host
+    buffer.  Returns ``dec.times`` of the timed ones."""
     pinned = None if keep else torch.empty((len(frames), *pad, 3), dtype=torch.uint8,
                                             pin_memory=True)
     dec.times.clear()
-    for _ in range(NVJPEG_TIMED + 1):
+    for _ in range(JPEG_TIMED + 1):
         out = dec.canvas((len(frames), *pad, 3)) if keep else pinned.numpy()
         dec.decode_batch(frames, centers, pad, out=out)
     torch.cuda.synchronize()
     return dec.times[1:]
 
 
-def phase_nvjpeg(workdir):
-    """The nvJPEG route on the card: nvJPEG's planes against Pillow's
-    YCbCr decode, N worker threads against one (planes and canvases
-    exactly, and on busy streams), the ycc_canvas kernel against its plain version on those
-    planes and on misaligned rows, odd offsets and (0, 0) slots (exactly,
-    one launch a batch), the whole route against Pillow's load_sample
-    (within NVJPEG_LSB, windows exactly, every file decoded), then the
-    kernel alone and through its wrapper timed beside its bound and the
-    write floor, and the decode of the loader's batch (host ms, the
-    wrapper's host ms, canvas and copy-back ms)."""
-    root = os.path.join(workdir, "nvjpeg")
+def _idct_on_card(coefs):
+    """The idct_islow wrapper on a batch's coefficients (``coefs``, a
+    jpeg_gpu.Coefficients on the CPU) moved to the card, into planes laid
+    out as the route lays them out, one launch; and the plain version's
+    planes on the CPU.  Returns (card planes, plain planes, max abs err)."""
+    dev = coefs.buffer.cuda()
+    layout, nbytes = jpeg_gpu.plane_layout([(w, h)] for w, h in coefs.sizes)
+    buf = torch.full((max(nbytes, 1),), 7, dtype=torch.uint8, device="cuda")
+    planes = [buf[off:off + pitch * h].view(h, pitch)[:, :w]
+              for ((w, h, pitch, off),) in layout]
+    before = islow.LAUNCHES["idct_islow"]
+    islow.idct_islow(dev, dev, coefs.desc, planes)
+    torch.cuda.synchronize()
+    check(islow.LAUNCHES["idct_islow"] == before + 1,
+          "the idct_islow wrapper did not launch its kernel once")
+    want = [torch.empty((h, w), dtype=torch.uint8) for w, h in coefs.sizes]
+    islow.idct_islow(coefs.buffer, coefs.buffer, coefs.desc, want)
+    err = max(int((g.cpu().int() - p.int()).abs().max()) for g, p in zip(planes, want))
+    return planes, want, err
+
+
+def _extreme_coefficients(rng):
+    """A jpeg_gpu.Coefficients-like batch of random blocks over four grids
+    (coefficients at +-2047 among random ones, every other block with
+    all-zero AC columns, tables up to 255, grids wider than their
+    planes)."""
+    grids = [(32, 40, 250, 317), (16, 32, 121, 256), (1, 1, 1, 1), (64, 23, 509, 183)]
+    chunks, desc, sizes, at = [], [], [], 0
+    for bw, bh, w, h in grids:
+        blocks = rng.choice([-2047, 2047, 0, 1, -1, *range(-300, 300)], (bw * bh, 64))
+        blocks[::2, 8:] = 0
+        chunks += [rng.randint(1, 256, 64), blocks.ravel()]
+        desc.append((at + 64, at, bw, bh))
+        at += 64 + blocks.size
+        sizes.append((w, h))
+
+    class Batch:
+        pass
+
+    b = Batch()
+    b.buffer = torch.from_numpy(np.concatenate(chunks).astype(np.int16))
+    b.desc, b.sizes = np.array(desc, np.int64), sizes
+    return b
+
+
+def phase_jpeg_gpu(workdir):
+    """The card's decode route: its planes against Pillow's YCbCr decode
+    (exactly), N worker threads against one (planes and canvases exactly)
+    and the decoder's stream held busy, the idct_islow kernel against its
+    plain version on the route's coefficients and on extreme random blocks
+    (exactly, one launch a batch), the ycc_canvas kernel against its plain
+    version on the route's planes and on misaligned rows, odd offsets and
+    (0, 0) slots (exactly, one launch a batch), the whole route against
+    Pillow's load_sample (exactly, windows too, the progressive file
+    refused, counted and filled by the loader's Pillow row), then both
+    kernels timed beside their bounds and the write floor, and the decode
+    of the loader's batch (read, host, copy-in, IDCT, canvas and copy-back
+    ms, img/s) at 1, 2, 4, 8 and N threads."""
+    root = os.path.join(workdir, "jpeg_gpu")
     make_synthetic_dataset(root, num_train=BATCH, num_val=0, res=LOADER_RES, seed=SEED)
     ds = MpiiDataset(os.path.join(root, "annotations.json"), os.path.join(root, "images"),
                      split="train")
     frames = [ds.image_path(i) for i in range(BATCH)]
     small = []
-    for k, (sub, w, h) in enumerate(NVJPEG_SMALL):
+    for k, (sub, w, h) in enumerate(JPEG_SMALL):
         small.append(os.path.join(root, f"small_{k}_{sub}.jpg"))
         with open(small[-1], "wb") as f:
             f.write(_small_jpeg(sub, w, h, SEED + k))
-    dec = NvjpegDecoder("cuda", timing=True)  # default_threads() workers
-    one = NvjpegDecoder("cuda", num_threads=1)
+    refused_want = [sub in JPEG_REFUSED for sub, _, _ in JPEG_SMALL]
+    dec = GpuJpegDecoder("cuda", timing=True)  # default_threads() workers
+    one = GpuJpegDecoder("cuda", num_threads=1)
 
-    # the planes: nvJPEG's, upsampled by the plain version, against Pillow's
+    # the planes, upsampled by the plain version, against Pillow's
     sets = {"frames": frames, "small": small}
-    plane_gap, plane_diff, plane_samples, sizes = 0, 0, 0, {}
+    plane_gap, plane_samples, sizes, refused = 0, 0, {}, {}
     for name, batch in sets.items():
         planes, samplings = dec.decode_planes(batch)
         sizes[name] = [(pl[0].shape[1], pl[0].shape[0]) if pl else None for pl in planes]
+        refused[name] = [not pl for pl in planes]
         for path, pl, samp in zip(batch, planes, samplings):
-            check(pl, f"{path}: nvJPEG refused it")
+            if not pl:
+                continue
             H, W = pl[0].shape
             got = [pl[0]] + [ycc.fancy_upsample(p, *s, W, H) for p, s in zip(pl[1:], samp[1:])]
             for g, want in zip(got, _pillow_planes(path)):
                 d = (g.cpu().numpy().astype(np.int16) - want.astype(np.int16))
                 plane_gap = max(plane_gap, int(np.abs(d).max()))
-                plane_diff += int(np.count_nonzero(d))
                 plane_samples += d.size
-    check(plane_gap <= NVJPEG_PLANE_GAP,
-          f"nvJPEG's planes {plane_gap} from libjpeg's: NVJPEG_LSB's premise fails")
+    check(refused["frames"] == [False] * BATCH and refused["small"] == refused_want,
+          f"refused files {refused}, want only {JPEG_REFUSED}")
+    check(plane_gap == 0, f"the route's planes {plane_gap} from Pillow's")
+    sizes["small"] = [s or _jpeg_size(p) for s, p in zip(sizes["small"], small)]
 
     # N worker threads against one: the planes, then the canvases into host
     # memory and into a tensor on the card, bit for bit
     threads_equal = True
     for name, batch in sets.items():
         want = [tuple(p.clone() for p in pl) for pl in one.decode_planes(batch)[0]]
-        got = dec.decode_planes(batch)[0]
-        threads_equal &= all(torch.equal(a, b) for x, y in zip(want, got)
-                             for a, b in zip(x, y))
-        for pad in (NVJPEG_PADS[0], NVJPEG_PADS[-1]):
+        threads_equal &= _planes_equal(want, dec.decode_planes(batch)[0])
+        for pad in (JPEG_PADS[0], JPEG_PADS[-1]):
             centers = np.array([[0.4 * w, 0.6 * h] for w, h in sizes[name]], np.float32)
             host_one = one.decode_batch(batch, centers, pad)[0]
             host_n = dec.decode_batch(batch, centers, pad)[0]
@@ -891,65 +993,81 @@ def phase_nvjpeg(workdir):
             torch.cuda.current_stream().wait_event(kept.ready)
             threads_equal &= (np.array_equal(host_one, host_n)
                               and np.array_equal(kept.tensor.cpu().numpy(), host_one))
-        del want, got
+        del want
     check(threads_equal, f"{dec.num_threads} worker threads and one decode differently")
 
-    # the decoder's and its workers' streams held by a sleep kernel each:
-    # the planes must be those of idle streams, at one thread and at N
-    busy_equal = {t: _busy_planes_equal(d, frames)
-                  for t, d in ((1, one), (dec.num_threads, dec))}
-    check(all(busy_equal.values()), f"nvJPEG's planes change on busy streams: {busy_equal}")
+    # the decoder's stream held by a sleep kernel: the planes and canvases
+    # must be those of an idle stream, at one thread and at N
+    busy_equal = {t: _busy_stream_equal(d, sets) for t, d in ((1, one), (dec.num_threads, dec))}
+    check(all(all(v.values()) for v in busy_equal.values()),
+          f"the route's output changes on a busy stream: {busy_equal}")
     one.close()
 
-    # the kernel against its plain version on nvJPEG's own planes
+    # idct_islow against its plain version on the route's coefficients and
+    # on extreme random blocks
+    idct_cases = []
+    for name, batch in sets.items():
+        co = dec.coefficients(batch)
+        _, _, err = _idct_on_card(co)
+        check(err == 0, f"idct_islow on the {name} coefficients: max abs err {err}")
+        idct_cases.append({"files": name, "components": len(co.sizes), "max_abs_err": err,
+                           "refused": co.refused})
+    _, _, err = _idct_on_card(_extreme_coefficients(np.random.RandomState(SEED)))
+    check(err == 0, f"idct_islow on extreme blocks: max abs err {err}")
+    idct_cases.append({"files": "extreme_random", "max_abs_err": err})
+
+    # ycc_canvas against its plain version on the route's own planes
     cases = []
     for name, batch in sets.items():
         planes, samplings = dec.decode_planes(batch)
         rng = np.random.RandomState(SEED)
-        for pad in NVJPEG_PADS:
+        for pad in JPEG_PADS:
             # centers near each corner and edge, and inside
             centers = np.array([[(0.01, 0.99, 0.5, 0.01, 0.99)[i % 5] * w,
                                  (0.01, 0.99, 0.99, 0.5, 0.01)[i % 5] * h]
                                 for i, (w, h) in enumerate(sizes[name])], np.float32)
             centers += rng.uniform(-0.5, 0.5, centers.shape).astype(np.float32)
-            windows = np.array([ycc.crop_window(w, h, c, pad) for (w, h), c in
-                                zip(sizes[name], centers)], np.int64)
-            before = nvjpeg.LAUNCHES["ycc_canvas"]
-            got = nvjpeg.ycc_canvas(planes, samplings, windows, pad)
+            windows = np.array([ycc.crop_window(w, h, c, pad) if pl else (0, 0, 0, 0)
+                                for (w, h), c, pl in zip(sizes[name], centers, planes)],
+                               np.int64)
+            before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+            got = jpeg_gpu.ycc_canvas(planes, samplings, windows, pad)
             torch.cuda.synchronize()
-            check(nvjpeg.LAUNCHES["ycc_canvas"] == before + 1,
+            check(jpeg_gpu.LAUNCHES["ycc_canvas"] == before + 1,
                   "the ycc_canvas wrapper did not launch its kernel once")
-            want = torch.stack([ycc.planes_to_canvas(pl, s, pad, c)[0]
+            want = torch.stack([ycc.planes_to_canvas(pl, s, pad, c)[0] if pl else
+                                torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
                                 for pl, s, c in zip(planes, samplings, centers)])
             err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
             check(torch.equal(got, want), f"ycc_canvas {name} {pad}: max abs err {err}")
             cases.append({"files": name, "pad_hw": list(pad), "max_abs_err": err,
                           "cropped": int((windows[:, :2] > 0).any(axis=1).sum())})
 
-    # the kernel against its plain version where rows, windows and slots are
-    # not the decoder's: planes in rows of odd pitch from a base 1 byte off
-    # a 16-byte boundary, windows at odd offsets, (0, 0) slots (every third,
-    # with and without planes), at every pad and at one whose rows start at
-    # every byte offset
+    # ycc_canvas where rows, windows and slots are not the decoder's: planes
+    # in rows of odd pitch from a base 1 byte off a 16-byte boundary,
+    # windows at odd offsets, (0, 0) slots (every third, with and without
+    # planes), at every pad and at one whose rows start at every byte offset
     for name, batch in sets.items():
         planes, samplings = dec.decode_planes(batch)
         moved = [tuple(_misaligned(p) for p in pl) for pl in planes]
         rng = np.random.RandomState(SEED + 1)
-        for pad in (*NVJPEG_PADS, NVJPEG_ODD_PAD):
+        for pad in (*JPEG_PADS, JPEG_ODD_PAD):
             centers = np.array([[0.3 * w, 0.7 * h] for w, h in sizes[name]], np.float32)
-            crops = np.array([ycc.crop_window(w, h, c, pad) for (w, h), c in
-                              zip(sizes[name], centers)], np.int64)
-            odd = np.array([_odd_window(rng, w, h, pad) for w, h in sizes[name]], np.int64)
+            crops = np.array([ycc.crop_window(w, h, c, pad) if pl else (0, 0, 0, 0)
+                              for (w, h), c, pl in zip(sizes[name], centers, planes)], np.int64)
+            odd = np.array([_odd_window(rng, w, h, pad) if pl else (0, 0, 0, 0)
+                            for (w, h), pl in zip(sizes[name], planes)], np.int64)
             zero = odd.copy()
             zero[::3] = 0
             holes = [() if i % 6 == 3 else pl for i, pl in enumerate(moved)]
             for variant, pl_set, wins in (("misaligned_rows", moved, crops),
                                           ("odd_offsets", planes, odd),
                                           ("zero_slots", holes, zero)):
-                before = nvjpeg.LAUNCHES["ycc_canvas"]
-                got = nvjpeg.ycc_canvas(pl_set, samplings, wins, pad)
+                wins = np.where(np.array([bool(p) for p in pl_set])[:, None], wins, 0)
+                before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+                got = jpeg_gpu.ycc_canvas(pl_set, samplings, wins, pad)
                 torch.cuda.synchronize()
-                check(nvjpeg.LAUNCHES["ycc_canvas"] == before + 1,
+                check(jpeg_gpu.LAUNCHES["ycc_canvas"] == before + 1,
                       "the ycc_canvas wrapper did not launch its kernel once")
                 want = torch.stack([ycc.window_canvas(pl, s, w, pad) if pl
                                     else torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
@@ -961,25 +1079,67 @@ def phase_nvjpeg(workdir):
                               "max_abs_err": err, "zero_slots": int((wins[:, 2] == 0).sum())})
         del moved, holes
 
-    # the whole route against Pillow's canvas
-    route_lsb, fallbacks = 0, 0
+    # the whole route against Pillow's canvas, exactly; the refused file
+    # reads ok False and is counted
+    route_lsb, refused_rows = 0, 0
     for name, batch in sets.items():
-        for pad in NVJPEG_PADS:
+        for pad in JPEG_PADS:
             centers = np.array([[0.9 * w, 0.1 * h] for w, h in sizes[name]], np.float32)
+            counted = dec.refused
             images, wh, offs, ok = dec.decode_batch(batch, centers, pad)
-            fallbacks += int((~ok).sum())
+            check(ok.tolist() == [not r for r in refused[name]]
+                  and dec.refused - counted == sum(refused[name]),
+                  f"{name} {pad}: ok {ok.tolist()}, {dec.refused - counted} counted refused")
+            refused_rows += int((~ok).sum())
             files = _Files(batch, centers)
-            for i in range(len(batch)):
+            for i in np.flatnonzero(ok).tolist():
                 want = load_sample(files, i, pad)
                 check(np.array_equal(wh[i], want["valid_wh"])
                       and np.array_equal(offs[i], want["offset"]),
                       f"{batch[i]} {pad}: window {wh[i]} {offs[i]}")
                 route_lsb = max(route_lsb, int(np.abs(images[i].astype(np.int16)
                                                       - want["image"].astype(np.int16)).max()))
-    check(fallbacks == 0, f"{fallbacks} files left to the Pillow fallback")
-    check(route_lsb <= NVJPEG_LSB, f"the nvJPEG route {route_lsb} LSB from Pillow")
+    check(route_lsb <= JPEG_LSB, f"the card's route {route_lsb} LSB from Pillow")
+    # through the loader onto the card: the refused file's row is Pillow's
+    centers = np.array([[0.5 * w, 0.5 * h] for w, h in sizes["small"]], np.float32)
+    files = _Files(small, centers)
+    (batch,) = list(HostLoader(files, len(small), pad_hw=JPEG_PADS[-1], shuffle=False,
+                               backend="gpu", place=make_batch_placer("cuda"), group=1))
+    for i in range(len(small)):
+        want = load_sample(files, i, JPEG_PADS[-1])["image"]
+        check(np.array_equal(batch["image"][0, i].cpu().numpy(), want),
+              f"the loader's row of {small[i]} is not Pillow's")
 
-    # the kernel at the loader's batch: its time, its bound, the write floor
+    # idct_islow at the loader's batch: alone, through its wrapper, the
+    # plain version, the write floor, the bound
+    co = dec.coefficients(frames)
+    dev = co.buffer[:co.elements].cuda()
+    layout, nbytes = jpeg_gpu.plane_layout([(w, h)] for w, h in co.sizes)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    planes = [buf[off:off + pitch * h].view(h, pitch)[:, :w] for ((w, h, pitch, off),) in layout]
+    words, blocks = islow.descriptors(co.desc, planes)
+    dev_words = torch.from_numpy(words).cuda()
+    fn, stream = islow.launch_fn(), torch.cuda.current_stream().cuda_stream
+    check(fn(dev_words.data_ptr(), len(planes), blocks, dev.data_ptr(), dev.data_ptr(),
+             stream) == 0, "idct_islow launch")
+    alone = buf.clone()
+    idct_ms = cuda_ms(lambda: fn(dev_words.data_ptr(), len(planes), blocks, dev.data_ptr(),
+                                 dev.data_ptr(), stream))
+    before = islow.LAUNCHES["idct_islow"]
+    idct_wrapper_ms = cuda_ms(lambda: islow.idct_islow(dev, dev, co.desc, planes))
+    check(islow.LAUNCHES["idct_islow"] > before, "idct_islow did not launch")
+    check(torch.equal(buf, alone), "idct_islow alone and through its wrapper differ")
+    idct_plain_ms = cuda_ms(lambda: [islow.component_plane(
+        dev[o:o + bw * bh * 64], dev[q:q + 64], bw, bh, w, h)
+        for (o, q, bw, bh), (w, h) in zip(co.desc.tolist(), co.sizes)], reps=2, samples=5)
+    plane_bytes = sum(w * h for w, h in co.sizes)
+    idct_floor_ms = cuda_ms(buf.zero_)
+    idct_bytes, idct_ops, idct_bound_ms, idct_bound_by = _idct_bound(blocks, plane_bytes,
+                                                                     len(co.sizes))
+    coefficient_bytes = 2 * co.elements
+    del dev, buf, alone, planes, dev_words
+
+    # ycc_canvas at the loader's batch: its time, its bound, the write floor
     pad = LOADER_PAD
     planes, samplings = dec.decode_planes(frames)
     planes = [tuple(p.clone() for p in pl) for pl in planes]  # outlive the buffer
@@ -989,19 +1149,19 @@ def phase_nvjpeg(workdir):
                         for pl, c in zip(planes, centers)], np.int64)
     out = torch.empty((BATCH, *pad, 3), dtype=torch.uint8, device="cuda")
     # the kernel alone, its descriptors already on the card
-    desc = torch.from_numpy(nvjpeg._descriptors(planes, samplings, windows, pad,
-                                                out.device)).cuda()
-    fn, stream = nvjpeg._ycc_fn(), torch.cuda.current_stream().cuda_stream
+    desc = torch.from_numpy(jpeg_gpu._descriptors(planes, samplings, windows, pad,
+                                                  out.device)).cuda()
+    fn, stream = jpeg_gpu._ycc_fn(), torch.cuda.current_stream().cuda_stream
     out.fill_(7)
     check(fn(desc.data_ptr(), BATCH, *pad, out.data_ptr(), stream) == 0, "ycc_canvas launch")
     alone = out.clone()
     ms = cuda_ms(lambda: fn(desc.data_ptr(), BATCH, *pad, out.data_ptr(), stream))
     # the wrapper: its checks, the descriptors, their staging and copy, the
-    # launch (a call's host waits for the kernel of the call nvjpeg.STAGING_SLOTS
+    # launch (a call's host waits for the kernel of the call STAGING_SLOTS
     # before it, so back to back this reads the host's time where it is longer)
-    before = nvjpeg.LAUNCHES["ycc_canvas"]
-    wrapper_ms = cuda_ms(lambda: nvjpeg.ycc_canvas(planes, samplings, windows, pad, out=out))
-    check(nvjpeg.LAUNCHES["ycc_canvas"] > before, "ycc_canvas did not launch")
+    before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+    wrapper_ms = cuda_ms(lambda: jpeg_gpu.ycc_canvas(planes, samplings, windows, pad, out=out))
+    check(jpeg_gpu.LAUNCHES["ycc_canvas"] > before, "ycc_canvas did not launch")
     check(torch.equal(out, alone), "the kernel alone and through its wrapper differ")
     plain_ms = cuda_ms(lambda: torch.stack([ycc.window_canvas(pl, s, w, pad) for pl, s, w
                                             in zip(planes, samplings, windows)]),
@@ -1017,23 +1177,32 @@ def phase_nvjpeg(workdir):
     kept = _route_times(dec, frames, centers, pad, keep=True)
     timed = _route_times(dec, frames, centers, pad, keep=False)
     sweep = []
-    for t in sorted({*NVJPEG_THREADS, dec.num_threads}):
-        d = dec if t == dec.num_threads else NvjpegDecoder("cuda", timing=True, num_threads=t)
+    for t in sorted({*JPEG_THREADS, dec.num_threads}):
+        d = dec if t == dec.num_threads else GpuJpegDecoder("cuda", timing=True, num_threads=t)
         times = _route_times(d, frames, centers, pad, keep=True)
         sweep.append({"threads": t, "img_per_s": [BATCH * 1e3 / x["total_ms"] for x in times],
-                      **{k: [x[k] for x in times] for k in ("read_ms", "info_ms", "host_ms", "total_ms")}})
+                      **{k: [x[k] for x in times] for k in ("read_ms", "info_ms", "host_ms",
+                                                            "copy_in_ms", "idct_ms",
+                                                            "total_ms")}})
         if d is not dec:
             d.close()
     dec.close()
-    emit("nvjpeg", files=len(frames) + len(small), frame_res=list(LOADER_RES),
-         small=[list(c) for c in NVJPEG_SMALL],
-         plane_gap_max=plane_gap, plane_samples_differing=plane_diff,
-         plane_samples=plane_samples, plane_gap_premise=NVJPEG_PLANE_GAP,
+    emit("jpeg_gpu", files=len(frames) + len(small), frame_res=list(LOADER_RES),
+         small=[list(c) for c in JPEG_SMALL], refused=refused["small"],
+         refused_rows=refused_rows,
+         plane_gap_max=plane_gap, plane_samples=plane_samples,
          threads=dec.num_threads, cpu_count=os.cpu_count(),
          affinity=len(os.sched_getaffinity(0)), threads_equal_one=threads_equal,
-         planes_equal_on_busy_streams=busy_equal,
-         route_max_lsb_vs_pillow=route_lsb, route_bound_lsb=NVJPEG_LSB,
-         pillow_fallbacks=fallbacks, kernel_cases=cases,
+         busy_stream_equal=busy_equal,
+         route_max_lsb_vs_pillow=route_lsb, route_bound_lsb=JPEG_LSB,
+         idct_cases=idct_cases, kernel_cases=cases,
+         idct={"batch": BATCH, "blocks": blocks, "components": len(co.sizes),
+               "coefficient_bytes": coefficient_bytes, "ms": idct_ms,
+               "wrapper_ms": idct_wrapper_ms, "plain_ms": idct_plain_ms,
+               "write_floor_ms": idct_floor_ms, "bound_ms": idct_bound_ms,
+               "bound_by": idct_bound_by, "share_of_bound": idct_bound_ms / idct_ms,
+               "gb_per_s": idct_bytes / idct_ms / 1e6, "bytes": idct_bytes,
+               "operations": idct_ops},
          kernel={"batch": BATCH, "pad_hw": list(pad), "ms": ms, "wrapper_ms": wrapper_ms,
                  "plain_ms": plain_ms, "write_floor_ms": floor_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "share_of_bound": bound_ms / ms,
@@ -1042,22 +1211,26 @@ def phase_nvjpeg(workdir):
          read_ms_per_batch=[t["read_ms"] for t in kept],
          info_ms_per_batch=[t["info_ms"] for t in kept],
          host_ms_per_batch=[t["host_ms"] for t in kept],
+         copy_in_ms_per_batch=[t["copy_in_ms"] for t in kept],
+         idct_ms_per_batch=[t["idct_ms"] for t in kept],
          desc_ms_per_batch=[t["desc_ms"] for t in kept],
          canvas_ms_per_batch=[t["canvas_ms"] for t in kept],
          img_per_s=[BATCH * 1e3 / t["total_ms"] for t in kept],
          pinned={"decode_ms_per_batch": [t["total_ms"] for t in timed],
                  "host_ms_per_batch": [t["host_ms"] for t in timed],
+                 "copy_in_ms_per_batch": [t["copy_in_ms"] for t in timed],
+                 "idct_ms_per_batch": [t["idct_ms"] for t in timed],
                  "canvas_ms_per_batch": [t["canvas_ms"] for t in timed],
                  "copy_back_ms_per_batch": [t["copy_ms"] for t in timed],
                  "img_per_s": [BATCH * 1e3 / t["total_ms"] for t in timed]},
          thread_sweep=sweep)
-    return {
+    ycc_entry = {
         "name": "ycc_canvas",
         "route": "cuda",
         "source": "posetpu_torch/native/kernels/ycc_canvas.cu",
         # no TPU kernel: libjpeg's upsampling and conversion inside the pool
         "replaces": "posetpu/native/decode_pool.cpp:81",
-        "launches": None,  # filled from fit_nvjpeg
+        "launches": None,  # filled from fit_jpeg_gpu
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": ms,
         "wrapper_ms": wrapper_ms,
@@ -1069,6 +1242,24 @@ def phase_nvjpeg(workdir):
         "library_ms": None,
         "write_floor_ms": floor_ms,
     }
+    idct_entry = {
+        "name": "idct_islow",
+        "route": "cuda",
+        "source": "posetpu_torch/native/kernels/idct_islow.cu",
+        # no TPU kernel: libjpeg's IDCT inside the pool's jpeg_read_scanlines
+        "replaces": "posetpu/native/decode_pool.cpp:81",
+        "launches": None,  # filled from fit_jpeg_gpu
+        "max_abs_err": max(c["max_abs_err"] for c in idct_cases),
+        "ms": idct_ms,
+        "wrapper_ms": idct_wrapper_ms,
+        "plain_ms": idct_plain_ms,
+        "bound_ms": idct_bound_ms,
+        "bound_by": idct_bound_by,
+        # no PyTorch call computes libjpeg's integer IDCT
+        "library_ms": None,
+        "write_floor_ms": idct_floor_ms,
+    }
+    return ycc_entry, idct_entry
 
 
 def _serve_batches(rng):
@@ -1892,7 +2083,7 @@ def phase_joint_parity():
 def _route_probe():
     """What the machine decodes with, and the decode routes this run
     takes: "pil" where Pillow imports, "native" where the C++ pool builds,
-    "nvjpeg" where the nvJPEG route builds and starts on the card."""
+    "gpu" where the card's route builds and starts on the card."""
     try:
         import PIL
 
@@ -1915,7 +2106,7 @@ def _route_probe():
         mpl = True
     except ImportError:
         mpl = False
-    routes, native_error, nvjpeg_error = [], None, None
+    routes, native_error, gpu_error = [], None, None
     if pillow:
         routes.append("pil")
     try:
@@ -1927,11 +2118,11 @@ def _route_probe():
         lines = str(e).strip().splitlines()
         native_error = next((ln for ln in lines if "error" in ln), lines[-1])[:200]
     try:
-        NvjpegDecoder("cuda").close()
-        routes.append("nvjpeg")
+        GpuJpegDecoder("cuda").close()
+        routes.append("gpu")
     except Exception as e:
         lines = str(e).strip().splitlines() or [repr(e)]
-        nvjpeg_error = next((ln for ln in lines if "error" in ln), lines[-1])[:200]
+        gpu_error = next((ln for ln in lines if "error" in ln), lines[-1])[:200]
     try:
         import tensorboard
 
@@ -1940,9 +2131,8 @@ def _route_probe():
         tb = None
     shm = shutil.disk_usage("/dev/shm").total if os.path.isdir("/dev/shm") else None
     return dict(pillow=pillow, gxx=gxx, jpeglib_header=header, libjpeg=libjpeg,
-                nvjpeg_header=os.path.exists(os.path.join(cuda_home, "include", "nvjpeg.h")),
                 cpu_count=os.cpu_count(), matplotlib=mpl, routes=routes,
-                native_error=native_error, nvjpeg_error=nvjpeg_error, tensorboard=tb,
+                native_error=native_error, gpu_error=gpu_error, tensorboard=tb,
                 dev_shm_bytes=shm,
                 worker_start_method=WORKER_START_METHOD)
 
@@ -1951,7 +2141,7 @@ def phase_host():
     info = _route_probe()
     check(info["routes"], "no decode route: neither Pillow nor the native pool")
     emit("host", **info)
-    check("nvjpeg" in info["routes"], f"the nvJPEG route does not start: {info['nvjpeg_error']}")
+    check("gpu" in info["routes"], f"the card's decode route does not start: {info['gpu_error']}")
     return info["routes"], info["tensorboard"] is not None
 
 
@@ -1995,7 +2185,7 @@ def phase_loader(routes, workdir):
     root = os.path.join(workdir, "loader")
     t0 = time.perf_counter()
     # the validation images come after the train ones: the train JPEGs are
-    # those of a split without them (fit_nvjpeg validates on them)
+    # those of a split without them (fit_jpeg_gpu validates on them)
     make_synthetic_dataset(root, num_train=LOADER_IMAGES, num_val=LOADER_VAL, res=LOADER_RES,
                            seed=SEED)
     make_s = time.perf_counter() - t0
@@ -2041,7 +2231,7 @@ def phase_loader(routes, workdir):
             for k in a:
                 if k != "image":
                     check(np.array_equal(a[k], b[k]), f"{route} vs {routes[0]}: {k}")
-        bound = NVJPEG_LSB if route == "nvjpeg" else LOADER_LSB
+        bound = JPEG_LSB if route == "gpu" else LOADER_LSB
         check(lsb <= bound, f"{route} vs {routes[0]}: images {lsb} LSB apart")
         agree[route] = lsb
     emit("loader", images=LOADER_IMAGES, res=list(LOADER_RES), pad_hw=list(LOADER_PAD),
@@ -2108,28 +2298,32 @@ def _loader_routes():
 def _cli(main, argv):
     """Call a CLI's main in this process with the kernels' counts reset
     just before; returns (result, rasterizer launches, stdout, decode),
-    decode: the ycc_canvas kernel's launches and each Experiment's
-    (train, validation) decode routes."""
+    decode: the idct_islow and ycc_canvas kernels' launches and each
+    Experiment's (train, validation) decode routes."""
     buf = io.StringIO()
     cuda_kernels.reset_launches()
-    nvjpeg.reset_launches()
+    jpeg_gpu.reset_launches()
     with contextlib.redirect_stdout(buf), _loader_routes() as routes:
         result = main(argv)
     torch.cuda.synchronize()
     launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
     print(buf.getvalue(), end="", file=sys.stderr, flush=True)
-    decode = {"ycc_canvas": nvjpeg.LAUNCHES["ycc_canvas"], "routes": routes}
+    decode = {"ycc_canvas": jpeg_gpu.LAUNCHES["ycc_canvas"],
+              "idct_islow": islow.LAUNCHES["idct_islow"], "routes": routes}
     return result, launches, buf.getvalue(), decode
 
 
-def _check_decode(label, decode, route="nvjpeg"):
-    """Every Experiment of a run decoded through ``route`` ("nvjpeg" for
-    the host loader on the card; the worker loader's processes keep
-    Pillow), and the ycc_canvas kernel launched where nvJPEG decoded."""
+def _check_decode(label, decode, route="gpu"):
+    """Every Experiment of a run decoded through ``route`` ("gpu" for the
+    host loader on the card; the worker loader's processes keep Pillow),
+    and the idct_islow and ycc_canvas kernels launched where the card's
+    route decoded, once each a batch."""
     check(decode["routes"] and all(r == (route, route) for r in decode["routes"]),
           f"{label}: decode routes {decode['routes']}, want {route}")
-    check((decode["ycc_canvas"] > 0) == (route == "nvjpeg"),
-          f"{label}: ycc_canvas launched {decode['ycc_canvas']} times")
+    check((decode["ycc_canvas"] > 0) == (route == "gpu")
+          and decode["idct_islow"] == decode["ycc_canvas"],
+          f"{label}: ycc_canvas launched {decode['ycc_canvas']} times, "
+          f"idct_islow {decode['idct_islow']}")
 
 
 def _img_per_s(out):
@@ -2212,20 +2406,21 @@ def phase_fit(workdir):
          launches={"train": l1, "resumed": l2, "eval": l3},
          launches_per_epoch=per_epoch, warmup_steps=WARMUP_STEPS,
          decode_routes=d1["routes"] + d2["routes"] + d3["routes"],
-         ycc_canvas_launches=[d1["ycc_canvas"], d2["ycc_canvas"], d3["ycc_canvas"]])
-    return l1 + l2 + l3, d1["ycc_canvas"] + d2["ycc_canvas"] + d3["ycc_canvas"]
+         ycc_canvas_launches=[d1["ycc_canvas"], d2["ycc_canvas"], d3["ycc_canvas"]],
+         idct_islow_launches=[d1["idct_islow"], d2["idct_islow"], d3["idct_islow"]])
+    return l1 + l2 + l3, {k: d1[k] + d2[k] + d3[k] for k in DECODE_KERNELS}
 
 
 @contextlib.contextmanager
 def _canvas_routes():
-    """Records, for every NvjpegDecoder.decode_batch call inside, whether
+    """Records, for every GpuJpegDecoder.decode_batch call inside, whether
     its canvas stayed on the card (a CUDA tensor ``out``) or came back to
     the host, and every superbatch whose images the loader stacked on the
     host (its ``_stack`` without the group's tensor)."""
     from posetpu_torch.data import loader as loader_mod
 
     seen = {"card": [], "host": [], "host_stacks": []}  # list.append: thread-safe
-    decode, stack = NvjpegDecoder.decode_batch, loader_mod._stack
+    decode, stack = GpuJpegDecoder.decode_batch, loader_mod._stack
 
     def decode_batch(self, paths, centers, pad_hw, out=None):
         seen["card" if torch.is_tensor(out) and out.is_cuda else "host"].append(len(paths))
@@ -2236,24 +2431,24 @@ def _canvas_routes():
             seen["host_stacks"].append(len(items))
         return stack(items, host_image, image)
 
-    NvjpegDecoder.decode_batch, loader_mod._stack = decode_batch, recording_stack
+    GpuJpegDecoder.decode_batch, loader_mod._stack = decode_batch, recording_stack
     try:
         yield seen
     finally:
-        NvjpegDecoder.decode_batch, loader_mod._stack = decode, stack
+        GpuJpegDecoder.decode_batch, loader_mod._stack = decode, stack
 
 
-def phase_fit_nvjpeg(loader_root, loader_results, workers):
+def phase_fit_jpeg_gpu(loader_root, loader_results, workers):
     """train.cli.main at full hg8_mpii width, bf16, batch 32, FIT_EPOCHS
     epochs over the loader phase's 64 frames at 1280x720 (its 16 validation
-    frames validate), decoded by nvJPEG into the (768, 1280) canvas the
+    frames validate), decoded by the card's route into the (768, 1280) canvas the
     driver's auto-sizing picks: img/s of each epoch (the first captures the
     graph) beside the loader phase's Pillow and WorkerLoader rates from
     this run.  Every train batch is decoded into a canvas on the card (none
     copied back, no image stacked on the host; the validation loader's
-    stay on the host); the ycc_canvas kernel launches once a decoded batch;
-    the counts are reset just before."""
-    ckpt = os.path.join(loader_root, "fit_nvjpeg")
+    stay on the host); the idct_islow and ycc_canvas kernels launch once
+    each a decoded batch; the counts are reset just before."""
+    ckpt = os.path.join(loader_root, "fit_jpeg_gpu")
     steps, val_batches = LOADER_IMAGES // BATCH, -(-LOADER_VAL // BATCH)
     t0 = time.perf_counter()
     with _canvas_routes() as canvases:
@@ -2263,30 +2458,31 @@ def phase_fit_nvjpeg(loader_root, loader_results, workers):
             "--checkpoint", ckpt, "--epochs", str(FIT_EPOCHS)])
     seconds = time.perf_counter() - t0
     check(rc == 0, f"train cli returned {rc}")
-    _check_decode("fit_nvjpeg", decode)
+    _check_decode("fit_jpeg_gpu", decode)
     check(len(canvases["card"]) == FIT_EPOCHS * steps and not canvases["host_stacks"]
           and len(canvases["host"]) == FIT_EPOCHS * val_batches,
-          f"fit_nvjpeg: {len(canvases['card'])} train batches decoded on the card, "
+          f"fit_jpeg_gpu: {len(canvases['card'])} train batches decoded on the card, "
           f"{len(canvases['host'])} to the host, {len(canvases['host_stacks'])} stacked "
           f"there; want {FIT_EPOCHS * steps}, {FIT_EPOCHS * val_batches} (validation), 0")
-    check(f"pad_hw={LOADER_PAD}" in out, "fit_nvjpeg: the driver picked another pad_hw")
+    check(f"pad_hw={LOADER_PAD}" in out, "fit_jpeg_gpu: the driver picked another pad_hw")
     batches = FIT_EPOCHS * (steps + val_batches)
     check(decode["ycc_canvas"] == batches,
-          f"fit_nvjpeg: ycc_canvas launches {decode['ycc_canvas']}, want {batches}")
+          f"fit_jpeg_gpu: ycc_canvas launches {decode['ycc_canvas']}, want {batches}")
     want = batches + WARMUP_STEPS + EVAL_WARMUP
-    check(launches == want, f"fit_nvjpeg launches {launches}, want {want}")
-    vals, _ = _check_run("fit_nvjpeg", os.path.join(ckpt, "hg8_mpii"), FIT_EPOCHS,
+    check(launches == want, f"fit_jpeg_gpu launches {launches}, want {want}")
+    vals, _ = _check_run("fit_jpeg_gpu", os.path.join(ckpt, "hg8_mpii"), FIT_EPOCHS,
                          FIT_EPOCHS * steps)
-    emit("fit_nvjpeg", config="hg8_mpii", batch=BATCH, epochs=FIT_EPOCHS, images=LOADER_IMAGES,
+    emit("fit_jpeg_gpu", config="hg8_mpii", batch=BATCH, epochs=FIT_EPOCHS, images=LOADER_IMAGES,
          res=list(LOADER_RES), pad_hw=list(LOADER_PAD), seconds=seconds,
          images_per_sec=_img_per_s(out), log=vals, launches=launches,
-         ycc_canvas_launches=decode["ycc_canvas"], decode_routes=decode["routes"],
+         ycc_canvas_launches=decode["ycc_canvas"], idct_islow_launches=decode["idct_islow"],
+         decode_routes=decode["routes"],
          canvases_on_card=len(canvases["card"]), canvases_to_host=len(canvases["host"]),
          host_stacks=len(canvases["host_stacks"]),
          loader_img_per_s={r["route"]: r["img_per_s"] for r in loader_results},
          worker_loader_img_per_s={w["workers"]: w["img_per_s"] for w in workers},
          worker_loader_steady_img_per_s={w["workers"]: w["steady_img_per_s"] for w in workers})
-    return launches, decode["ycc_canvas"]
+    return launches, {k: decode[k] for k in DECODE_KERNELS}
 
 
 def phase_fit_joint(workdir):
@@ -2294,7 +2490,7 @@ def phase_fit_joint(workdir):
     CLI at full width, batch 32, each joint step a CUDA graph of one step
     (K = 1): 2 rasterizer launches per joint step and per warm-up step
     before the capture, and 1 per validation batch."""
-    total, ycc_total, runs = 0, 0, []
+    total, decode_total, runs = 0, dict.fromkeys(DECODE_KERNELS, 0), []
     for name in ("hg8_mpii_asr", "hg8_lsp_aho"):
         ckpt = os.path.join(workdir, name)
         t0 = time.perf_counter()
@@ -2316,11 +2512,13 @@ def phase_fit_joint(workdir):
         runs.append({"config": name, "seconds": seconds, "images_per_sec": _img_per_s(out),
                      "log": vals, "best_written": best, "launches": launches,
                      "launches_want": want, "decode_routes": decode["routes"],
-                     "ycc_canvas_launches": decode["ycc_canvas"]})
+                     "ycc_canvas_launches": decode["ycc_canvas"],
+                     "idct_islow_launches": decode["idct_islow"]})
         total += launches
-        ycc_total += decode["ycc_canvas"]
+        for k in DECODE_KERNELS:
+            decode_total[k] += decode[k]
     emit("fit_joint", batch=BATCH, epochs=1, steps_per_epoch=FIT_STEPS, runs=runs)
-    return total, ycc_total
+    return total, decode_total
 
 
 # dispatch: K train steps a CUDA graph at full width, and the dispatches
@@ -2935,9 +3133,9 @@ def phase_dp_config(workdir):
     torch.cuda.empty_cache()
     exp = Experiment(cfg, device="cuda")
     routes = (exp.loader.backend, exp.val_loader.backend)
-    nvjpeg.reset_launches()
+    jpeg_gpu.reset_launches()
     try:
-        check(routes == ("nvjpeg", "nvjpeg"), f"dp_config decode routes {routes}")
+        check(routes == ("gpu", "gpu"), f"dp_config decode routes {routes}")
         check(exp.world == 1 and exp.group is None, "one rank")
         check(exp.state.agent.model.input_downscale == 2, "the agent's input downscale")
         exp.train_epoch(0)  # warm-up: cuDNN and cuBLAS set-up at 384²
@@ -2985,8 +3183,10 @@ def phase_dp_config(workdir):
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         exp.close()
-    ycc_launches = nvjpeg.LAUNCHES["ycc_canvas"]
-    check(ycc_launches > 0, "dp_config: ycc_canvas never launched")
+    decode = {"ycc_canvas": jpeg_gpu.LAUNCHES["ycc_canvas"],
+              "idct_islow": islow.LAUNCHES["idct_islow"]}
+    check(decode["ycc_canvas"] > 0 and decode["idct_islow"] == decode["ycc_canvas"],
+          f"dp_config: decode launches {decode}")
     emit("dp_config", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
          batch=B, inp_res=list(cfg.aug.inp_res), out_res=list(cfg.aug.out_res),
          num_devices=cfg.num_devices, dtype="bfloat16", pad_hw=list(cfg.pad_hw),
@@ -2999,8 +3199,9 @@ def phase_dp_config(workdir):
          device_busy_ms_per_step=prof["device_busy_ms"] / DP_CONFIG_K,
          idle_share=prof["idle_share"], profile=prof, max_memory_allocated=peak,
          capture_seconds=dispatch.capture_seconds, pool_bytes=dispatch.pool_bytes,
-         launches=launches, decode_routes=[routes], ycc_canvas_launches=ycc_launches)
-    return launches, ycc_launches
+         launches=launches, decode_routes=[routes], ycc_canvas_launches=decode["ycc_canvas"],
+         idct_islow_launches=decode["idct_islow"])
+    return launches, decode
 
 
 def _dp_model(cfg, state_np, dev, group):
@@ -4171,7 +4372,7 @@ def _run_phases(smi):
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        ycc_summary = phase_nvjpeg(workdir)
+        ycc_summary, idct_summary = phase_jpeg_gpu(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     cfg = named_config("hg8_mpii")
@@ -4203,13 +4404,13 @@ def _run_phases(smi):
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         loader_root, loader_results, workers = phase_loader(routes, workdir)
-        fit_nvjpeg_launches, ycc_fit_nvjpeg = phase_fit_nvjpeg(loader_root, loader_results,
-                                                               workers)
-        fit_launches, ycc_fit = phase_fit(workdir)
-        fit_joint_launches, ycc_fit_joint = phase_fit_joint(workdir)
+        fit_jpeg_gpu_launches, decode_fit_jpeg_gpu = phase_fit_jpeg_gpu(
+            loader_root, loader_results, workers)
+        fit_launches, decode_fit = phase_fit(workdir)
+        fit_joint_launches, decode_fit_joint = phase_fit_joint(workdir)
         fit_dispatch_launches = phase_fit_dispatch(workdir, have_tensorboard)
         fit_joint_dispatch_launches = phase_fit_joint_dispatch(workdir, have_tensorboard)
-        dp_config_launches, ycc_dp_config = phase_dp_config(workdir)
+        dp_config_launches, decode_dp_config = phase_dp_config(workdir)
         variants_launches = phase_variants(cfg, workdir)
         remat_launches = phase_remat()
         ckpt_interop_launches = phase_ckpt_interop(workdir)
@@ -4227,7 +4428,7 @@ def _run_phases(smi):
                                   "joint": joint_launches["rasterize_gaussians"],
                                   "joint_lsp": lsp_launches["rasterize_gaussians"],
                                   "fit": fit_launches,
-                                  "fit_nvjpeg": fit_nvjpeg_launches,
+                                  "fit_jpeg_gpu": fit_jpeg_gpu_launches,
                                   "fit_joint": fit_joint_launches,
                                   "dispatch": dispatch_launches,
                                   "dispatch_parity": dispatch_parity_launches,
@@ -4246,14 +4447,17 @@ def _run_phases(smi):
                                   "adv_gain": adv_gain_launches,
                                   **{f"bench_{name}": n["rasterize_gaussians"]
                                      for name, n in bench_launches.items()}}
-    ycc_summary["launches"] = ycc_fit_nvjpeg
-    ycc_summary["launches_by_path"] = {"fit_nvjpeg": ycc_fit_nvjpeg, "fit": ycc_fit,
-                                       "fit_joint": ycc_fit_joint,
-                                       "dp_config": ycc_dp_config,
-                                       **{f"bench_{name}": n["ycc_canvas"]
-                                          for name, n in bench_launches.items()
-                                          if name.startswith("loader_host")}}
-    return [raster, ycc_summary]
+    for summary in (ycc_summary, idct_summary):
+        name = summary["name"]
+        summary["launches"] = decode_fit_jpeg_gpu[name]
+        summary["launches_by_path"] = {"fit_jpeg_gpu": decode_fit_jpeg_gpu[name],
+                                       "fit": decode_fit[name],
+                                       "fit_joint": decode_fit_joint[name],
+                                       "dp_config": decode_dp_config[name],
+                                       **{f"bench_{mode}": n[name]
+                                          for mode, n in bench_launches.items()
+                                          if mode.startswith("loader_host")}}
+    return [raster, ycc_summary, idct_summary]
 
 
 if __name__ == "__main__":

@@ -24,11 +24,13 @@ nvidia-smi name and power-limit line).  The loader modes add
 ``loader_batches`` (the batches the timed window took) and ``prefetch``
 (the loader's queue: the producer thread decodes up to ``prefetch`` + 1
 superbatches ahead of the step, so a window's ``ycc_canvas`` launches
-differ from its batches by at most that many superbatches), on the nvJPEG
-route ``threads`` (its decoder's worker threads) and the medians of
-``NvjpegDecoder.times`` in the window (``read_ms``, ``info_ms``,
-``host_ms``, ``canvas_ms``, and ``copy_ms``, 0 there: the loader keeps
-the canvas on the card), and the step's wait on the loader
+differ from its batches by at most that many superbatches, and its
+``idct_islow`` launches likewise), on the card's decode route ``threads``
+(its entropy decoder's worker threads) and the medians of
+``GpuJpegDecoder.times`` in the window (``read_ms``, ``info_ms``,
+``host_ms``, ``copy_in_ms``, ``idct_ms``, ``canvas_ms``, and ``copy_ms``,
+0 there: the loader keeps the canvas on the card) and the files it
+refused in the window (``refused``), and the step's wait on the loader
 (``loader_wait_ms``, the median of a dispatch's, and ``loader_wait_s``,
 the window's sum).  Everything else goes to stderr.  Every mode runs on
 CUDA unless ``--cpu``; without a card it raises and prints no JSON line.
@@ -52,7 +54,8 @@ The modes (``bench.py`` -> this module):
 - ``--serve``: :class:`posetpu_torch.infer.PosePredictor` (one CUDA graph
   a shape) a batch per call, or through ``predict_iter(depth=DEPTH)``;
 - ``--loader host|grain``: :class:`posetpu_torch.data.HostLoader` (on CUDA
-  through nvJPEG and the ``ycc_canvas`` kernel) or
+  through the card's decode route: the entropy decoder, the ``idct_islow``
+  and ``ycc_canvas`` kernels) or
   :class:`posetpu_torch.data.WorkerLoader` feeding the step, through
   :func:`~posetpu_torch.data.make_batch_placer`, K = ``--k-per-dispatch``
   steps a CUDA graph (1 included, as
@@ -102,7 +105,7 @@ from posetpu_torch.data.synthetic import whole_group_split
 from posetpu_torch.data.worker_loader import stop_worker_server
 from posetpu_torch.infer import PosePredictor
 from posetpu_torch.models import hg
-from posetpu_torch.native import nvjpeg
+from posetpu_torch.native import islow, jpeg_gpu
 from posetpu_torch.train import TrainState, make_dispatch_step, make_optimizer
 from posetpu_torch.train.adversarial import (
     JointState,
@@ -167,13 +170,14 @@ def _span(timer):
 
 def _reset_launches():
     cuda_kernels.reset_launches()
-    nvjpeg.reset_launches()
+    jpeg_gpu.reset_launches()
 
 
 def _launches():
     """The launches counted since :func:`_reset_launches`, by kernel."""
     return {"rasterize_gaussians": cuda_kernels.LAUNCHES["rasterize_gaussians"],
-            "ycc_canvas": nvjpeg.LAUNCHES["ycc_canvas"]}
+            "idct_islow": islow.LAUNCHES["idct_islow"],
+            "ycc_canvas": jpeg_gpu.LAUNCHES["ycc_canvas"]}
 
 
 def _hourglass(stacks, feats, classes=16, scan_stacks=False):
@@ -355,7 +359,7 @@ def _endless(loader):
 def run_bench_loader(dev, batch=16, stacks=8, feats=128, steps=20, warmup=3, res=256,
                      backend="host", workers=0, group=1):
     """The loader-fed steady state (the reference's ``run_bench_loader``):
-    decode on the host or through nvJPEG, ``warmup`` dispatches (at least
+    decode on the host or on the card, ``warmup`` dispatches (at least
     one; the first captures the graph), then ``steps`` optimizer steps, K =
     ``group`` a dispatch, ended by a fetch of the last loss.  The card's
     clock spans each timed dispatch; the counts and the decode's times are
@@ -368,7 +372,7 @@ def run_bench_loader(dev, batch=16, stacks=8, feats=128, steps=20, warmup=3, res
                               place=placer, num_workers=workers)
     else:
         loader = HostLoader(ds, batch, pad_hw=LOADER_PAD, seed=0, group=group, place=placer)
-    decoder = loader.decoder if loader.backend == "nvjpeg" else None
+    decoder = loader.decoder if loader.backend == "gpu" else None
     if decoder is not None:
         decoder.timing = True
     cfg = _train_cfg(res)
@@ -413,8 +417,9 @@ def run_bench_loader(dev, batch=16, stacks=8, feats=128, steps=20, warmup=3, res
            "loader_batches": steps_run, "prefetch": loader.prefetch,
            "threads": decoder.num_threads if decoder is not None else None,
            "loader_wait_ms": 1e3 * statistics.median(waits), "loader_wait_s": sum(waits)}
-    for key in ("read_ms", "info_ms", "host_ms", "canvas_ms", "copy_ms"):
+    for key in ("read_ms", "info_ms", "host_ms", "copy_in_ms", "idct_ms", "canvas_ms", "copy_ms"):
         out[key] = statistics.median(t[key] for t in times) if times else None
+    out["refused"] = sum(t["refused"] for t in times) if times else None
     return out
 
 

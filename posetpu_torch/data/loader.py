@@ -14,9 +14,9 @@ while the device runs batch N.  :func:`make_batch_placer` builds the
 ``place`` step for the CUDA path: decode into pinned host memory, copy with
 ``non_blocking=True`` on a stream of its own, record an event; the loader
 then orders the consumer's stream after that event before it yields the
-batch.  The nvJPEG route on the placer's device decodes into a tensor on
-the card instead, which the placer passes through after the decoder's
-event (:data:`IMAGE_READY`): no image goes through the host.
+batch.  The card's decode route on the placer's device decodes into a
+tensor on the card instead, which the placer passes through after the
+decoder's event (:data:`IMAGE_READY`): no image goes through the host.
 
 Under data parallelism (``shard=(rank, world)``) every rank shuffles
 with the same seed and cuts the same global batches, then decodes only its
@@ -332,17 +332,18 @@ class HostLoader:
     """Iterable over static-shape batches with background decode prefetch.
 
     ``backend``: "pil" (Pillow), "native" (the C++ parallel JPEG pool,
-    :mod:`posetpu_torch.native`), "nvjpeg" (nvJPEG and the ``ycc_canvas``
-    kernel on ``device``, :class:`~posetpu_torch.native.NvjpegDecoder`), or
-    "auto": on a CUDA ``device`` nvjpeg, which raises where it cannot build
-    (the card never quietly decodes with Pillow); elsewhere native when it
-    builds, Pillow otherwise.  Files the pool or nvJPEG cannot decode fall
+    :mod:`posetpu_torch.native`), "gpu" (the hand-written entropy decoder
+    and the ``idct_islow`` and ``ycc_canvas`` kernels on ``device``,
+    :class:`~posetpu_torch.native.GpuJpegDecoder`), or "auto": on a CUDA
+    ``device`` gpu, which raises where it cannot build (the card never
+    quietly decodes with Pillow); elsewhere native when it builds, Pillow
+    otherwise.  Files the pool or the card's route cannot decode fall
     back to Pillow per sample, so every backend gives the same batch
     contract.  :attr:`backend` names the route taken.
 
-    ``device``: where "nvjpeg" decodes and what "auto" reads; None takes
-    the placer's device (``place.device``), or no device at all (the CPU's
-    routes; "nvjpeg" then defaults to CUDA).
+    ``device``: where "gpu" decodes and what "auto" reads; None takes the
+    placer's device (``place.device``), or no device at all (the CPU's
+    routes; "gpu" then defaults to CUDA).
 
     ``place``: an optional callable applied to each collated numpy batch in
     the prefetch thread, e.g. :func:`make_batch_placer`'s, so the copy to
@@ -350,10 +351,10 @@ class HostLoader:
     ``host_image(shape)`` method gets the batch's images decoded straight
     into the (pinned) tensor it returns, and one with ``ready(placed)`` has
     it called on each placed batch in the consuming thread before the batch
-    is yielded.  On the nvjpeg route with a ``place`` on the decoder's
-    device (its ``device``), the images are decoded into a tensor there
-    instead (:meth:`NvjpegDecoder.canvas
-    <posetpu_torch.native.nvjpeg.NvjpegDecoder.canvas>`): a new one for
+    is yielded.  On the gpu route with a ``place`` on the decoder's device
+    (its ``device``), the images are decoded into a tensor there instead
+    (:meth:`GpuJpegDecoder.canvas
+    <posetpu_torch.native.jpeg_gpu.GpuJpegDecoder.canvas>`): a new one for
     each batch, or superbatch with ``group``, so the batches in flight
     each hold their own (on CUDA 94.4 MB a batch of (32, 768, 1280, 3), up
     to ``prefetch`` + 2 batches or superbatches at once); the batch
@@ -418,18 +419,18 @@ class HostLoader:
         self.epoch = 0
         self._decoder = None
         self._keep_canvas = False  # images decoded into a tensor on the placer's device
-        if backend not in ("auto", "native", "pil", "nvjpeg"):
-            raise ValueError(f"unknown backend {backend!r} (auto, native, pil or nvjpeg)")
+        if backend not in ("auto", "native", "pil", "gpu"):
+            raise ValueError(f"unknown backend {backend!r} (auto, native, pil or gpu)")
         if device is None:
             device = getattr(place, "device", None)
         device = None if device is None else torch.device(device)
         if backend == "auto" and device is not None and device.type == "cuda":
-            backend = "nvjpeg"
-        if backend == "nvjpeg":
-            from posetpu_torch.native.nvjpeg import NvjpegDecoder
+            backend = "gpu"
+        if backend == "gpu":
+            from posetpu_torch.native.jpeg_gpu import GpuJpegDecoder
 
-            self._decoder = NvjpegDecoder("cuda" if device is None else device)
-            self.backend = "nvjpeg"
+            self._decoder = GpuJpegDecoder("cuda" if device is None else device)
+            self.backend = "gpu"
             self._keep_canvas = getattr(place, "device", None) == self._decoder.device
             return
         if backend in ("auto", "native"):
@@ -444,8 +445,8 @@ class HostLoader:
 
     @property
     def decoder(self):
-        """The decoder of the native and nvJPEG routes (``None`` on Pillow's):
-        an :class:`~posetpu_torch.native.nvjpeg.NvjpegDecoder`'s ``timing``
+        """The decoder of the native and gpu routes (``None`` on Pillow's):
+        a :class:`~posetpu_torch.native.jpeg_gpu.GpuJpegDecoder`'s ``timing``
         and ``times`` time each batch's decode."""
         return self._decoder
 
@@ -468,8 +469,8 @@ class HostLoader:
         return buf.numpy(), buf
 
     def _native_batch(self, sel, out=None):
-        """Decode one batch through the C++ pool or nvJPEG; Pillow fallback
-        per failure.  The decoder writes straight into the batch's image
+        """Decode one batch through the C++ pool or the card's route; Pillow
+        fallback per failure.  The decoder writes straight into the batch's image
         buffer (``out``, a slot of its group's tensor on the card, or
         :meth:`_image_buffer`'s)."""
         ds = self.dataset

@@ -18,8 +18,8 @@
 //   pool_destroy(pool)
 //   pool_decode_planes(path, out, cap, info)
 //     one file's component planes as stored, before libjpeg's upsampling
-//     and color conversion (raw_data_out): the CPU source of the planes that
-//     nvJPEG gives on the card (posetpu_torch/native/nvjpeg.py).
+//     and color conversion (raw_data_out): the tests' oracle for the planes
+//     the card's route decodes (posetpu_torch/native/jpeg_gpu.py).
 //
 // Oversized images are integer-cropped around the person center (same
 // lossless-translation rule as posetpu_torch.data.loader.load_sample).

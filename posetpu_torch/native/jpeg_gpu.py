@@ -1,0 +1,773 @@
+"""The card's JPEG decode route: a hand-written entropy decoder on the host's
+threads, the ``idct_islow`` kernel and the ``ycc_canvas`` kernel.
+
+:class:`GpuJpegDecoder` keeps :class:`~posetpu_torch.native.NativeDecoder`'s
+contract and answers, and gives libjpeg's decode with its defaults bit for
+bit.  On CUDA a batch goes:
+
+1. the files are read and their headers parsed (``jpe_info``), their
+   coefficients and planes laid out;
+2. ``num_threads`` workers decode the files' Huffman data
+   (``jpeg_entropy.cpp``, the GIL released) into one of two pinned
+   buffers, used in turn, after the event of that buffer's last copy;
+3. one copy takes the batch's coefficients and tables to the card, on the
+   decoder's stream;
+4. the ``idct_islow`` kernel (``kernels/idct_islow.cu``, libjpeg's
+   ``jpeg_idct_islow``) writes every component's plane at its stored size,
+   in one launch;
+5. the ``ycc_canvas`` kernel (``kernels/ycc_canvas.cu``) upsamples,
+   converts, crops and pads the batch in one launch, and the canvas is
+   copied into the caller's (pinned) host buffer, or stays on the card in
+   the caller's tensor.
+
+On the CPU the same entropy decoder runs, then the plain versions
+(:func:`posetpu_torch.native.islow.idct_islow`, :mod:`posetpu_torch.native.ycc`),
+so the tests reach every step but the two kernels.
+
+:func:`ycc_canvas` is the canvas kernel's wrapper: plain on CPU tensors, the
+kernel on CUDA tensors (or it raises), one launch counted in
+:data:`LAUNCHES`.  The libraries build at first use
+(:mod:`posetpu_torch.utils.cuda_build`); nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from posetpu_torch.native import bindings, islow, ycc
+from posetpu_torch.native.bindings import (
+    JCS_CMYK,
+    JCS_GRAYSCALE,
+    JCS_RGB,
+    JCS_YCBCR,
+    JCS_YCCK,
+    batch_args,
+    checked_centers,
+)
+from posetpu_torch.native.staging import StagingSet
+from posetpu_torch.utils import cuda_build
+from posetpu_torch.utils.device import resolve_device
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+ENTROPY_SOURCE = os.path.join(_DIR, "jpeg_entropy.cpp")
+ENTROPY_LIBS = ("-lpthread",)
+YCC_SOURCE = os.path.join(_DIR, "kernels", "ycc_canvas.cu")
+
+# the kernel sources of the route, built with cuda_build.NVCC_FLAGS alone
+SOURCES = (islow.SOURCE, YCC_SOURCE)
+
+# launches of the canvas kernel since the last reset_launches(), counted
+# where the wrapper launches it (the decode runs in loaders' producer
+# threads); the IDCT's are islow.LAUNCHES
+LAUNCHES = {"ycc_canvas": 0}
+_count_lock = threading.Lock()
+
+DESC_WORDS = 24  # ycc_canvas.cu's descriptor of one image, in int64 words
+PITCH_ALIGN = 256  # row pitch of the planes the IDCT writes, in bytes
+
+# jpeg_entropy.cpp's statuses, by name; any status but 0 sends the file to
+# the caller's Pillow path
+JPE_STATUSES = ("ok", "not_jpeg", "progressive", "arithmetic", "lossless", "precision",
+                "components", "sampling", "scans", "dnl", "corrupt", "dimensions",
+                "exception")
+INFO_WORDS = 21  # jpe_info's words: width, height, components, 6 a component
+
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def reset_launches():
+    """Zero the route's launch counts: the canvas kernel's and the IDCT's."""
+    with _count_lock:  # a loader's thread may be launching
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+    islow.reset_launches()
+
+
+def jpeg_color_space(data):
+    """libjpeg's ``jpeg_color_space`` for a file's bytes, by libjpeg-turbo's
+    rules (``jdapimin.c``, ``default_decompress_parms``): a JFIF marker means
+    YCbCr, else an Adobe marker's transform (0: RGB), else the component ids
+    ('R', 'G', 'B': RGB).  None when the header does not parse."""
+    if data[:2] != b"\xff\xd8":
+        return None
+    i, jfif, adobe = 2, False, None
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            return None
+        m = data[i + 1]
+        if m == 0xFF:  # fill byte
+            i += 1
+            continue
+        length = int.from_bytes(data[i + 2:i + 4], "big")
+        seg = data[i + 4:i + 2 + length]
+        if m == 0xE0 and length >= 16 and seg[:5] == b"JFIF\0":
+            jfif = True
+        elif m == 0xEE and length >= 14 and seg[:5] == b"Adobe":
+            adobe = seg[11]
+        elif m in _SOF:
+            nc = seg[5] if len(seg) > 5 else 0
+            ids = tuple(seg[6 + 3 * k] for k in range(nc)) if len(seg) >= 6 + 3 * nc else ()
+            if nc == 1:
+                return JCS_GRAYSCALE
+            if nc == 3:
+                if jfif:
+                    return JCS_YCBCR
+                if adobe is not None:
+                    return JCS_RGB if adobe == 0 else JCS_YCBCR
+                return JCS_RGB if ids == (82, 71, 66) else JCS_YCBCR
+            if nc == 4:
+                return JCS_YCCK if adobe == 2 else JCS_CMYK
+            return None
+        elif m == 0xDA:  # a scan before the frame header
+            return None
+        i += 2 + length
+    return None
+
+
+# --- the canvas kernel -----------------------------------------------------------
+
+
+@functools.cache
+def _ycc_fn():
+    """The kernel's launch, its descriptors already on the card."""
+    fn = cuda_build.load_library(YCC_SOURCE).ycc_canvas_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _stage_fn():
+    """The kernel's launch after staging its descriptors from the host."""
+    fn = cuda_build.load_library(YCC_SOURCE).ycc_canvas_stage_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _descriptors(planes, samplings, windows, pad_hw, device):
+    """(N, DESC_WORDS) int64: ycc_canvas.cu's descriptor of each image, its
+    row zero where the window is (0, 0) (such an image needs no planes).
+    Raises ValueError on planes, samplings or windows the kernel does not
+    take, or planes on another device than ``device``."""
+    ph, pw = pad_hw
+    windows = np.asarray(windows, np.int64).reshape(len(planes), 4)
+    live = (windows[:, 2] > 0) & (windows[:, 3] > 0)
+    wins = windows.tolist()
+    index = device.index if device.type == "cuda" else -1  # Tensor.get_device()'s
+    rows, cols, words = [], [], []  # per plane: its image, component, words
+    for n in np.flatnonzero(live).tolist():
+        pl, samp = planes[n], samplings[n]
+        off_x, off_y, vw, vh = wins[n]
+        if len(pl) not in (1, 3) or len(samp) != len(pl) or tuple(samp[0]) != (1, 1):
+            raise ValueError(f"bad planes/sampling: {len(pl)} planes, sampling {samp}")
+        for c, (p, (hf, vf)) in enumerate(zip(pl, samp)):
+            if p.get_device() != index:
+                raise ValueError("ycc_canvas_cuda takes tensors on one CUDA device")
+            stride = p.stride()
+            if p.dtype is not torch.uint8 or len(stride) != 2 or stride[1] != 1:
+                raise ValueError("planes must be 2-D uint8 with unit column stride")
+            h, w = p.shape
+            if c == 0:
+                H, W = h, w
+            else:
+                if hf not in (1, 2) or vf not in (1, 2):
+                    raise ValueError(f"upsampling factors must be 1 or 2, got {(hf, vf)}")
+                if w != -(-W // hf) or h != -(-H // vf):  # ycc.component_size
+                    raise ValueError(f"component of shape {(h, w)} for a {W}x{H} image "
+                                     f"at {(hf, vf)}")
+            rows.append(n)
+            cols.append(c)
+            words.append((p.data_ptr(), stride[0], w, h, hf, vf))
+        if off_x < 0 or off_y < 0 or off_x + vw > W or off_y + vh > H or vw > pw or vh > ph:
+            raise ValueError(f"window {[off_x, off_y, vw, vh]} outside a {W}x{H} image "
+                             "or the canvas")
+    desc = np.zeros((len(planes), DESC_WORDS), np.int64)
+    if rows:
+        rows = np.array(rows)
+        # words 0-17: pointer, pitch, width, height, h, v, each for 3 components
+        desc[rows[:, None], np.array(cols)[:, None] + 3 * np.arange(6)] = np.array(words, np.int64)
+        np.add.at(desc[:, 18], rows, 1)
+    desc[live, 19:23] = windows[live]
+    return desc
+
+
+_staging = StagingSet()
+
+
+def _canvas_out(out, shape, device):
+    """``out`` once checked, or a new uint8 tensor of ``shape`` on ``device``."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.uint8, device=device)
+    if (out.dtype != torch.uint8 or tuple(out.shape) != shape or not out.is_contiguous()
+            or out.device != device):
+        raise ValueError(f"out must be a contiguous uint8 tensor of shape {shape} on {device}")
+    return out
+
+
+def ycc_canvas_cuda(planes, samplings, windows, pad_hw, out=None):
+    """Kernel counterpart of :func:`posetpu_torch.native.ycc.window_canvas`
+    for a batch, in one launch on the current stream.  ``planes``: per image
+    a tuple of 1 (grayscale) or 3 2-D uint8 CUDA tensors at their stored
+    sizes (rows may be padded: any row stride, unit column stride);
+    ``samplings``: per image per component (h, v) upsampling factors, the
+    luma's (1, 1), the others 1 or 2; ``windows``: (N, 4) (off_x, off_y,
+    valid_w, valid_h), (0, 0) sizes for an all-zero slot.  Returns ``out``
+    or a new (N, ph, pw, 3) uint8 tensor."""
+    ph, pw = (int(p) for p in pad_hw)
+    n = len(planes)
+    windows = np.asarray(windows, np.int64).reshape(n, 4)
+    dev = next((p.device for pl in planes if pl for p in pl), None)
+    if out is not None:
+        dev = out.device
+    if dev is None or dev.type != "cuda":
+        raise ValueError("ycc_canvas_cuda takes CUDA tensors")
+    desc = _descriptors(planes, samplings, windows, (ph, pw), dev)
+    out = _canvas_out(out, (n, ph, pw, 3), dev)
+    if n == 0:
+        return out
+    st = _staging.get(dev)
+    # the descriptors go through the device's staging buffers, in the same C
+    # call as the launch
+    on_dev = torch.cuda.current_device() == dev.index
+    with st.lock, contextlib.nullcontext() if on_dev else torch.cuda.device(dev):
+        host, dev_descs, done = st.reserve(desc.size)
+        err = _stage_fn()(desc.ctypes.data, host, dev_descs, done, n, ph, pw, out.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ycc_canvas launch failed: CUDA error {err}")
+    with _count_lock:
+        LAUNCHES["ycc_canvas"] += 1
+    return out
+
+
+def ycc_canvas(planes, samplings, windows, pad_hw, out=None):
+    """:func:`ycc_canvas_cuda` on CUDA tensors; on CPU tensors the plain
+    version, :func:`~posetpu_torch.native.ycc.window_canvas` image by image."""
+    on_cuda = (out is not None and out.is_cuda) or any(p.is_cuda for pl in planes for p in pl)
+    if on_cuda:
+        return ycc_canvas_cuda(planes, samplings, windows, pad_hw, out=out)
+    if out is None:
+        out = torch.empty((len(planes), *(int(p) for p in pad_hw), 3), dtype=torch.uint8)
+    for slot, pl, samp, win in zip(out, planes, samplings, np.asarray(windows).reshape(-1, 4)):
+        if pl:
+            slot.copy_(ycc.window_canvas(pl, samp, win, pad_hw))
+        else:
+            slot.zero_()
+    return out
+
+
+# --- the entropy decoder -----------------------------------------------------------
+
+_P = ctypes.POINTER
+# jpeg_entropy.cpp's C functions: (restype, argtypes), in its order
+SIGNATURES = {
+    "jpe_create": (ctypes.c_void_p, [ctypes.c_int]),
+    "jpe_destroy": (None, [ctypes.c_void_p]),
+    "jpe_info": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, _P(ctypes.c_int)]),
+    "jpe_decode_batch": (None, [ctypes.c_void_p, _P(ctypes.c_char_p), _P(ctypes.c_size_t),
+                                ctypes.c_int, _P(ctypes.c_void_p), _P(ctypes.c_void_p),
+                                _P(ctypes.c_int)]),
+}
+
+
+def default_threads():
+    """The workers of a decoder by default: the host pool's rule
+    (``NativeDecoder``), ``min(16, os.cpu_count() or 4)``."""
+    return min(16, os.cpu_count() or 4)
+
+
+def _entropy_build_kw():
+    return {"compiler": bindings._gxx(), "flags": bindings.GXX_FLAGS, "libs": ENTROPY_LIBS}
+
+
+@functools.cache
+def _entropy_lib():
+    """The entropy decoder's library (g++, no libjpeg), built if needed,
+    its functions typed once."""
+    lib = cuda_build.load_library(ENTROPY_SOURCE, **_entropy_build_kw())
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def build_all():
+    """Build every library of the route at once (the two kernels with
+    nvcc, the entropy decoder with g++), one compiler process each, all
+    started together: {source: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as ex:
+        jobs = [ex.submit(cuda_build.build, SOURCES),
+                ex.submit(cuda_build.build, [ENTROPY_SOURCE], **_entropy_build_kw())]
+        paths = {}
+        for j in jobs:
+            paths.update(j.result())
+    return paths
+
+
+def _read(path):
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError:
+        return None
+
+
+def _supported(color_space, samplings):
+    """Whether libjpeg's JCS_RGB output is this route's: YCbCr at chroma
+    factors of 1 or 2 (4:4:4, 4:2:2, 4:4:0, 4:2:0), or grayscale.  CMYK and
+    YCCK fail in the pool too; RGB-coded and other subsamplings go to the
+    caller's Pillow path."""
+    if color_space == JCS_GRAYSCALE:
+        return len(samplings) == 1
+    return (color_space == JCS_YCBCR and len(samplings) == 3
+            and tuple(samplings[0]) == (1, 1)
+            and all(h in (1, 2) and v in (1, 2) for h, v in samplings[1:]))
+
+
+def plane_sizes(samplings, W, H):
+    """The (w, h) of each component's plane, libjpeg's stored size, for a
+    W x H file at ``samplings`` (per component (h, v) upsampling factors)."""
+    return [(W, H)] + [ycc.component_size(W, H, *s) for s in samplings[1:]]
+
+
+def plane_layout(sizes):
+    """Where the files' planes go in one buffer.  ``sizes``: per file None
+    (not decoded) or its planes' (w, h).  Returns (per file None or
+    [(w, h, pitch, offset)] a plane, the buffer's bytes): rows padded to
+    PITCH_ALIGN bytes, each plane after the previous one, so every plane
+    starts PITCH_ALIGN-aligned and no two overlap."""
+    layout, at = [], 0
+    for planes in sizes:
+        if planes is None:
+            layout.append(None)
+            continue
+        comps = []
+        for w, h in planes:
+            pitch = -(-w // PITCH_ALIGN) * PITCH_ALIGN
+            comps.append((w, h, pitch, at))
+            at += pitch * h
+        layout.append(comps)
+    return layout, at
+
+
+def coefficient_layout(grids):
+    """Where the files' tables and coefficients go in one int16 buffer.
+    ``grids``: per file None or its components' (blocks_w, blocks_h).
+    Returns (per file None or (table offset, [coefficient offset a
+    component]), the buffer's elements): a file's tables (64 a component)
+    then its components' blocks (64 each), every offset a multiple of 64
+    elements (128 bytes), as jpe_decode_batch writes them."""
+    layout, at = [], 0
+    for comps in grids:
+        if comps is None:
+            layout.append(None)
+            continue
+        qt, at = at, at + 64 * len(comps)
+        offs = []
+        for bw, bh in comps:
+            offs.append(at)
+            at += 64 * bw * bh
+        layout.append((qt, offs))
+    return layout, at
+
+
+class _Header:
+    """One file's answer from ``jpe_info``: its size, its components'
+    upsampling factors, grids and planes."""
+
+    def __init__(self, words):
+        W, H, nc = (int(x) for x in words[:3])
+        comps = words[3:3 + 6 * nc].reshape(nc, 6).astype(np.int64)
+        hmax, vmax = int(comps[:, 0].max()), int(comps[:, 1].max())
+        self.size = (W, H)
+        self.samplings = [(hmax // int(h), vmax // int(v)) for h, v in comps[:, :2]]
+        self.grids = [tuple(int(x) for x in c) for c in comps[:, 2:4]]
+        self.planes = [tuple(int(x) for x in c) for c in comps[:, 4:6]]
+
+
+class Coefficients:
+    """A batch's entropy decode, before the IDCT: ``buffer`` (1-D int16
+    tensor) holds every decoded file's tables and coefficients as
+    :func:`coefficient_layout` lays them out, in its first ``elements``; ``desc`` ((C, 4) int64) and
+    ``sizes`` ((w, h) a component) are :func:`~posetpu_torch.native.islow.idct_islow`'s
+    descriptors and planes, component after component of the decoded
+    files; ``files`` gives each component's file and index; ``headers`` a
+    :class:`_Header` per decoded file, None for the others; ``statuses``
+    per file its status (see :data:`JPE_STATUSES`), -1 for a file that
+    decodes but is not this route's (RGB-coded, say)."""
+
+    def __init__(self, buffer, elements, headers, layout, statuses):
+        self.buffer, self.elements = buffer, elements
+        self.headers, self.statuses = headers, statuses
+        rows, self.sizes, self.files = [], [], []
+        for i, (hd, lay) in enumerate(zip(headers, layout)):
+            if hd is None:
+                continue
+            qt, offs = lay
+            for c, (off, (bw, bh), wh) in enumerate(zip(offs, hd.grids, hd.planes)):
+                rows.append((off, qt + 64 * c, bw, bh))
+                self.sizes.append(wh)
+                self.files.append((i, c))
+        self.desc = np.array(rows, np.int64).reshape(-1, 4)
+
+    @property
+    def refused(self):
+        return sum(h is None for h in self.headers)
+
+
+class GpuJpegDecoder:
+    """JPEG batch decoder on the card, with :class:`NativeDecoder`'s
+    contract: ``decode_batch(paths, centers, pad_hw, out=None) -> (images,
+    valid_wh, offsets, ok)`` (see ``native/bindings.py``), its images equal
+    to libjpeg's decode (``JDCT_ISLOW``, fancy upsampling) bit for bit.  A
+    file the route refuses (not a JPEG, progressive, arithmetic-coded,
+    12-bit, CMYK, RGB-coded, 4:1:1, several scans, corrupt: see
+    ``jpeg_entropy.cpp``) reads all zero with ``ok`` False, for the
+    caller's Pillow path, and is counted in :attr:`refused`.
+
+    ``device``: "cuda" (the default; raises without CUDA), "cuda:N", or
+    "cpu" for the plain route.  ``num_threads``: the entropy decoder's
+    worker threads (None: :func:`default_threads`, the host pool's rule);
+    the decoder raises if it cannot start them all.  A batch's files are
+    decoded on the workers in one call (the GIL released), then the
+    coefficients go to the card and the two kernels run on the decoder's
+    own stream, whatever thread calls it.  Calls are serialised.  The
+    result is the same for every ``num_threads``.  A failed build or a CUDA
+    error raises.
+
+    ``out``: None or a host uint8 array, as ``NativeDecoder`` takes (on
+    CUDA the canvas is copied into it, and the call returns once it is
+    there); or a contiguous (n, ph, pw, 3) uint8 tensor on the decoder's
+    device (see :meth:`canvas`): the kernel writes into it, nothing comes
+    back to the host, and ``images`` is a :class:`DecodedCanvas` whose
+    ``ready`` event orders a reader after the last write.
+
+    ``timing=True`` appends to :attr:`times` one dict a batch: ``threads``,
+    ``refused`` (files left to the caller), ``read_ms`` (reading the
+    files), ``info_ms`` (parsing their headers, laying out their
+    coefficients and planes, and the wait for the pinned buffer's last
+    copy), ``host_ms`` (the wall time of the workers' entropy decode),
+    ``desc_ms`` (the host clock of the canvas kernel's wrapper), then from
+    CUDA events on the decoder's stream ``copy_in_ms`` (the coefficients'
+    copy to the card), ``idct_ms`` (the IDCT's staging and kernel),
+    ``canvas_ms`` (the canvas kernel's staging and kernel) and ``copy_ms``
+    (the canvas into a host ``out``; 0 for a tensor ``out``), and
+    ``total_ms``.  With a tensor ``out`` a timed call waits for its canvas
+    before it returns.
+    """
+
+    PINNED_BUFFERS = 2  # the coefficients' page-locked buffers, used in turn
+
+    def __init__(self, device="cuda", timing=False, num_threads=None):
+        dev = resolve_device(device)
+        self.timing = timing
+        self.times = []
+        self.refused = 0
+        self.num_threads = int(num_threads or default_threads())
+        self._lock = threading.Lock()
+        self._lib = _entropy_lib()
+        self._ctx = self._lib.jpe_create(self.num_threads)
+        if not self._ctx:
+            raise RuntimeError(f"the JPEG entropy decoder failed to start {self.num_threads} "
+                               "threads")
+        if dev.type == "cpu":
+            self.device = dev
+            return
+        self.device = torch.device("cuda", torch.cuda.current_device()
+                                   if dev.index is None else dev.index)
+        islow._stage_fn()
+        _stage_fn()
+        self.stream = torch.cuda.Stream(self.device)
+        self._pinned = [None] * self.PINNED_BUFFERS
+        with torch.cuda.device(self.device):
+            self._copied = [torch.cuda.Event() for _ in range(self.PINNED_BUFFERS)]
+        self._turn = self._last = 0  # the pinned buffer to fill next, and the one filled last
+        self._coefs = None  # the coefficients on the card
+        self._buf = None  # the planes on the card
+        self._canvas = None
+
+    def close(self):
+        if self._ctx:
+            self._lib.jpe_destroy(self._ctx)
+            self._ctx = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _check_open(self):
+        if not self._ctx:
+            raise RuntimeError("GpuJpegDecoder used after close()")
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """Serialised, on the decoder's device and stream."""
+        self._check_open()
+        with self._lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            yield
+
+    def canvas(self, shape):
+        """A new uint8 tensor of ``shape`` on the decoder's device, for
+        ``decode_batch``'s tensor ``out``: on CUDA from the caching
+        allocator on the decoder's stream, where the kernel writes it, so
+        every batch in flight has its own."""
+        if self.device.type == "cpu":
+            return torch.empty(shape, dtype=torch.uint8)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            return torch.empty(shape, dtype=torch.uint8, device=self.device)
+
+    # -- the entropy decode ----------------------------------------------------------
+
+    def _header(self, path, data, info):
+        """A :class:`_Header` of a file the route decodes, else its status
+        (-1: it decodes, but libjpeg's RGB output would not come from its
+        planes through this route's upsampling and conversion)."""
+        if data is None:
+            return JPE_STATUSES.index("not_jpeg")
+        st = self._lib.jpe_info(data, len(data), info.ctypes.data_as(_P(ctypes.c_int)))
+        if st != 0:
+            return st
+        hd = _Header(info)
+        if not _supported(jpeg_color_space(data), hd.samplings):
+            return -1
+        want = plane_sizes(hd.samplings, *hd.size)
+        if hd.planes != want:
+            raise RuntimeError(f"the entropy decoder's planes {hd.planes} for {path} are not "
+                               f"libjpeg's {want}")
+        return hd
+
+    def _entropy(self, paths, buffer_for):
+        """Read the files, parse their headers, lay out their coefficients
+        in ``buffer_for(elements)`` (a 1-D int16 tensor at least that long)
+        and decode them with one ``jpe_decode_batch`` on the workers.
+        Returns (:class:`Coefficients`, {"read_ms", "info_ms", "host_ms"})."""
+        t0 = time.perf_counter()
+        datas = [_read(p) for p in paths]
+        t1 = time.perf_counter()
+        info = np.zeros(INFO_WORDS, np.int32)
+        heads = [self._header(p, d, info) for p, d in zip(paths, datas)]
+        statuses = np.array([h if isinstance(h, int) else 0 for h in heads], np.int32)
+        heads = [h if isinstance(h, _Header) else None for h in heads]
+        layout, elements = coefficient_layout([h and h.grids for h in heads])
+        live = [i for i, lay in enumerate(layout) if lay is not None]
+        buffer = buffer_for(elements)
+        base = buffer.data_ptr()
+        coef_ptrs = np.array([base + 2 * layout[i][1][0] for i in live], np.uint64)
+        qt_ptrs = np.array([base + 2 * layout[i][0] for i in live], np.uint64)
+        lengths = np.array([len(datas[i]) for i in live], np.uint64)
+        got = np.zeros(len(live), np.int32)
+        t2 = time.perf_counter()
+        if live:
+            self._lib.jpe_decode_batch(
+                self._ctx, (ctypes.c_char_p * len(live))(*[datas[i] for i in live]),
+                lengths.ctypes.data_as(_P(ctypes.c_size_t)), len(live),
+                coef_ptrs.ctypes.data_as(_P(ctypes.c_void_p)),
+                qt_ptrs.ctypes.data_as(_P(ctypes.c_void_p)), got.ctypes.data_as(_P(ctypes.c_int)))
+        t3 = time.perf_counter()
+        for i, st in zip(live, got.tolist()):
+            if st != 0:
+                statuses[i], heads[i] = st, None
+        coefs = Coefficients(buffer, elements, heads, layout, statuses)
+        self.refused += coefs.refused
+        return coefs, {"read_ms": 1e3 * (t1 - t0), "info_ms": 1e3 * (t2 - t1),
+                       "host_ms": 1e3 * (t3 - t2), "refused": coefs.refused}
+
+    def coefficients(self, paths):
+        """The files' entropy decode as the route has it before the IDCT: a
+        :class:`Coefficients` whose buffer is a CPU tensor of its own."""
+        self._check_open()
+        with self._lock:
+            return self._entropy(paths, lambda n: torch.empty(max(n, 64), dtype=torch.int16))[0]
+
+    def _pinned_for(self, elements):
+        """The next pinned coefficient buffer, once its last copy has run,
+        grown to ``elements`` int16 values as needed."""
+        s = self._turn
+        self._turn = (s + 1) % self.PINNED_BUFFERS
+        self._copied[s].synchronize()
+        buf = self._pinned[s]
+        if buf is None or buf.numel() < elements:
+            self._pinned[s] = None
+            grown = max(elements, 2 * (0 if buf is None else buf.numel()), 64)
+            self._pinned[s] = torch.empty(grown, dtype=torch.int16, pin_memory=True)
+        self._last = s
+        return self._pinned[s]
+
+    # -- the planes --------------------------------------------------------------------
+
+    def _plane_views(self, coefs, buf):
+        """Per file the views of its planes in ``buf`` (laid out by
+        :func:`plane_layout`), () for a file not decoded; and the planes of
+        every component in ``coefs``' order."""
+        layout, _ = plane_layout([h and h.planes for h in coefs.headers])
+        planes = [()] * len(coefs.headers)
+        for i, lay in enumerate(layout):
+            if lay is not None:
+                planes[i] = tuple(buf[off:off + pitch * h].view(h, pitch)[:, :w]
+                                  for w, h, pitch, off in lay)
+        return planes, [planes[i][c] for i, c in coefs.files]
+
+    def _planes_cpu(self, paths):
+        coefs = self.coefficients(paths)
+        _, nbytes = plane_layout([h and h.planes for h in coefs.headers])
+        planes, flat = self._plane_views(coefs, torch.empty(max(nbytes, 1), dtype=torch.uint8))
+        islow.idct_islow(coefs.buffer, coefs.buffer, coefs.desc, flat)
+        return planes, [h.samplings if h else () for h in coefs.headers]
+
+    def _grown(self, name, elements, dtype):
+        """The card buffer ``name``, grown as needed; freed and made on the
+        decoder's stream, where it is written and read."""
+        t = getattr(self, name)
+        if t is None or t.numel() < elements:
+            setattr(self, name, None)
+            t = torch.empty(max(elements, 64), dtype=dtype, device=self.device)
+            setattr(self, name, t)
+        return t
+
+    def _planes_cuda(self, paths, marks=None):
+        """The entropy decode into a pinned buffer, its copy to the card
+        and the IDCT kernel into the plane buffer, on the decoder's stream
+        (the caller's context).  ``marks``: CUDA events to record before
+        the copy, after it and after the kernel.  Returns (planes,
+        samplings, {"read_ms", "info_ms", "host_ms", "refused"})."""
+        coefs, ms = self._entropy(paths, self._pinned_for)
+        n = coefs.elements if len(coefs.desc) else 0
+        dev_coefs = self._grown("_coefs", n, torch.int16)
+        if marks:
+            marks[0].record(self.stream)
+        if n:
+            dev_coefs[:n].copy_(coefs.buffer[:n], non_blocking=True)
+        self._copied[self._last].record(self.stream)
+        if marks:
+            marks[1].record(self.stream)
+        _, nbytes = plane_layout([h and h.planes for h in coefs.headers])
+        planes, flat = self._plane_views(coefs, self._grown("_buf", nbytes, torch.uint8))
+        if flat:
+            islow.idct_islow_cuda(dev_coefs, dev_coefs, coefs.desc, flat)
+        if marks:
+            marks[2].record(self.stream)
+        return planes, [h.samplings if h else () for h in coefs.headers], ms
+
+    def decode_planes(self, paths):
+        """Each file's component planes as this route has them before the
+        canvas: (planes, samplings), per file a tuple of 2-D uint8 tensors
+        at their stored sizes and their (h, v) upsampling factors, () for a
+        file the route refuses.  On CUDA the planes are views of the
+        decoder's buffer, valid until its next call."""
+        if self.device.type == "cpu":
+            return self._planes_cpu(paths)
+        with self._on_device():
+            planes, samplings, _ = self._planes_cuda(paths)
+            self.stream.synchronize()
+        return planes, samplings
+
+    def decode_batch(self, paths, centers, pad_hw, out=None):
+        keep = torch.is_tensor(out)  # the canvas stays on the decoder's device
+        if keep:
+            n, (ph, pw) = len(paths), (int(v) for v in pad_hw)
+            centers = checked_centers(centers, n)
+            out = _canvas_out(out, (n, ph, pw, 3), self.device)
+        else:
+            n, (ph, pw), centers, out = batch_args(paths, centers, pad_hw, out)
+        if self.device.type == "cpu":
+            planes, samplings = self._planes_cpu(paths)
+            windows = _windows(planes, centers, (ph, pw))
+            ycc_canvas(planes, samplings, windows, (ph, pw),
+                       out=out if keep else torch.from_numpy(out))
+            return (DecodedCanvas(out) if keep else out), *_results(windows)
+        with self._on_device():
+            t0 = time.perf_counter()
+            marks = ([torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                     if self.timing else None)
+            planes, samplings, ms = self._planes_cuda(paths, marks)
+            windows = _windows(planes, centers, (ph, pw))
+            t1 = time.perf_counter()
+            canvas = ycc_canvas_cuda(planes, samplings, windows, (ph, pw),
+                                     out=out if keep else self._canvas_for((n, ph, pw, 3)))
+            desc_ms = 1e3 * (time.perf_counter() - t1)
+            if marks:
+                marks[3].record(self.stream)
+            if keep:
+                images = DecodedCanvas(out, self.stream)
+            else:
+                # the caller's buffer is pinned on the loader's path: a DMA
+                torch.from_numpy(out).copy_(canvas, non_blocking=True)
+                images = out
+            if marks:
+                marks[4].record(self.stream)
+            if not keep:
+                self.stream.synchronize()
+            elif marks:
+                marks[4].synchronize()
+        if marks:
+            self.times.append({"threads": self.num_threads, **ms, "desc_ms": desc_ms,
+                               "copy_in_ms": marks[0].elapsed_time(marks[1]),
+                               "idct_ms": marks[1].elapsed_time(marks[2]),
+                               "canvas_ms": marks[2].elapsed_time(marks[3]),
+                               "copy_ms": 0.0 if keep else marks[3].elapsed_time(marks[4]),
+                               "total_ms": 1e3 * (time.perf_counter() - t0)})
+        return images, *_results(windows)
+
+    def _canvas_for(self, shape):
+        if self._canvas is None or tuple(self._canvas.shape) != shape:
+            self._canvas = None
+            self._canvas = torch.empty(shape, dtype=torch.uint8, device=self.device)
+        return self._canvas
+
+
+class DecodedCanvas:
+    """A batch's canvas left on the decoder's device, as
+    :meth:`GpuJpegDecoder.decode_batch` returns it for a tensor ``out``:
+    ``tensor`` (``out``) and ``ready``, the event recorded on the decoder's
+    stream after the last write to it (None on the CPU, where every write
+    has ended when it returns).  ``canvas[j] = image`` writes a host image
+    ((ph, pw, 3) uint8) into row j on that stream and records ``ready``
+    again: the loader's Pillow path for a file the route refused."""
+
+    def __init__(self, tensor, stream=None):
+        self.tensor, self.stream, self.ready = tensor, stream, None
+        if stream is not None:
+            self.ready = torch.cuda.Event()
+            self.ready.record(stream)
+
+    def __setitem__(self, j, image):
+        src = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
+        if self.stream is None:
+            self.tensor[j].copy_(src)
+            return
+        with torch.cuda.stream(self.stream):
+            self.tensor[j].copy_(src)  # from pageable memory: returns once copied
+        self.ready.record(self.stream)
+
+
+def _windows(planes, centers, pad_hw):
+    """(N, 4) int64 crop windows of the decoded files, zero for the others."""
+    windows = np.zeros((len(planes), 4), np.int64)
+    for i, pl in enumerate(planes):
+        if pl:
+            H, W = pl[0].shape
+            windows[i] = ycc.crop_window(W, H, centers[i], pad_hw)
+    return windows
+
+
+def _results(windows):
+    """(valid_wh (N, 2) int32, offsets (N, 2) int32, ok (N,) bool)."""
+    wh = np.ascontiguousarray(windows[:, 2:], np.int32)
+    offs = np.ascontiguousarray(windows[:, :2], np.int32)
+    ok = (wh > 0).all(axis=1)
+    offs[~ok] = 0
+    return wh, offs, ok

@@ -1,6 +1,6 @@
 // ycc_canvas: the last steps of libjpeg's decode, and the decode pool's crop
-// and pad, for a batch of JPEG component planes in device memory (nvJPEG's
-// YUV output), in one launch.
+// and pad, for a batch of JPEG component planes in device memory (the
+// idct_islow kernel's output), in one launch.
 //
 // Replaces: no TPU kernel.  Its counterpart is libjpeg code inside the host
 // decode pool (posetpu/native/decode_pool.cpp): jpeg_read_scanlines'
@@ -32,7 +32,7 @@
 //    shared memory: one bulk copy of the Tensor Memory Accelerator a row,
 //    issued by a thread of its own and counted on the band's mbarrier, from
 //    the 16-byte boundary at or below the row's first byte, so any row pitch
-//    and base works (nvJPEG's pitches are 256-byte multiples; views such as
+//    and base works (the route's pitches are 256-byte multiples; views such as
 //    [:, :w] are not).  The next band's copies run while the block builds
 //    this one.  At v = 2, output rows 2j and 2j+1 share chroma row j, paired
 //    by image row (the crop's off_y may be odd), so 16 rows need at most 11

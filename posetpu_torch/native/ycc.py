@@ -16,7 +16,7 @@ planes: what ``jpeg_read_scanlines`` does in the decode pool
   channels, as libjpeg's ``JCS_RGB`` output gives it.
 
 These are the plain versions of the ``ycc_canvas`` kernel
-(``native/kernels/ycc_canvas.cu``, wrapped in :mod:`posetpu_torch.native.nvjpeg`):
+(``native/kernels/ycc_canvas.cu``, wrapped in :mod:`posetpu_torch.native.jpeg_gpu`):
 the CPU route and the tests use them, the card's route does not.  A
 component's stored size is ``ceil(W * h / hmax) x ceil(H * v / vmax)``
 (:func:`component_size`); ``sampling`` names each component's upsampling

@@ -6,7 +6,7 @@
 step through the driver's CUDA graph of K steps.
 
     python -m posetpu_torch.tools.duty_cycle [--stacks 8] [--feats 128]
-        [--batch 16] [--res 256] [--steps 30] [--backend auto|native|pil|nvjpeg]
+        [--batch 16] [--res 256] [--steps 30] [--backend auto|native|pil|gpu]
         [--k-per-dispatch K] [--trace DIR] [--cpu]
 
 Prints ``device_step``, ``wall_step``, ``duty_cycle`` and ``images/sec``

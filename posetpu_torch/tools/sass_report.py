@@ -26,11 +26,11 @@ import subprocess
 from collections import Counter
 
 from posetpu_torch.aug import cuda_kernels
-from posetpu_torch.native import nvjpeg
+from posetpu_torch.native import jpeg_gpu
 from posetpu_torch.utils import cuda_build
 
 # every kernel source of the port built with cuda_build.NVCC_FLAGS alone
-SOURCES = (*cuda_kernels.SOURCES, *nvjpeg.SOURCES)
+SOURCES = (*cuda_kernels.SOURCES, *jpeg_gpu.SOURCES)
 
 _FUNCTION = re.compile(r"Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")

@@ -4,11 +4,12 @@ another checkout's, on a CUDA machine, in one process.
     python -m posetpu_torch.tools.ycc_canvas_ab --other DIR [--out FILE]
 
 ``DIR`` is the root of another checkout of the repo (a commit unpacked with
-``git archive``, say).  Each side's ``posetpu_torch/native/nvjpeg.py`` is
+``git archive``, say, from the commit that named the route's module
+``jpeg_gpu.py`` on).  Each side's ``posetpu_torch/native/jpeg_gpu.py`` is
 loaded from its own file, so each builds and launches its own
 ``kernels/ycc_canvas.cu``; the rest of the package is this checkout's.  Both
 take the loader's batch: 32 random 1280x720 4:2:0 images in rows of
-nvJPEG's 256-byte pitch, cropped into a (768, 1280) canvas.
+the route's 256-byte pitch, cropped into a (768, 1280) canvas.
 
 In the order other, this, this, other, it times each side's
 
@@ -40,15 +41,15 @@ import time
 import numpy as np
 import torch
 
-from posetpu_torch.native import nvjpeg, ycc
+from posetpu_torch.native import jpeg_gpu, ycc
 
 BATCH, SIZE, PAD = 32, (1280, 720), (768, 1280)  # the loader's (W, H) frames and canvas
 SAMPLING = ((1, 1), (2, 2), (2, 2))  # 4:2:0
 
 
-def load_nvjpeg(root):
-    """``root``'s ``posetpu_torch/native/nvjpeg.py`` as a module of its own."""
-    path = os.path.join(os.path.abspath(root), "posetpu_torch", "native", "nvjpeg.py")
+def load_route(root):
+    """``root``'s ``posetpu_torch/native/jpeg_gpu.py`` as a module of its own."""
+    path = os.path.join(os.path.abspath(root), "posetpu_torch", "native", "jpeg_gpu.py")
     name = f"ycc_canvas_ab_{abs(hash(path))}"
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
@@ -59,7 +60,7 @@ def load_nvjpeg(root):
 
 def loader_batch(device, n=BATCH, size=SIZE, pad_hw=PAD, seed=0):
     """(planes, samplings, windows) of ``n`` random 4:2:0 images of ``size``
-    (W, H) in rows of nvJPEG's pitch, each cropped around a random center
+    (W, H) in rows of the route's pitch, each cropped around a random center
     into ``pad_hw``."""
     rng = np.random.RandomState(seed)
     W, H = size
@@ -68,7 +69,7 @@ def loader_batch(device, n=BATCH, size=SIZE, pad_hw=PAD, seed=0):
         pl = []
         for hf, vf in SAMPLING:
             w, h = ycc.component_size(W, H, hf, vf)
-            pitch = -(-w // nvjpeg.PITCH_ALIGN) * nvjpeg.PITCH_ALIGN
+            pitch = -(-w // jpeg_gpu.PITCH_ALIGN) * jpeg_gpu.PITCH_ALIGN
             rows = torch.from_numpy(rng.randint(0, 256, (h, pitch), np.uint8)).to(device)
             pl.append(rows[:, :w])
         planes.append(tuple(pl))
@@ -114,7 +115,7 @@ def measure(mod, planes, samplings, windows, want):
     """One side's three times, after checking its kernel and its wrapper
     against ``want`` bit for bit."""
     out = torch.empty_like(want)
-    desc = torch.from_numpy(nvjpeg._descriptors(planes, samplings, windows, PAD,
+    desc = torch.from_numpy(jpeg_gpu._descriptors(planes, samplings, windows, PAD,
                                                 out.device)).to(out.device)
     fn, stream = mod._ycc_fn(), torch.cuda.current_stream().cuda_stream
 
@@ -143,8 +144,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ycc_canvas_ab runs on a CUDA device only")
-    sides = {"other": load_nvjpeg(args.other), "this": nvjpeg}
-    if sides["other"].DESC_WORDS != nvjpeg.DESC_WORDS:
+    sides = {"other": load_route(args.other), "this": jpeg_gpu}
+    if sides["other"].DESC_WORDS != jpeg_gpu.DESC_WORDS:
         raise SystemExit("the two checkouts' descriptors differ")
     planes, samplings, windows = loader_batch("cuda")
     want = torch.stack([ycc.window_canvas(pl, s, w, PAD)

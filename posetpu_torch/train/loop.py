@@ -8,7 +8,7 @@ logs the reference's txt columns (and, with ``cfg.tensorboard``, the
 reference's TensorBoard scalars), checkpoints (best on validation
 improvement), resumes, and writes the validation predictions
 (``preds.mat``).  ``cfg.loader_backend`` picks the loader ("host":
-:class:`HostLoader`, which decodes with nvJPEG on CUDA; "grain":
+:class:`HostLoader`, which decodes on the card on CUDA; "grain":
 :class:`WorkerLoader`, Pillow in ``cfg.loader_workers`` processes).  The
 train step, pose-only or joint (with the agent), runs ``cfg.steps_per_dispatch`` = K steps a dispatch
 (:func:`posetpu_torch.train.step.make_dispatch_step`,
@@ -132,7 +132,7 @@ def seeded_init_(module, seed):
 def loader_class(cfg, device):
     """(loader class, its extra arguments) for ``cfg.loader_backend``: the
     reference's values, "host" or "grain".  The host loader decodes on
-    ``device`` (nvJPEG on CUDA); the worker loader's processes use Pillow."""
+    ``device`` (the card's route on CUDA); the worker loader's processes use Pillow."""
     if cfg.loader_backend == "grain":
         return WorkerLoader, {"num_workers": cfg.loader_workers}
     if cfg.loader_backend == "host":
@@ -196,7 +196,7 @@ class Experiment:
         self.loader = loader_cls(
             self.train_ds, cfg.batch_size, pad_hw=tuple(cfg.pad_hw), seed=cfg.seed,
             # decode while the previous step runs, on the card into a tensor
-            # there (nvJPEG), else into pinned memory copied on a stream of
+            # there (the card's decode route), else into pinned memory copied on a stream of
             # its own; K batches a superbatch per dispatch
             place=make_batch_placer(self.device), group=self.K, **loader_kw,
         )

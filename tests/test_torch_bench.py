@@ -168,26 +168,29 @@ def test_every_smoke_mode_prints_one_line(monkeypatch, capsys, split_dir, name, 
     assert line["device_clock"] is None
     assert line["capture_s"] is None
     assert (line["batch"], line["stacks"], line["feats"]) == (4, 1, 16)
-    assert line["launches"] == {"rasterize_gaussians": 0, "ycc_canvas": 0}
+    assert line["launches"] == {"rasterize_gaussians": 0, "idct_islow": 0, "ycc_canvas": 0}
     if loader:
         assert line["loader_batches"] == line["steps"] > 0 and line["loader_wait_ms"] >= 0
         assert line["prefetch"] == 2
         assert line["host_ms"] is line["canvas_ms"] is line["copy_ms"] is None
+        assert line["copy_in_ms"] is line["idct_ms"] is line["refused"] is None
 
 
 def test_the_window_counts_both_kernels_from_zero():
-    """The line's launches are the wrappers' own counts, both reset at the
+    """The line's launches are the wrappers' own counts, all reset at the
     timed window's start."""
     from posetpu_torch.aug import cuda_kernels
-    from posetpu_torch.native import nvjpeg
+    from posetpu_torch.native import islow, jpeg_gpu
 
     cuda_kernels.LAUNCHES["rasterize_gaussians"] = 7
-    nvjpeg.LAUNCHES["ycc_canvas"] = 5
+    islow.LAUNCHES["idct_islow"] = 4
+    jpeg_gpu.LAUNCHES["ycc_canvas"] = 5
     bench._reset_launches()
-    assert bench._launches() == {"rasterize_gaussians": 0, "ycc_canvas": 0}
+    assert bench._launches() == {"rasterize_gaussians": 0, "idct_islow": 0, "ycc_canvas": 0}
     cuda_kernels.LAUNCHES["rasterize_gaussians"] += 2
-    nvjpeg.LAUNCHES["ycc_canvas"] += 3
-    assert bench._launches() == {"rasterize_gaussians": 2, "ycc_canvas": 3}
+    islow.LAUNCHES["idct_islow"] += 3
+    jpeg_gpu.LAUNCHES["ycc_canvas"] += 3
+    assert bench._launches() == {"rasterize_gaussians": 2, "idct_islow": 3, "ycc_canvas": 3}
     bench._reset_launches()
 
 

@@ -45,7 +45,8 @@ def test_importing_every_module_loads_no_jax():
             "posetpu_torch.ckpt.torch_export", "posetpu_torch.ckpt.transplant",
             "posetpu_torch.utils.graphs", "posetpu_torch.tools.adversarial_gain",
             "posetpu_torch.tools.duty_cycle", "posetpu_torch.tools.profile_step",
-            "posetpu_torch.tools.visualize", "posetpu_torch.native.nvjpeg",
+            "posetpu_torch.tools.visualize", "posetpu_torch.native.jpeg_gpu",
+            "posetpu_torch.native.islow", "posetpu_torch.native.staging",
             "posetpu_torch.native.ycc", "posetpu_torch.bench"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -76,7 +77,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert {os.path.join(REPO, "posetpu_torch", "tools", n) for n in (
         "adversarial_gain.py", "duty_cycle.py", "profile_step.py", "visualize.py")} <= set(files)
     assert {os.path.join(REPO, "posetpu_torch", "native", n)
-            for n in ("nvjpeg.py", "ycc.py", "bindings.py")} <= set(files)
+            for n in ("jpeg_gpu.py", "islow.py", "staging.py", "ycc.py",
+                      "bindings.py")} <= set(files)
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -53,9 +53,11 @@ def test_opcode_drops_predicate_and_modifiers():
 
 def test_default_sources_are_every_kernel_of_the_port():
     """With no arguments the report covers the rasterizer and the decode
-    route's ycc_canvas kernel (nothing is built to answer this)."""
+    route's idct_islow and ycc_canvas kernels (nothing is built to answer
+    this)."""
     sources = sass_report.parser().parse_args([]).sources
-    assert sorted(os.path.basename(s) for s in sources) == ["rasterize.cu", "ycc_canvas.cu"]
+    assert sorted(os.path.basename(s) for s in sources) == ["idct_islow.cu", "rasterize.cu",
+                                                             "ycc_canvas.cu"]
     assert all(os.path.isfile(s) for s in sources)
 
 
