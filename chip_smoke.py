@@ -704,12 +704,16 @@ JPEG_LSB = 0
 # the phase's files: 32 of the loader phase's 1280x720 frames (Pillow,
 # quality 92, 4:2:0), and small odd-sized ones at every subsampling the
 # route takes (4:4:0 by relabelling a 4:2:2 file's frame header: Pillow
-# writes no 4:4:0), one with restart markers every 3 MCUs, and one
-# progressive file, the one the route refuses
+# writes no 4:4:0), one with restart markers every 3 MCUs, one 4:2:0 file
+# whose luma rows are 38 blocks (more than one of idct_islow's tiles, the
+# last ragged), and the two the route refuses: a progressive file, and a
+# quality-75 file whose tables are multiplied by 8 and rewritten as 16-bit
+# entries (past libjpeg-turbo's 16-bit IDCT lanes, status "range")
 JPEG_SMALL = (("444", 97, 131), ("422", 50, 61), ("440", 31, 45), ("420", 161, 121),
               ("gray", 33, 17), ("420", 3, 2), ("422", 4, 5), ("restart", 77, 53),
-              ("progressive", 41, 29))
-JPEG_REFUSED = ("progressive",)
+              ("420", 301, 9), ("progressive", 41, 29), ("scaled8", 161, 121))
+JPEG_REFUSED = ("progressive", "scaled8")
+JPEG_SCALE = 8  # the scaled file's table factor
 JPEG_PADS = (LOADER_PAD, (400, 600), (64, 48))  # the loader's, then crops
 # a canvas whose rows start at every byte offset (pw * 3 = 999 bytes)
 JPEG_ODD_PAD = (45, 333)
@@ -728,11 +732,34 @@ JPEG_BUSY_CYCLES = 100_000_000  # ~50 ms of a sleep kernel at 2 GHz
 JPEG_THREADS = (1, 2, 4, 8)  # the route's img/s at each, and at the default
 
 
+def _scaled_tables(data, scale):
+    """``data`` with every quantisation table multiplied by ``scale``
+    (capped at 32767) and rewritten as 16-bit entries; the coefficients stay
+    those of the original tables."""
+    data = bytearray(data)
+    i = 0
+    while (i := data.find(b"\xff\xdb", i)) >= 0:
+        length = int.from_bytes(data[i + 2:i + 4], "big")
+        seg, out, j = data[i + 4:i + 2 + length], bytearray(), 0
+        while j < len(seg):
+            pq = seg[j] >> 4
+            vals = ([int.from_bytes(seg[j + 1 + 2 * k:j + 3 + 2 * k], "big") for k in range(64)]
+                    if pq else list(seg[j + 1:j + 65]))
+            out.append(0x10 | (seg[j] & 15))
+            out += b"".join(min(v * scale, 32767).to_bytes(2, "big") for v in vals)
+            j += 1 + 64 * (pq + 1)
+        seg = b"\xff\xdb" + (len(out) + 2).to_bytes(2, "big") + out
+        data[i:i + 2 + length] = seg
+        i += len(seg)
+    return bytes(data)
+
+
 def _small_jpeg(sub, w, h, seed):
     """A w x h JPEG's bytes at subsampling ``sub`` (444, 422, 420, 440 or
     gray; restart: 4:2:0 with a restart interval of 3 MCUs; progressive:
-    4:2:0 progressive) from seeded smooth content with noise, at quality
-    92."""
+    4:2:0 progressive; scaled8: 4:2:0 at quality 75, its tables times
+    JPEG_SCALE as 16-bit entries) from seeded smooth content with noise, at
+    quality 92 unless said."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -751,7 +778,9 @@ def _small_jpeg(sub, w, h, seed):
     if sub == "440":
         im = im.transpose(Image.TRANSPOSE)
     buf = io.BytesIO()
-    im.save(buf, "JPEG", quality=92, **kw)
+    im.save(buf, "JPEG", quality=75 if sub == "scaled8" else 92, **kw)
+    if sub == "scaled8":
+        return _scaled_tables(buf.getvalue(), JPEG_SCALE)
     data = bytearray(buf.getvalue())
     if sub == "440":
         # SOF0: length, precision, height, width, count, then (id, HV, table)
@@ -907,6 +936,27 @@ def _idct_on_card(coefs):
     return planes, want, err
 
 
+def _tile_shapes(coefs):
+    """How a batch's components meet idct_islow's tiles: components whose
+    block rows are not whole tiles, whose rows hold more than one tile, and
+    whose grid is wider than the blocks that cover the plane."""
+    nbw = [-(-w // 8) for w, _ in coefs.sizes]
+    grid = [int(bw) for bw in coefs.desc[:, 2]]
+    return {"ragged_rows": sum(b % islow.TILE_BLOCKS != 0 for b in nbw),
+            "multi_tile_rows": sum(b > islow.TILE_BLOCKS for b in nbw),
+            "padded_grids": sum(g > b for g, b in zip(grid, nbw))}
+
+
+def _noise_jpeg(w, h, seed):
+    """A w x h 4:2:0 JPEG of uniform noise at quality 100."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.RandomState(seed).randint(0, 256, (h, w, 3)).astype(np.uint8)
+                    ).save(buf, "JPEG", quality=100, subsampling=2)
+    return buf.getvalue()
+
+
 def _extreme_coefficients(rng):
     """A jpeg_gpu.Coefficients-like batch of random blocks over four grids
     (coefficients at +-2047 among random ones, every other block with
@@ -936,14 +986,17 @@ def phase_jpeg_gpu(workdir):
     (exactly), N worker threads against one (planes and canvases exactly)
     and the decoder's stream held busy, the idct_islow kernel against its
     plain version on the route's coefficients and on extreme random blocks
-    (exactly, one launch a batch), the ycc_canvas kernel against its plain
-    version on the route's planes and on misaligned rows, odd offsets and
-    (0, 0) slots (exactly, one launch a batch), the whole route against
-    Pillow's load_sample (exactly, windows too, the progressive file
-    refused, counted and filled by the loader's Pillow row), then both
-    kernels timed beside their bounds and the write floor, and the decode
-    of the loader's batch (read, host, copy-in, IDCT, canvas and copy-back
-    ms, img/s) at 1, 2, 4, 8 and N threads."""
+    (exactly, one launch a batch; block rows that are not whole tiles, rows
+    of several tiles, MCU-padded grids), the share of blocks the entropy
+    decoder's check of libjpeg-turbo's 16-bit lanes flags on the loader's
+    frames and on a quality-100 noise frame, the ycc_canvas kernel against
+    its plain version on the route's planes and on misaligned rows, odd
+    offsets and (0, 0) slots (exactly, one launch a batch), the whole route
+    against Pillow's load_sample (exactly, windows too, the progressive and
+    the scaled-table file refused, counted and filled by the loader's
+    Pillow row), then both kernels timed beside their bounds and the write
+    floor, and the decode of the loader's batch (read, host, copy-in, IDCT,
+    canvas and copy-back ms, img/s) at 1, 2, 4, 8 and N threads."""
     root = os.path.join(workdir, "jpeg_gpu")
     make_synthetic_dataset(root, num_train=BATCH, num_val=0, res=LOADER_RES, seed=SEED)
     ds = MpiiDataset(os.path.join(root, "annotations.json"), os.path.join(root, "images"),
@@ -1003,18 +1056,39 @@ def phase_jpeg_gpu(workdir):
           f"the route's output changes on a busy stream: {busy_equal}")
     one.close()
 
-    # idct_islow against its plain version on the route's coefficients and
-    # on extreme random blocks
+    # idct_islow against its plain version on the route's coefficients (the
+    # small files give block rows that are not whole tiles, rows of more than
+    # one tile, and grids wider than their planes: MCU-padded 4:2:0) and on
+    # extreme random blocks
     idct_cases = []
     for name, batch in sets.items():
         co = dec.coefficients(batch)
         _, _, err = _idct_on_card(co)
         check(err == 0, f"idct_islow on the {name} coefficients: max abs err {err}")
         idct_cases.append({"files": name, "components": len(co.sizes), "max_abs_err": err,
-                           "refused": co.refused})
-    _, _, err = _idct_on_card(_extreme_coefficients(np.random.RandomState(SEED)))
+                           "refused": co.refused, **_tile_shapes(co)})
+    check(all(idct_cases[1][k] > 0 for k in ("ragged_rows", "multi_tile_rows", "padded_grids")),
+          f"the small files miss a tiling case: {idct_cases[1]}")
+    extreme = _extreme_coefficients(np.random.RandomState(SEED))
+    _, _, err = _idct_on_card(extreme)
     check(err == 0, f"idct_islow on extreme blocks: max abs err {err}")
-    idct_cases.append({"files": "extreme_random", "max_abs_err": err})
+    idct_cases.append({"files": "extreme_random", "max_abs_err": err, **_tile_shapes(extreme)})
+
+    # libjpeg-turbo's 16-bit lanes: the share of blocks over the entropy
+    # decoder's cheap bound (each then takes its exact check) on the
+    # loader's frames and on a quality-100 noise frame
+    noise = os.path.join(root, "noise_q100.jpg")
+    with open(noise, "wb") as f:
+        f.write(_noise_jpeg(*LOADER_RES, SEED))
+    range_check = {}
+    for name, batch in (("frames", frames), ("noise_q100", [noise])):
+        before = dec.block_counts()
+        co = dec.coefficients(batch)
+        blocks, flagged = (a - b for a, b in zip(dec.block_counts(), before))
+        range_check[name] = {"blocks": blocks, "flagged": flagged, "share": flagged / blocks,
+                             "refused": co.refused}
+    check(range_check["frames"]["refused"] == 0 and range_check["noise_q100"]["refused"] == 0,
+          f"the lanes' check refused a Pillow-written file: {range_check}")
 
     # ycc_canvas against its plain version on the route's own planes
     cases = []
@@ -1117,13 +1191,14 @@ def phase_jpeg_gpu(workdir):
     layout, nbytes = jpeg_gpu.plane_layout([(w, h)] for w, h in co.sizes)
     buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
     planes = [buf[off:off + pitch * h].view(h, pitch)[:, :w] for ((w, h, pitch, off),) in layout]
-    words, blocks = islow.descriptors(co.desc, planes)
+    words, tiles = islow.descriptors(co.desc, planes)
+    blocks = sum(-(-w // 8) * -(-h // 8) for w, h in co.sizes)
     dev_words = torch.from_numpy(words).cuda()
     fn, stream = islow.launch_fn(), torch.cuda.current_stream().cuda_stream
-    check(fn(dev_words.data_ptr(), len(planes), blocks, dev.data_ptr(), dev.data_ptr(),
+    check(fn(dev_words.data_ptr(), len(planes), tiles, dev.data_ptr(), dev.data_ptr(),
              stream) == 0, "idct_islow launch")
     alone = buf.clone()
-    idct_ms = cuda_ms(lambda: fn(dev_words.data_ptr(), len(planes), blocks, dev.data_ptr(),
+    idct_ms = cuda_ms(lambda: fn(dev_words.data_ptr(), len(planes), tiles, dev.data_ptr(),
                                  dev.data_ptr(), stream))
     before = islow.LAUNCHES["idct_islow"]
     idct_wrapper_ms = cuda_ms(lambda: islow.idct_islow(dev, dev, co.desc, planes))
@@ -1196,7 +1271,8 @@ def phase_jpeg_gpu(workdir):
          busy_stream_equal=busy_equal,
          route_max_lsb_vs_pillow=route_lsb, route_bound_lsb=JPEG_LSB,
          idct_cases=idct_cases, kernel_cases=cases,
-         idct={"batch": BATCH, "blocks": blocks, "components": len(co.sizes),
+         range_check=range_check,
+         idct={"batch": BATCH, "blocks": blocks, "tiles": tiles, "components": len(co.sizes),
                "coefficient_bytes": coefficient_bytes, "ms": idct_ms,
                "wrapper_ms": idct_wrapper_ms, "plain_ms": idct_plain_ms,
                "write_floor_ms": idct_floor_ms, "bound_ms": idct_bound_ms,

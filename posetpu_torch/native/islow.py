@@ -20,8 +20,13 @@ For each 8x8 block of quantised coefficients in natural order:
 Arithmetic is int32 throughout, wrapping, as libjpeg's 8-bit build assumes
 it fits (its comments: 11-bit dequantised input, 13-bit pass-1 output);
 the kernel computes the same int32 arithmetic, so the two agree on any
-input.  A component's plane is its stored size: the padded blocks' extra
-samples are dropped, as libjpeg's raw output crops them.
+input.  libjpeg-turbo's SIMD IDCT, which the reference's libjpeg runs on
+x86, computes in 16-bit lanes instead and parts from int32 where large
+dequantised values leave them; the decode route refuses such files in its
+entropy decoder (``jpeg_entropy.cpp``, status "range") and decodes them
+with the reference's libjpeg, so neither version sees them there.  A
+component's plane is its stored size: the padded blocks' extra samples are
+dropped, as libjpeg's raw output crops them.
 
 :func:`idct_islow` is the kernel's wrapper: the plain version on CPU
 tensors, the kernel on CUDA tensors (or it raises), one launch counted in
@@ -129,9 +134,11 @@ _count_lock = threading.Lock()
 # idct_islow.cu's descriptor of one component, in int64 words: coefficient
 # offset and table offset (int16 elements), the grid's blocks wide, the
 # blocks wide and high that cover the plane, the plane's pointer, pitch,
-# width and height, and the component's first block in the launch
-DESC_WORDS = 10
-ALIGN = 8  # coefficient and table offsets, in elements: 16-byte loads
+# width and height, the component's first tile in the launch and its tiles
+# a block row
+DESC_WORDS = 11
+TILE_BLOCKS = 32  # idct_islow.cu's kTileBlocks: blocks of a block row a tile
+ALIGN = 8  # coefficient and table offsets, in elements: 16-byte bulk copies
 
 _staging = StagingSet()
 
@@ -196,14 +203,16 @@ def _checked(coefs, qtables, desc, planes):
 
 def descriptors(desc, planes):
     """(C, DESC_WORDS) int64: idct_islow.cu's descriptor of each component
-    and the launch's block count."""
+    and the launch's tile count."""
     words = np.zeros((len(planes), DESC_WORDS), np.int64)
     first = 0
     for row, (coef_off, qt_off, bw, _), p in zip(words, desc.tolist(), planes):
         h, w = p.shape
         nbw, nbh = -(-w // 8), -(-h // 8)
-        row[:] = (coef_off, qt_off, bw, nbw, nbh, p.data_ptr(), p.stride(0), w, h, first)
-        first += nbw * nbh
+        per_row = -(-nbw // TILE_BLOCKS)
+        row[:] = (coef_off, qt_off, bw, nbw, nbh, p.data_ptr(), p.stride(0), w, h, first,
+                  per_row)
+        first += nbh * per_row
     return words, first
 
 
@@ -222,14 +231,14 @@ def idct_islow_cuda(coefs, qtables, desc, planes):
     if (desc[:, :2] % ALIGN).any() or coefs.data_ptr() % 16 or qtables.data_ptr() % 16:
         raise ValueError(f"coefficient and table offsets must be multiples of {ALIGN} "
                          "elements from 16-byte aligned buffers")
-    words, blocks = descriptors(desc, planes)
-    if blocks == 0:
+    words, tiles = descriptors(desc, planes)
+    if tiles == 0:
         return planes
     st = _staging.get(dev)
     on_dev = torch.cuda.current_device() == dev.index
     with st.lock, contextlib.nullcontext() if on_dev else torch.cuda.device(dev):
         host, dev_words, done = st.reserve(words.size)
-        err = _stage_fn()(words.ctypes.data, host, dev_words, done, len(planes), blocks,
+        err = _stage_fn()(words.ctypes.data, host, dev_words, done, len(planes), tiles,
                           coefs.data_ptr(), qtables.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -24,8 +24,11 @@
 // blocks the file's bytes cannot hold (a forged size, refused before the
 // caller allocates); and any corruption that libjpeg would only warn about
 // (data that ends early, a bad Huffman code, extraneous bytes, a restart
-// marker out of turn, a second scan).  The caller decodes such files another
-// way (the loader's Pillow path).
+// marker out of turn, a second scan); and any block whose IDCT libjpeg-turbo's
+// 16-bit SIMD lanes compute otherwise than jidctint.c's int32 arithmetic,
+// which the idct_islow kernel computes (large dequantised values: 16-bit
+// tables past 8 bits, or forged coefficients; see lanes_agree()).  The
+// caller decodes such files another way (the loader's Pillow path).
 //
 // Output layout (jpe_decode_batch): for file i, coef_ptrs[i] receives each
 // component in frame order, blocks_w * blocks_h blocks of 64 int16 values in
@@ -68,6 +71,7 @@ enum Status {
   JPE_CORRUPT = 10,       // anything libjpeg would warn about or refuse
   JPE_DIMENSIONS = 11,    // a size past 65500 or past what the bytes hold
   JPE_EXCEPTION = 12,     // a C++ exception inside a worker
+  JPE_RANGE = 13,         // a block libjpeg-turbo's 16-bit SIMD IDCT computes otherwise
 };
 
 constexpr int kMaxDimension = 65500;  // libjpeg's JPEG_MAX_DIMENSION
@@ -206,7 +210,9 @@ int parse_dqt(Header& hd, const uint8_t* s, int n) {
     for (int i = 0; i < 64; ++i) {
       const int q = pq ? be16(s + 1 + 2 * i) : s[1 + i];
       // libjpeg's SIMD builds hold a table entry in a short: a value past
-      // 32767 would be another number there
+      // 32767 would be another number there.  Below that, a block whose
+      // products or sums the 16-bit lanes would compute otherwise is refused
+      // as it is decoded (JPE_RANGE, lanes_agree())
       if (q > 32767) return JPE_CORRUPT;
       hd.qt[tq][kNatural[i]] = static_cast<uint16_t>(q);
     }
@@ -482,44 +488,161 @@ struct Bits {
   }
 };
 
-inline void decode_block(Bits& br, const Huff& dc, const Huff& ac, int* pred, int16_t* blk) {
+// --- libjpeg-turbo's 16-bit lanes -------------------------------------------------
+//
+// The reference decodes with the system's libjpeg-turbo, whose SIMD ISLOW
+// IDCT (jidctint-sse2.asm, jidctint-avx2.asm, jidctint-neon.c) computes
+// jidctint.c's arithmetic in 16-bit lanes: a 16-bit dequantising multiply;
+// x0 + x4, x0 - x4 and sums of the odd inputs formed in 16 bits; each pass-1
+// output packed to 16 bits (saturated on x86, truncated on NEON); each
+// sample saturated where jidctint.c's range-limit table wraps past
+// [-512, 511].  Its products and their sums are 32-bit, and agree with
+// jidctint.c's modulo 2^32.  So the two give the same samples on a block
+// where every dequantised value, every sum of two or four inputs that
+// jidctint.c forms in either pass (x0 + x4, x0 - x4, z2 + z3, t0 + t3,
+// t1 + t2, t0 + t2, t1 + t3, z3 + z4) and every pass-1 output stays in int16,
+// and every descaled sample in [-512, 511]: a superset of the lanes' 16-bit
+// values.  The route computes int32 (the idct_islow kernel), so a file with
+// any other block is refused (JPE_RANGE) and the caller decodes it with the
+// reference's own libjpeg.
+//
+// The cheap bound, per block as its coefficients are decoded.  jidctint.c's
+// 1-D pass before its DESCALE is a linear map, pre_j = sum_k M[j][k] x[k]
+// with integer M; kWeight[k] = max_j |M[j][k]|.  For a block's dequantised
+// values d[k][c] (row k, column c) let P_c = sum_k kWeight[k] |d[k][c]| and
+// T = sum_c kWeight[c] P_c = sum_{k,c} kWeight[k] kWeight[c] |d[k][c]|.
+//  - A pass-1 output w[r][c] = (pre + 2^10) >> 11, or d[0][c] << 2 on a
+//    zero-AC column, has |w[r][c]| <= (P_c + 1024) / 2048.
+//  - A pass-2 value before its DESCALE has |pre2| <= sum_c kWeight[c] |w[r][c]|
+//    <= (T + 1024 * sum_c kWeight[c]) / 2048, and the sample
+//    (pre2 + 2^17) >> 18 lies in [-512, 511] when |pre2| < 512 * 2^18 - 2^17.
+// So T <= kRangeBound (below) puts every sample in range.  It also keeps the
+// rest in int16, as every weight is at least 8192 = 2^13: sum |d| <=
+// T / 2^26 <= 4090 bounds every dequantised value and every pass-1 sum;
+// P_c <= T / 8192 gives |w| <= 16,363; and a row's sum of |w| <=
+// (T / 8192 + 8 * 1024) / 2048 <= 16,366 bounds every pass-2 sum.  Blocks
+// over the bound take the exact check, lanes_agree().
+constexpr uint64_t kWeight[8] = {8192, 11363, 10703, 11362, 8192, 11362, 10704, 11363};
+constexpr uint64_t kWeightSum = 83241;
+constexpr uint64_t kRangeBound = 2048 * ((512ull << 18) - (1ull << 17)) - 1024 * kWeightSum - 1;
+static_assert(kWeight[0] + kWeight[1] + kWeight[2] + kWeight[3] + kWeight[4] + kWeight[5] +
+                  kWeight[6] + kWeight[7] == kWeightSum,
+              "kWeightSum");
+
+// A component's weights for T: kWeight[k] * kWeight[c] * q at natural
+// position 8k + c (at most 11363^2 * 32767; times a coefficient's magnitude,
+// 2^15 at most, and summed over 64 positions, within 2^63).
+void range_weights(const uint16_t* q, uint64_t* wq) {
+  for (int p = 0; p < 64; ++p) wq[p] = kWeight[p >> 3] * kWeight[p & 7] * q[p];
+}
+
+inline bool fits16(int64_t v) { return v >= -32768 && v <= 32767; }
+
+// jidctint.c's 1-D pass over x, exactly (64-bit), each output DESCALEd by
+// shift; false where a sum of inputs that it forms leaves int16.
+bool pass_in_range(const int64_t* x, int shift, int64_t* out) {
+  const int64_t t0 = x[7], t1 = x[5], t2 = x[3], t3 = x[1];
+  const int64_t z1 = t0 + t3, z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
+  if (!fits16(x[0] + x[4]) || !fits16(x[0] - x[4]) || !fits16(x[2] + x[6]) || !fits16(z1) ||
+      !fits16(z2) || !fits16(z3) || !fits16(z4) || !fits16(z3 + z4))
+    return false;
+  const int64_t e1 = (x[2] + x[6]) * 4433;
+  const int64_t tmp2 = e1 - x[6] * 15137, tmp3 = e1 + x[2] * 6270;
+  const int64_t tmp0 = (x[0] + x[4]) * 8192, tmp1 = (x[0] - x[4]) * 8192;
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int64_t z5 = (z3 + z4) * 9633;
+  const int64_t a1 = z1 * -7373, a2 = z2 * -20995;
+  const int64_t a3 = z3 * -16069 + z5, a4 = z4 * -3196 + z5;
+  const int64_t o0 = t0 * 2446 + a1 + a3, o1 = t1 * 16819 + a2 + a4;
+  const int64_t o2 = t2 * 25172 + a2 + a3, o3 = t3 * 12299 + a1 + a4;
+  const int64_t v[8] = {tmp10 + o3, tmp11 + o2, tmp12 + o1, tmp13 + o0,
+                        tmp13 - o0, tmp12 - o1, tmp11 - o2, tmp10 - o3};
+  const int64_t r = int64_t{1} << (shift - 1);
+  for (int j = 0; j < 8; ++j) out[j] = (v[j] + r) >> shift;
+  return true;
+}
+
+// The exact check: whether block blk (natural order) at table q keeps every
+// value of the list above in its range, by jidctint.c's two passes.
+bool lanes_agree(const int16_t* blk, const uint16_t* q) {
+  int64_t ws[8][8];  // pass 1's outputs, [row][column]
+  for (int c = 0; c < 8; ++c) {
+    int64_t x[8], out[8];
+    bool ac = false;
+    for (int k = 0; k < 8; ++k) {
+      x[k] = int64_t{blk[8 * k + c]} * q[8 * k + c];
+      if (!fits16(x[k])) return false;
+      ac |= k > 0 && blk[8 * k + c] != 0;
+    }
+    if (!pass_in_range(x, 11, out)) return false;
+    for (int r = 0; r < 8; ++r) {
+      const int64_t w = ac ? out[r] : x[0] * 4;  // the zero-AC column shortcut
+      if (!fits16(w)) return false;
+      ws[r][c] = w;
+    }
+  }
+  for (int r = 0; r < 8; ++r) {
+    int64_t out[8];
+    if (!pass_in_range(ws[r], 18, out)) return false;
+    for (int j = 0; j < 8; ++j)
+      if (out[j] < -512 || out[j] > 511) return false;
+  }
+  return true;
+}
+
+// One block's Huffman data into blk (natural order); returns its T, the
+// cheap bound's sum, from the component's range_weights wq.
+inline uint64_t decode_block(Bits& br, const Huff& dc, const Huff& ac, int* pred, int16_t* blk,
+                             const uint64_t* wq) {
   std::memset(blk, 0, 64 * sizeof(int16_t));
   const int s = br.decode(dc);
   const int diff = s ? br.extend(s) : 0;
   // libjpeg sums in unsigned arithmetic and stores a JCOEF (16 bits)
   *pred = static_cast<int>(static_cast<unsigned>(*pred) + static_cast<unsigned>(diff));
   blk[0] = static_cast<int16_t>(*pred);
+  uint64_t t = wq[0] * static_cast<uint64_t>(blk[0] < 0 ? -blk[0] : blk[0]);
   for (int k = 1; k < 64; ++k) {
     if (br.n < 32) br.fill();
     const int32_t fast = ac.fast_ac[br.peek(kFastBits)];
+    int v;
     if (fast) {
       br.skip(fast & 31);
       k += (fast >> 5) & 15;
-      blk[kNatural[k]] = static_cast<int16_t>(fast >> 9);
-      continue;
-    }
-    const int rs = br.decode(ac);
-    const int r = rs >> 4, z = rs & 15;
-    if (z) {
-      k += r;
-      blk[kNatural[k]] = static_cast<int16_t>(br.extend(z));
+      v = fast >> 9;
     } else {
-      if (r != 15) break;
-      k += 15;
+      const int rs = br.decode(ac);
+      const int r = rs >> 4, z = rs & 15;
+      if (!z) {
+        if (r != 15) break;
+        k += 15;
+        continue;
+      }
+      k += r;
+      v = br.extend(z);
     }
+    const int p = kNatural[k];
+    blk[p] = static_cast<int16_t>(v);
+    t += wq[p] * static_cast<uint64_t>(v < 0 ? -v : v);
   }
+  return t;
 }
 
-int decode_file(const uint8_t* data, size_t len, int16_t* coefs, uint16_t* qt) {
+// One file into coefs and qt; adds its blocks and those over the cheap bound
+// to *blocks and *flagged.
+int decode_file(const uint8_t* data, size_t len, int16_t* coefs, uint16_t* qt, int64_t* blocks,
+                int64_t* flagged) {
   Header hd;
   int st = parse_header(data, len, hd);
   if (st != JPE_OK) return st;
   int16_t* base[3];
+  uint64_t wq[3][64];
   int64_t at = 0;
   for (int c = 0; c < hd.nc; ++c) {
     base[c] = coefs + at * 64;
     at += static_cast<int64_t>(hd.comp[c].blocks_w) * hd.comp[c].blocks_h;
     std::memcpy(qt + 64 * c, hd.qt[hd.comp[c].tq], 64 * sizeof(uint16_t));
+    range_weights(hd.qt[hd.comp[c].tq], wq[c]);
   }
   Bits br{data, len, hd.scan};
   int pred[3] = {0, 0, 0};
@@ -545,8 +668,14 @@ int decode_file(const uint8_t* data, size_t len, int16_t* coefs, uint16_t* qt) {
       const int h = one ? 1 : k.h, v = one ? 1 : k.v;
       for (int by = 0; by < v; ++by) {
         int16_t* row = base[c] + (static_cast<int64_t>(my * v + by) * k.blocks_w + mx * h) * 64;
-        for (int bx = 0; bx < h; ++bx)
-          decode_block(br, hd.dc[k.td], hd.ac[k.ta], &pred[i], row + bx * 64);
+        for (int bx = 0; bx < h; ++bx) {
+          int16_t* blk = row + bx * 64;
+          ++*blocks;
+          if (decode_block(br, hd.dc[k.td], hd.ac[k.ta], &pred[i], blk, wq[c]) > kRangeBound) {
+            ++*flagged;
+            if (!lanes_agree(blk, hd.qt[k.tq])) return JPE_RANGE;
+          }
+        }
       }
     }
     if (!br.consumed()) return JPE_CORRUPT;
@@ -580,6 +709,7 @@ struct Pool {
   unsigned long long generation = 0;
   int finished = 0;
   bool stop = false;
+  std::atomic<long long> blocks{0}, flagged{0};  // since jpe_create
 };
 
 void run_worker(Pool* pool) {
@@ -593,16 +723,19 @@ void run_worker(Pool* pool) {
       seen = pool->generation;
       job = pool->job;
     }
+    int64_t blocks = 0, flagged = 0;
     for (int i; (i = job->next.fetch_add(1)) < job->n;) {
       int st;
       try {
         st = decode_file(job->datas[i], job->lengths[i], static_cast<int16_t*>(job->coefs[i]),
-                         static_cast<uint16_t*>(job->qts[i]));
+                         static_cast<uint16_t*>(job->qts[i]), &blocks, &flagged);
       } catch (...) {
         st = JPE_EXCEPTION;
       }
       job->statuses[i] = st;
     }
+    pool->blocks += blocks;
+    pool->flagged += flagged;
     {
       std::lock_guard<std::mutex> lk(pool->mu);
       if (++pool->finished == static_cast<int>(pool->threads.size())) pool->idle.notify_all();
@@ -690,6 +823,15 @@ void jpe_decode_batch(void* ptr, const unsigned char* const* datas, const size_t
   // every worker leaves the job before it goes out of scope
   pool->idle.wait(lk, [&] { return pool->finished == static_cast<int>(pool->threads.size()); });
   pool->job = nullptr;
+}
+
+// The pool's counts since jpe_create, once no batch runs: counts[0] the
+// blocks decoded, counts[1] those over the cheap bound of libjpeg-turbo's
+// 16-bit lanes, which took the exact check.
+void jpe_counts(void* ptr, long long* counts) {
+  const auto* pool = static_cast<const Pool*>(ptr);
+  counts[0] = pool->blocks.load();
+  counts[1] = pool->flagged.load();
 }
 
 }  // extern "C"

@@ -77,7 +77,7 @@ PITCH_ALIGN = 256  # row pitch of the planes the IDCT writes, in bytes
 # the caller's Pillow path
 JPE_STATUSES = ("ok", "not_jpeg", "progressive", "arithmetic", "lossless", "precision",
                 "components", "sampling", "scans", "dnl", "corrupt", "dimensions",
-                "exception")
+                "exception", "range")
 INFO_WORDS = 21  # jpe_info's words: width, height, components, 6 a component
 
 _SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
@@ -277,6 +277,7 @@ SIGNATURES = {
     "jpe_decode_batch": (None, [ctypes.c_void_p, _P(ctypes.c_char_p), _P(ctypes.c_size_t),
                                 ctypes.c_int, _P(ctypes.c_void_p), _P(ctypes.c_void_p),
                                 _P(ctypes.c_int)]),
+    "jpe_counts": (None, [ctypes.c_void_p, _P(ctypes.c_longlong)]),
 }
 
 
@@ -433,7 +434,8 @@ class GpuJpegDecoder:
     valid_wh, offsets, ok)`` (see ``native/bindings.py``), its images equal
     to libjpeg's decode (``JDCT_ISLOW``, fancy upsampling) bit for bit.  A
     file the route refuses (not a JPEG, progressive, arithmetic-coded,
-    12-bit, CMYK, RGB-coded, 4:1:1, several scans, corrupt: see
+    12-bit, CMYK, RGB-coded, 4:1:1, several scans, corrupt, or a block
+    that libjpeg-turbo's 16-bit SIMD IDCT computes otherwise: see
     ``jpeg_entropy.cpp``) reads all zero with ``ok`` False, for the
     caller's Pillow path, and is counted in :attr:`refused`.
 
@@ -585,6 +587,16 @@ class GpuJpegDecoder:
         self.refused += coefs.refused
         return coefs, {"read_ms": 1e3 * (t1 - t0), "info_ms": 1e3 * (t2 - t1),
                        "host_ms": 1e3 * (t3 - t2), "refused": coefs.refused}
+
+    def block_counts(self):
+        """(blocks decoded, blocks over the cheap bound of libjpeg-turbo's
+        16-bit IDCT lanes, which took the exact check) since the decoder was
+        made (``jpe_counts``)."""
+        self._check_open()
+        counts = np.zeros(2, np.int64)
+        with self._lock:
+            self._lib.jpe_counts(self._ctx, counts.ctypes.data_as(_P(ctypes.c_longlong)))
+        return int(counts[0]), int(counts[1])
 
     def coefficients(self, paths):
         """The files' entropy decode as the route has it before the IDCT: a

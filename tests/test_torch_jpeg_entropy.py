@@ -6,12 +6,17 @@ Every file is written by Pillow from seeded numpy arrays.  The hand decoder
 plus the plain ``islow`` must give the planes libjpeg's raw output gives
 (``bindings.read_planes``: libjpeg-turbo's decode before upsampling and
 color conversion) bit for bit, at every subsampling the route takes, odd
-sizes, qualities 50 to 100 (a noise image at 100 drives the range limit's
-clamps), optimised Huffman tables and restart markers.  Files the route
-refuses read ``ok`` False, are counted, and reach the JAX package's Pillow
-loader's answer through the port's loader.  The ctypes signatures are
-parsed from the C sources.  The plain IDCT is also held to its definition
-on hand-made blocks and to its range-limit table.
+sizes, qualities 1 to 100 (a noise image at 100 drives the range limit's
+clamps), optimised Huffman tables and restart markers.  Where large
+dequantised values make libjpeg-turbo's 16-bit SIMD IDCT part from
+jidctint.c's int32 arithmetic (tables scaled up to 128x as 16-bit entries,
+forged coefficients of +-2047) the route refuses the file as "range"; every
+file it takes is libjpeg's bit for bit.  Files the route refuses read
+``ok`` False, are counted, and reach the JAX package's Pillow loader's
+answer through the port's loader.  The ctypes signatures and the kernel's
+descriptor and tile constants are parsed from the sources.  The plain IDCT
+is also held to its definition on hand-made blocks and to its range-limit
+table.
 """
 
 import ctypes
@@ -41,6 +46,8 @@ _JPEGLIB = ("/usr/include/jpeglib.h", "/usr/local/include/jpeglib.h",
 SUBSAMPLINGS = ("444", "422", "440", "420", "gray")
 SIZES = ((1, 1), (3, 2), (4, 5), (17, 33), (161, 121))
 QUALITIES = (50, 75, 92, 100)
+LOW_QUALITIES = (1, 5, 10, 25)
+SCALES = (1, 2, 3, 4, 8, 16, 30, 64, 128)
 
 
 @pytest.fixture(scope="module")
@@ -172,6 +179,194 @@ def test_16_bit_quantisation_tables(libjpeg, decoder, tmp_path):
     _assert_libjpegs_planes(libjpeg, decoder, _write(tmp_path, "q16.jpg", bytes(data)))
 
 
+def scaled_tables(data, scale):
+    """``data`` with every quantisation table multiplied by ``scale``
+    (capped at 32767, as ``parse_dqt`` caps) and rewritten as 16-bit
+    entries; the coefficients stay those of the original tables."""
+    data = bytearray(data)
+    i = 0
+    while (i := data.find(b"\xff\xdb", i)) >= 0:
+        length = int.from_bytes(data[i + 2:i + 4], "big")
+        seg, out, j = data[i + 4:i + 2 + length], bytearray(), 0
+        while j < len(seg):
+            pq = seg[j] >> 4
+            vals = ([int.from_bytes(seg[j + 1 + 2 * k:j + 3 + 2 * k], "big") for k in range(64)]
+                    if pq else list(seg[j + 1:j + 65]))
+            out.append(0x10 | (seg[j] & 15))
+            out += b"".join(min(v * scale, 32767).to_bytes(2, "big") for v in vals)
+            j += 1 + 64 * (pq + 1)
+        seg = b"\xff\xdb" + (len(out) + 2).to_bytes(2, "big") + out
+        data[i:i + 2 + length] = seg
+        i += len(seg)
+    return bytes(data)
+
+
+def _libjpegs_planes_or_range(libjpeg, decoder, path):
+    """True where the route refuses the file as "range", after checking
+    that otherwise its planes are libjpeg's bit for bit."""
+    got = _planes(decoder, path)
+    if isinstance(got, int):
+        assert jpeg_gpu.JPE_STATUSES[got] == "range"
+        return True
+    want = libjpeg.read_planes(path)[2]
+    for c, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"component {c}")
+    return False
+
+
+@pytest.mark.parametrize("scale", SCALES)
+def test_scaled_tables_are_libjpegs_or_refused(libjpeg, decoder, tmp_path, scale):
+    """Pillow's q75 tables times ``scale`` as a 16-bit DQT, on a smooth and
+    a noise 161x121 4:2:0 file: where libjpeg-turbo's 16-bit SIMD IDCT
+    parts from jidctint.c's int32 arithmetic (from about 4x) the route
+    refuses the file; every file it takes is libjpeg's bit for bit."""
+    refused = 0
+    for k, noise in enumerate((False, True)):
+        data = scaled_tables(jpeg_bytes("420", 161, 121, 70 + k, 75, noise=noise), scale)
+        refused += _libjpegs_planes_or_range(libjpeg, decoder,
+                                             _write(tmp_path, f"s{k}.jpg", data))
+    if scale <= 3:
+        assert refused == 0
+    if scale >= 8:
+        assert refused >= 1
+
+
+@pytest.mark.parametrize("quality", LOW_QUALITIES)
+def test_low_qualities_are_not_refused(libjpeg, decoder, tmp_path, quality):
+    """Pillow's 8-bit tables at low qualities (entries up to 255), smooth
+    and noise at two sizes: nothing refused, libjpeg's planes."""
+    for k, ((w, h), noise) in enumerate((((161, 121), False), ((161, 121), True),
+                                         ((67, 45), False), ((67, 45), True))):
+        data = jpeg_bytes("420", w, h, 80 + k, quality, noise=noise)
+        _assert_libjpegs_planes(libjpeg, decoder, _write(tmp_path, f"{k}.jpg", data))
+
+
+def _bits(value, size):
+    """HUFF_EXTEND's inverse: the ``size`` low bits that code ``value``."""
+    return value if value >= 0 else value + (1 << size) - 1
+
+
+# jutils.c's jpeg_natural_order: the zigzag's k-th coefficient's natural
+# position (row-major); anti-diagonals in turn, odd ones down
+ZIGZAG = [8 * i + (d - i) for d in range(15)
+          for i in (range(max(0, d - 7), min(d, 7) + 1) if d % 2 else
+                    range(min(d, 7), max(0, d - 7) - 1, -1))]
+
+
+def _dht(tc, symbols):
+    """A DHT segment of table 0 of class ``tc`` coding ``symbols`` in
+    codes of one length: 4 bits for up to 15 symbols, else 8."""
+    length = 4 if len(symbols) < 16 else 8
+    bits = [0] * 16
+    bits[length - 1] = len(symbols)
+    body = bytes([tc << 4]) + bytes(bits) + bytes(symbols)
+    return b"\xff\xc4" + (len(body) + 2).to_bytes(2, "big") + body, length
+
+
+def baseline_gray(blocks, width, height, table=255):
+    """A baseline grayscale JPEG whose quantised blocks ((n, 64) in natural
+    order, raster order over ceil(width / 8) x ceil(height / 8)) are
+    ``blocks``: one 8-bit table of ``table`` everywhere, and Huffman tables
+    of one code length that code every DC size to 11 and every AC run and
+    size to 11 (libjpeg decodes any such size; Pillow writes none past 10)."""
+    dc_syms = list(range(12))
+    ac_syms = [0x00, 0xF0] + [r << 4 | z for r in range(16) for z in range(1, 12)]
+    dht_dc, dc_len = _dht(0, dc_syms)
+    dht_ac, ac_len = _dht(1, ac_syms)
+    out, acc, n = bytearray(), 0, 0
+
+    def put(code, size):
+        nonlocal acc, n
+        acc, n = (acc << size) | code, n + size
+        while n >= 8:
+            n -= 8
+            byte = (acc >> n) & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+
+    pred = 0
+    for blk in np.asarray(blocks, np.int64):
+        diff = int(blk[0]) - pred
+        pred = int(blk[0])
+        size = abs(diff).bit_length()
+        put(dc_syms.index(size), dc_len)
+        if size:
+            put(_bits(diff, size), size)
+        run = 0
+        for k in range(1, 64):
+            v = int(blk[ZIGZAG[k]])
+            if v == 0:
+                run += 1
+                continue
+            while run > 15:
+                put(ac_syms.index(0xF0), ac_len)
+                run -= 16
+            size = abs(v).bit_length()
+            put(ac_syms.index(run << 4 | size), ac_len)
+            put(_bits(v, size), size)
+            run = 0
+        if run:
+            put(ac_syms.index(0x00), ac_len)
+    if n:
+        put((1 << (8 - n)) - 1, 8 - n)
+    dqt = b"\xff\xdb\x00\x43\x00" + bytes([table] * 64)
+    sof = (b"\xff\xc0\x00\x0b\x08" + height.to_bytes(2, "big") + width.to_bytes(2, "big")
+           + b"\x01\x01\x11\x00")
+    sos = b"\xff\xda\x00\x08\x01\x01\x00\x00\x3f\x00"
+    return b"\xff\xd8" + dqt + sof + dht_dc + dht_ac + sos + bytes(out) + b"\xff\xd9"
+
+
+def mild_blocks(n, rng):
+    """(n, 64) blocks whose samples stay in range at a table of 255: DC
+    within +-3, three AC terms of +-1."""
+    blocks = np.zeros((n, 64), np.int64)
+    blocks[:, 0] = rng.randint(-3, 4, n)
+    for blk in blocks:
+        blk[rng.choice(np.arange(1, 64), 3, replace=False)] = rng.choice([-1, 1], 3)
+    return blocks
+
+
+def wide_coefficients(width, height, seed):
+    """A baseline grayscale file of mild blocks at a table of 255, one of
+    which holds coefficients of +-2047: dequantised, far past int16."""
+    rng = np.random.RandomState(seed)
+    blocks = mild_blocks(-(-width // 8) * -(-height // 8), rng)
+    blocks[len(blocks) // 2, [0, 1, 9, 63]] = (2044, -2047, 2047, -1)  # DC sizes within 11
+    return baseline_gray(blocks, width, height)
+
+
+def test_forged_wide_coefficients_are_refused(libjpeg, decoder, tmp_path):
+    """Coefficients of +-2047 against a table of 255 are valid baseline
+    data that libjpeg decodes; the route refuses the file as "range" once
+    the exact check has confirmed the block the cheap bound flagged, and
+    takes the same file without that block, libjpeg's bit for bit."""
+    before = decoder.block_counts()
+    path = _write(tmp_path, "wide.jpg", wide_coefficients(40, 30, 0))
+    assert libjpeg.read_planes(path) is not None
+    assert jpeg_gpu.JPE_STATUSES[_planes(decoder, path)] == "range"
+    blocks, flagged = (a - b for a, b in zip(decoder.block_counts(), before))
+    assert flagged >= 1 and blocks >= flagged
+    mild = baseline_gray(mild_blocks(20, np.random.RandomState(0)), 40, 30)
+    _assert_libjpegs_planes(libjpeg, decoder, _write(tmp_path, "mild.jpg", mild))
+
+
+def test_the_cheap_bound_is_derived_from_jidctint():
+    """jpeg_entropy.cpp's kWeight: each input's largest factor in
+    jidctint.c's 1-D pass (the plain version's _pass, read off unit inputs
+    at a shift that leaves the factors whole), and kRangeBound as its
+    comment derives it."""
+    src = open(jpeg_gpu.ENTROPY_SOURCE).read()
+    weights = [int(v) for v in re.search(r"kWeight\[8\] = \{([^}]*)\}", src)[1].split(",")]
+    shift = 20
+    for k in range(8):
+        x = [torch.tensor([(1 << shift) if i == k else 0]) for i in range(8)]
+        assert max(abs(int(v)) for v in islow._pass(x, shift)) == weights[k], k
+    assert f"kWeightSum = {sum(weights)};" in src
+    assert ("kRangeBound = 2048 * ((512ull << 18) - (1ull << 17)) - 1024 * kWeightSum - 1;"
+            in src)
+
+
 def test_info_words_describe_the_grids_and_planes(decoder):
     """jpe_info's words for a 4:2:0 161x121 file: MCU-padded grids (11 x 8
     MCUs of 16x16), stored plane sizes libjpeg's."""
@@ -229,6 +424,7 @@ def _refusals():
         ("extraneous_bytes", base[:eoi] + b"\x00\x00" + base[eoi:], "corrupt"),
         ("restart_out_of_turn", rst.replace(b"\xff\xd1", b"\xff\xd3", 1), "corrupt"),
         ("second_scan", base[:eoi] + base[base.index(b"\xff\xda"):], "scans"),
+        ("wide_coefficients", wide_coefficients(40, 30, 7), "range"),
     ]
 
 
@@ -258,9 +454,11 @@ def refused_split(tmp_path_factory):
     """Seven 96x72 frames, then a progressive file, a file whose restart
     markers come out of turn and one with bytes before its EOI (the route
     refuses them; Pillow decodes them), a truncated file and a forged-size
-    header (Pillow raises on them)."""
+    header (Pillow raises on them), then a file with coefficients past
+    libjpeg-turbo's 16-bit IDCT lanes (the route refuses it as "range";
+    Pillow decodes it)."""
     root = tmp_path_factory.mktemp("refused_split")
-    ref_make(str(root), num_train=12, num_val=0, res=(96, 72), seed=3)
+    ref_make(str(root), num_train=13, num_val=0, res=(96, 72), seed=3)
     ann = root / "annotations.json"
     raw = json.loads(ann.read_text())
     images = root / "images"
@@ -274,23 +472,25 @@ def refused_split(tmp_path_factory):
         if name != "progressive":
             (images / path).write_bytes(refusals[name])
         raw[7 + k]["img_paths"] = path
+    (images / "wide.jpg").write_bytes(wide_coefficients(96, 72, 3))
+    raw[12]["img_paths"] = "wide.jpg"
     ann.write_text(json.dumps(raw))
     return str(ann), str(images)
 
 
 def test_refused_rows_equal_the_reference_pillow_loader(decoder, refused_split):
-    """Through HostLoader(backend="gpu") on the CPU route: the three files
+    """Through HostLoader(backend="gpu") on the CPU route: the four files
     Pillow decodes go through the Pillow row and equal the JAX package's
     Pillow loader key for key; each is counted as refused."""
     ann, images = refused_split
     ds, ref = MpiiDataset(ann, images), RefMpii(ann, images)
-    keep = list(range(10))
+    keep = [*range(10), 12]
     kw = dict(pad_hw=(64, 80), shuffle=False, drop_last=False)
     port = HostLoader(_Subset(ds, keep), 5, backend="gpu", device="cpu", **kw)
     want = RefLoader(_Subset(ref, keep), 5, backend="pil", **kw)
     assert port.backend == "gpu"
     got = list(port)
-    assert port.decoder.refused == 3
+    assert port.decoder.refused == 4
     for g, w in zip(got, want):
         assert list(g) == list(w)
         for k, v in w.items():
@@ -429,6 +629,30 @@ def test_plain_idct_equals_jidctint_written_out():
         np.testing.assert_array_equal(got[k], _reference_idct(coefs[k], q), err_msg=str(k))
 
 
+def test_idct_descriptors_are_the_kernels_words():
+    """islow.descriptors: the words idct_islow.cu documents, each
+    component's first tile and tiles a row at the kernel's tile width."""
+    src = open(islow.SOURCE).read()
+    assert f"constexpr int kDescWords = {islow.DESC_WORDS};" in src
+    warps = int(re.search(r"constexpr int kConsumers = (\d+);", src)[1])
+    rounds = int(re.search(r"constexpr int kRounds = (\d+);", src)[1])
+    assert "constexpr int kTileBlocks = 4 * kConsumers * kRounds;" in src
+    assert islow.TILE_BLOCKS == 4 * warps * rounds
+    t = islow.TILE_BLOCKS
+    buf = torch.empty(1 << 16, dtype=torch.uint8)
+    planes = [buf[:8 * 600].view(8, 600)[:, :2 * 8 * t + 3], buf[:512 * 40].view(40, 512)[:, :8],
+              buf[:256].view(1, 256)[:, :1]]
+    desc = np.array([[64, 0, 2 * t + 2, 1], [2048, 0, 1, 5], [4096, 64, 1, 1]], np.int64)
+    words, tiles = islow.descriptors(desc, planes)
+    assert words.shape == (3, islow.DESC_WORDS)
+    assert words[:, :5].tolist() == [[64, 0, 2 * t + 2, 2 * t + 1, 1], [2048, 0, 1, 1, 5],
+                                     [4096, 64, 1, 1, 1]]
+    assert words[:, 5].tolist() == [p.data_ptr() for p in planes]
+    assert words[:, 6:9].tolist() == [[600, 2 * 8 * t + 3, 8], [512, 8, 40], [256, 1, 1]]
+    # rows of 2t + 1 blocks: 3 tiles; 5 rows of one block; one block
+    assert words[:, 9:].tolist() == [[0, 3], [3, 1], [8, 1]] and tiles == 9
+
+
 def test_idct_wrapper_refuses_what_neither_version_takes():
     coefs, q = torch.zeros(64 * 6, dtype=torch.int16), torch.ones(64, dtype=torch.int16)
     plane = torch.empty((16, 24), dtype=torch.uint8)
@@ -451,6 +675,7 @@ _P = ctypes.POINTER
 # the C types of the two interfaces and their ctypes
 C_TYPES = {"void": None, "void*": ctypes.c_void_p, "int": ctypes.c_int,
            "int*": _P(ctypes.c_int), "size_t": ctypes.c_size_t, "long long": ctypes.c_longlong,
+           "long long*": _P(ctypes.c_longlong),
            "const void*": ctypes.c_void_p,
            "const unsigned char*": ctypes.c_char_p,
            "const unsigned char* const*": _P(ctypes.c_char_p),
