@@ -258,6 +258,7 @@ from posetpu_torch.aug import (
     neutral_params,
     sample_aug_params_ps,
 )
+from posetpu_torch.aug.cuda_kernels import RASTERIZE_LAUNCHES as RASTER
 from posetpu_torch.aug.heatmap import rasterize_gaussians, rasterize_gaussians_plain
 from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.configs import named_config
@@ -307,6 +308,7 @@ from posetpu_torch.train.step import (
 from posetpu_torch.tools.profile_step import profile_run
 from posetpu_torch.utils import cuda_build
 from posetpu_torch.utils.graphs import WARMUP_CALLS
+from posetpu_torch.utils.profiling import REGISTRY, counter, reset_counters
 
 SEED = 0
 BATCH = 32
@@ -515,11 +517,11 @@ def phase_kernels():
 
     def compare(what, pts, vis, res, sigma):
         nonlocal max_err
-        before = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        before = counter(RASTER)
         t_k, v_k = rasterize_gaussians(pts, vis, res, sigma)
         t_p, v_p = rasterize_gaussians_plain(pts, vis, res, sigma)
         torch.cuda.synchronize()
-        check(cuda_kernels.LAUNCHES["rasterize_gaussians"] == before + 1,
+        check(counter(RASTER) == before + 1,
               "the rasterizer wrapper did not launch its kernel")
         err = (t_k - t_p).abs().max().item()
         label = f"rasterizer {what} {tuple(pts.shape[:2])} {res} sigma={sigma}"
@@ -901,18 +903,36 @@ def _busy_stream_equal(dec, sets):
     return {"planes": planes, "canvases": canvases}
 
 
+# a decode's device spans, by the keys of _route_times
+ROUTE_STAGES = {"loader.copy_in": "copy_in_ms", "loader.idct": "idct_ms",
+                "loader.canvas": "canvas_ms", "loader.copy_out": "copy_ms"}
+
+
 def _route_times(dec, frames, centers, pad, keep):
-    """JPEG_TIMED decodes of ``frames`` timed after one: into a new tensor
-    on the card each (``keep``, the loader's path) or into one pinned host
-    buffer.  Returns ``dec.times`` of the timed ones."""
+    """JPEG_TIMED decodes of ``frames`` timed after one, traced: into a new
+    tensor on the card each (``keep``, the loader's path) or into one
+    pinned host buffer.  Returns a dict a timed decode: its ``dec.times``
+    (the host's stages), the card's ms of each stage from its device spans
+    (``copy_ms`` 0 for ``keep``), and ``total_ms``, the call until its
+    canvas is done on the card."""
     pinned = None if keep else torch.empty((len(frames), *pad, 3), dtype=torch.uint8,
                                             pin_memory=True)
     dec.times.clear()
-    for _ in range(JPEG_TIMED + 1):
-        out = dec.canvas((len(frames), *pad, 3)) if keep else pinned.numpy()
-        dec.decode_batch(frames, centers, pad, out=out)
-    torch.cuda.synchronize()
-    return dec.times[1:]
+    out_times = []
+    with REGISTRY.forced_on():
+        for i in range(JPEG_TIMED + 1):
+            out = dec.canvas((len(frames), *pad, 3)) if keep else pinned.numpy()
+            since = REGISTRY.watermark()
+            t0 = time.perf_counter()
+            dec.decode_batch(frames, centers, pad, out=out)
+            dec.stream.synchronize()
+            total_ms = 1e3 * (time.perf_counter() - t0)
+            stages = {ROUTE_STAGES[r.name]: r.ms for r in REGISTRY.records(since=since)
+                      if r.device and r.name in ROUTE_STAGES}
+            if i:
+                out_times.append({"copy_ms": 0.0, **dec.times[-1], **stages,
+                                  "total_ms": total_ms})
+    return out_times
 
 
 def _idct_on_card(coefs):
@@ -925,10 +945,10 @@ def _idct_on_card(coefs):
     buf = torch.full((max(nbytes, 1),), 7, dtype=torch.uint8, device="cuda")
     planes = [buf[off:off + pitch * h].view(h, pitch)[:, :w]
               for ((w, h, pitch, off),) in layout]
-    before = islow.LAUNCHES["idct_islow"]
+    before = counter(islow.IDCT_LAUNCHES)
     islow.idct_islow(dev, dev, coefs.desc, planes)
     torch.cuda.synchronize()
-    check(islow.LAUNCHES["idct_islow"] == before + 1,
+    check(counter(islow.IDCT_LAUNCHES) == before + 1,
           "the idct_islow wrapper did not launch its kernel once")
     want = [torch.empty((h, w), dtype=torch.uint8) for w, h in coefs.sizes]
     islow.idct_islow(coefs.buffer, coefs.buffer, coefs.desc, want)
@@ -1104,10 +1124,10 @@ def phase_jpeg_gpu(workdir):
             windows = np.array([ycc.crop_window(w, h, c, pad) if pl else (0, 0, 0, 0)
                                 for (w, h), c, pl in zip(sizes[name], centers, planes)],
                                np.int64)
-            before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+            before = counter(jpeg_gpu.YCC_LAUNCHES)
             got = jpeg_gpu.ycc_canvas(planes, samplings, windows, pad)
             torch.cuda.synchronize()
-            check(jpeg_gpu.LAUNCHES["ycc_canvas"] == before + 1,
+            check(counter(jpeg_gpu.YCC_LAUNCHES) == before + 1,
                   "the ycc_canvas wrapper did not launch its kernel once")
             want = torch.stack([ycc.planes_to_canvas(pl, s, pad, c)[0] if pl else
                                 torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
@@ -1138,10 +1158,10 @@ def phase_jpeg_gpu(workdir):
                                           ("odd_offsets", planes, odd),
                                           ("zero_slots", holes, zero)):
                 wins = np.where(np.array([bool(p) for p in pl_set])[:, None], wins, 0)
-                before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+                before = counter(jpeg_gpu.YCC_LAUNCHES)
                 got = jpeg_gpu.ycc_canvas(pl_set, samplings, wins, pad)
                 torch.cuda.synchronize()
-                check(jpeg_gpu.LAUNCHES["ycc_canvas"] == before + 1,
+                check(counter(jpeg_gpu.YCC_LAUNCHES) == before + 1,
                       "the ycc_canvas wrapper did not launch its kernel once")
                 want = torch.stack([ycc.window_canvas(pl, s, w, pad) if pl
                                     else torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
@@ -1200,9 +1220,9 @@ def phase_jpeg_gpu(workdir):
     alone = buf.clone()
     idct_ms = cuda_ms(lambda: fn(dev_words.data_ptr(), len(planes), tiles, dev.data_ptr(),
                                  dev.data_ptr(), stream))
-    before = islow.LAUNCHES["idct_islow"]
+    before = counter(islow.IDCT_LAUNCHES)
     idct_wrapper_ms = cuda_ms(lambda: islow.idct_islow(dev, dev, co.desc, planes))
-    check(islow.LAUNCHES["idct_islow"] > before, "idct_islow did not launch")
+    check(counter(islow.IDCT_LAUNCHES) > before, "idct_islow did not launch")
     check(torch.equal(buf, alone), "idct_islow alone and through its wrapper differ")
     idct_plain_ms = cuda_ms(lambda: [islow.component_plane(
         dev[o:o + bw * bh * 64], dev[q:q + 64], bw, bh, w, h)
@@ -1234,9 +1254,9 @@ def phase_jpeg_gpu(workdir):
     # the wrapper: its checks, the descriptors, their staging and copy, the
     # launch (a call's host waits for the kernel of the call STAGING_SLOTS
     # before it, so back to back this reads the host's time where it is longer)
-    before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+    before = counter(jpeg_gpu.YCC_LAUNCHES)
     wrapper_ms = cuda_ms(lambda: jpeg_gpu.ycc_canvas(planes, samplings, windows, pad, out=out))
-    check(jpeg_gpu.LAUNCHES["ycc_canvas"] > before, "ycc_canvas did not launch")
+    check(counter(jpeg_gpu.YCC_LAUNCHES) > before, "ycc_canvas did not launch")
     check(torch.equal(out, alone), "the kernel alone and through its wrapper differ")
     plain_ms = cuda_ms(lambda: torch.stack([ycc.window_canvas(pl, s, w, pad) for pl, s, w
                                             in zip(planes, samplings, windows)]),
@@ -1384,7 +1404,7 @@ def _serve_eager_iter(predictor, batches, depth=2):
             v, non_blocking=True) for k, v in out.items()}
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return host, done, None
 
     inflight = deque()
     for batch in batches:
@@ -1434,11 +1454,11 @@ def phase_serve(cfg):
     torch.cuda.synchronize()
     check(predictor.graphs.captures == 1, f"captures {predictor.graphs.captures}")
 
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     outs = list(predictor.predict_iter(iter(batches), depth=2))
     seconds = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = {"rasterize_gaussians": counter(RASTER)}
     t0 = time.perf_counter()
     eager = list(_serve_eager_iter(predictor, iter(batches), depth=2))
     eager_s = time.perf_counter() - t0
@@ -1538,20 +1558,20 @@ def phase_validate(cfg, predictor):
     eager(batches[0])  # the eager step's cuDNN set-up
     torch.cuda.synchronize()
 
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     results = [graphed(b) for b in batches]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = {"rasterize_gaussians": counter(RASTER)}
     check(launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in graphed validation: {launches}")
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     refs = [eager(b) for b in batches]
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    eager_launches = dict(cuda_kernels.LAUNCHES)
+    eager_launches = {"rasterize_gaussians": counter(RASTER)}
     check(eager_launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in eager validation: {eager_launches}")
     check(graphed.graphs.captures == 1, f"captures {graphed.graphs.captures}")
@@ -1683,12 +1703,12 @@ def phase_train(cfg):
     step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
     torch.cuda.synchronize()
 
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = {"rasterize_gaussians": counter(RASTER)}
     peak = torch.cuda.max_memory_allocated()
 
     check(launches["rasterize_gaussians"] == NUM_BATCHES,
@@ -1896,12 +1916,12 @@ def phase_joint(cfg):
     step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
     torch.cuda.synchronize()
 
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = {"rasterize_gaussians": counter(RASTER)}
     peak = torch.cuda.max_memory_allocated()
 
     check(launches["rasterize_gaussians"] == JOINT_RASTER_LAUNCHES * steps,
@@ -2271,16 +2291,18 @@ def phase_loader(routes, workdir):
     for route in routes:
         host[route], decode_ms = _host_batches(
             HostLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, backend=route))
-        placer = make_batch_placer("cuda", timing=True)
+        placer = make_batch_placer("cuda")
         loader = HostLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, backend=route,
                             place=placer)
         check(loader.backend == route, f"loader route {loader.backend} != {route}")
         torch.cuda.synchronize()
+        since = REGISTRY.watermark()
         t0 = time.perf_counter()
         placed = []
-        for b in loader:
-            b["image"].sum(dtype=torch.int64)  # a consumer on the compute stream
-            placed.append(b)
+        with REGISTRY.forced_on():  # the placer's copies as device spans
+            for b in loader:
+                b["image"].sum(dtype=torch.int64)  # a consumer on the compute stream
+                placed.append(b)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         check(len(placed) == len(host[route]) == LOADER_IMAGES // BATCH,
@@ -2292,7 +2314,7 @@ def phase_loader(routes, workdir):
                 check(d[k].is_cuda and got.dtype == v.dtype and np.array_equal(got, v),
                       f"{route}: placed {k} differs from the host batch")
         nbytes = sum(v.nbytes for v in host[route][0].values())
-        copy_ms = placer.copy_ms()
+        copy_ms = _place_ms(since)
         results.append({"route": route, "img_per_s": LOADER_IMAGES / seconds,
                         "decode_ms_per_batch": decode_ms,
                         "copy_ms_per_batch": copy_ms, "bytes_per_batch": nbytes,
@@ -2316,6 +2338,12 @@ def phase_loader(routes, workdir):
     return root, results, workers
 
 
+def _place_ms(since):
+    """The card's ms of each placer copy traced since ``REGISTRY.watermark()``
+    gave ``since``: the device spans ``loader.place``."""
+    return [r.ms for r in REGISTRY.records("loader.place", since) if r.device]
+
+
 def _worker_epochs(ds, n, want):
     """WorkerLoader with ``n`` processes: one epoch on the host only (ms a
     batch as the consumer waits for it), one through the CUDA placer (img/s
@@ -2324,15 +2352,17 @@ def _worker_epochs(ds, n, want):
     img/s over the batches after the first."""
     got, host_ms = _host_batches(
         WorkerLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, num_workers=n))
-    placer = make_batch_placer("cuda", timing=True)
+    placer = make_batch_placer("cuda")
     loader = WorkerLoader(ds, BATCH, pad_hw=LOADER_PAD, seed=SEED, num_workers=n,
                           place=placer)
     torch.cuda.synchronize()
+    since = REGISTRY.watermark()
     t0 = time.perf_counter()
     placed = []
-    for b in loader:
-        b["image"].sum(dtype=torch.int64)  # a consumer on the compute stream
-        placed.append(b)
+    with REGISTRY.forced_on():  # the placer's copies as device spans
+        for b in loader:
+            b["image"].sum(dtype=torch.int64)  # a consumer on the compute stream
+            placed.append(b)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     check(len(got) == len(placed) == len(want), f"{n} workers: {len(got)}, {len(placed)} batches")
@@ -2347,7 +2377,7 @@ def _worker_epochs(ds, n, want):
     check(len(steady) == LOADER_STEADY_IMAGES // BATCH, f"{n} workers: {len(steady)} batches")
     del steady
     return {"workers": n, "img_per_s": LOADER_IMAGES / seconds,
-            "host_ms_per_batch": host_ms, "copy_ms_per_batch": placer.copy_ms(),
+            "host_ms_per_batch": host_ms, "copy_ms_per_batch": _place_ms(since),
             "steady_images": LOADER_STEADY_IMAGES, "steady_host_ms_per_batch": steady_ms,
             "steady_img_per_s": BATCH * (len(steady_ms) - 1) * 1e3 / sum(steady_ms[1:])}
 
@@ -2377,15 +2407,15 @@ def _cli(main, argv):
     decode: the idct_islow and ycc_canvas kernels' launches and each
     Experiment's (train, validation) decode routes."""
     buf = io.StringIO()
-    cuda_kernels.reset_launches()
-    jpeg_gpu.reset_launches()
+    reset_counters(RASTER)
+    reset_counters(islow.IDCT_LAUNCHES, jpeg_gpu.YCC_LAUNCHES)
     with contextlib.redirect_stdout(buf), _loader_routes() as routes:
         result = main(argv)
     torch.cuda.synchronize()
-    launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    launches = counter(RASTER)
     print(buf.getvalue(), end="", file=sys.stderr, flush=True)
-    decode = {"ycc_canvas": jpeg_gpu.LAUNCHES["ycc_canvas"],
-              "idct_islow": islow.LAUNCHES["idct_islow"], "routes": routes}
+    decode = {"ycc_canvas": counter(jpeg_gpu.YCC_LAUNCHES),
+              "idct_islow": counter(islow.IDCT_LAUNCHES), "routes": routes}
     return result, launches, buf.getvalue(), decode
 
 
@@ -2693,21 +2723,21 @@ def phase_dispatch(cfg):
     dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, steps=K,
                                   device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     loss = dispatch(state, supers[0])["loss"].cpu()  # warms up, captures, replays
-    first = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    first = counter(RASTER)
     runs["graph"] = (state.snapshot(), loss)
     emit("dispatch_capture", config=cfg.name, steps=K, seconds=dispatch.capture_seconds[0],
          warmup_steps=WARMUP_STEPS, launches=first)
     check(first == WARMUP_STEPS + K, f"first dispatch: {first} launches, want "
           f"{WARMUP_STEPS} warm-up + {K} replayed")
 
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     metrics = [dispatch(state, sb) for sb in supers[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = {"rasterize_gaussians": counter(RASTER)}
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
@@ -2769,7 +2799,7 @@ def phase_dispatch_parity():
             opt = make_optimizer(model.parameters(), cfg.optim, steps_per_epoch=2)
             state = TrainState(model, opt)
             kw = dict(seed=SEED, device="cuda")
-            cuda_kernels.reset_launches()
+            reset_counters(RASTER)
             if how == "eager":
                 step = make_train_step(model, opt, cfg.aug, MPII_MEAN, **kw)
                 ms = [step(state, b) for b in batches]
@@ -2785,7 +2815,7 @@ def phase_dispatch_parity():
                 captures = dispatch.captures
             torch.cuda.synchronize()
             runs[how] = (state.snapshot(), {k: v.cpu() for k, v in metrics.items()},
-                         cuda_kernels.LAUNCHES["rasterize_gaussians"])
+                         counter(RASTER))
     (se, me, le), (sg, mg, lg) = runs["eager"], runs["graph"]
     gap = _gap(se, sg)
     metric_gap = max((me[k] - mg[k]).abs().max().item() for k in me)
@@ -2923,7 +2953,7 @@ def phase_joint_dispatch_parity():
             for how in ("eager", "graph"):
                 state, kw = _joint_state(cfg, "cuda", SEED + 61 + c, widths=(8, 16),
                                          steps_per_epoch=2)
-                cuda_kernels.reset_launches()
+                reset_counters(RASTER)
                 if how == "eager":
                     step = _joint_step_for(state, cfg, "cuda", kw)
                     ms = [step(state, b) for b in batches]
@@ -2949,7 +2979,7 @@ def phase_joint_dispatch_parity():
                     seconds, nbytes = dispatch.capture_seconds, dispatch.pool_bytes
                 torch.cuda.synchronize()
                 runs[how] = (state.snapshot(), {k: v.cpu() for k, v in metrics.items()},
-                             cuda_kernels.LAUNCHES["rasterize_gaussians"])
+                             counter(RASTER))
             (se, me, le), (sg, mg, lg) = runs["eager"], runs["graph"]
             want_captures = {"every3": 3, JOINT_DISPATCH_RELOAD: 2}.get(label, 1)
             cases.append({"case": label, "config": name, **fields, "steps": steps,
@@ -3004,9 +3034,9 @@ def phase_joint_dispatch():
     state.restore_(s0)
     dispatch = _joint_dispatch_for(state, cfg, "cuda", kw, K)
     torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     loss = dispatch(state, supers[0])["loss"].cpu()  # warms up, captures, replays
-    first = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    first = counter(RASTER)
     runs["graph"] = (state.snapshot(), loss)
     emit("joint_dispatch_capture", config=cfg.name, steps=K,
          seconds=dispatch.capture_seconds[0], pool_bytes=dispatch.pool_bytes[0],
@@ -3016,12 +3046,12 @@ def phase_joint_dispatch():
           f"first joint dispatch: {first} launches, want {JOINT_RASTER_LAUNCHES} x "
           f"({WARMUP_STEPS} warm-up + {K} replayed)")
 
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     metrics = [dispatch(state, sb) for sb in supers[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = {"rasterize_gaussians": counter(RASTER)}
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
@@ -3062,14 +3092,14 @@ def phase_joint_dispatch():
     state, kw = _joint_state(cfg, "cuda", SEED + 22)
     rng = np.random.RandomState(SEED + 23)
     dispatch = _joint_dispatch_for(state, cfg, "cuda", kw, 1)
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     ms = [dispatch(state, _stack([_train_batch(rng, BATCH, CANVAS, cfg.model.classes,
                                                t * BATCH)]))
           for t in range(3)]
     torch.cuda.synchronize()
     lsp_s = time.perf_counter() - t0
-    lsp = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    lsp = counter(RASTER)
     values = {k: [m[k].item() for m in ms] for k in ms[0]}
     emit("joint_dispatch_lsp", config=cfg.name, joints=cfg.model.classes,
          occ_nodes=state.agent.model.num_occ_nodes, steps_per_dispatch=1, dispatches=3,
@@ -3209,7 +3239,7 @@ def phase_dp_config(workdir):
     torch.cuda.empty_cache()
     exp = Experiment(cfg, device="cuda")
     routes = (exp.loader.backend, exp.val_loader.backend)
-    jpeg_gpu.reset_launches()
+    reset_counters(islow.IDCT_LAUNCHES, jpeg_gpu.YCC_LAUNCHES)
     try:
         check(routes == ("gpu", "gpu"), f"dp_config decode routes {routes}")
         check(exp.world == 1 and exp.group is None, "one rank")
@@ -3217,14 +3247,14 @@ def phase_dp_config(workdir):
         exp.train_epoch(0)  # warm-up: cuDNN and cuBLAS set-up at 384²
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda_kernels.reset_launches()
+        reset_counters(RASTER)
         t0 = time.perf_counter()
         epochs = [exp.train_epoch(1 + e) for e in range(DP_CONFIG_EPOCHS)]
         train_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         val, preds = exp.validate(DP_CONFIG_EPOCHS)
         val_s = time.perf_counter() - t0
-        launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        launches = counter(RASTER)
         peak = torch.cuda.max_memory_allocated()
         steps = sum(e["steps"] for e in epochs)
         val_batches = -(-len(exp.val_ds) // cfg.batch_size)
@@ -3259,8 +3289,8 @@ def phase_dp_config(workdir):
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         exp.close()
-    decode = {"ycc_canvas": jpeg_gpu.LAUNCHES["ycc_canvas"],
-              "idct_islow": islow.LAUNCHES["idct_islow"]}
+    decode = {"ycc_canvas": counter(jpeg_gpu.YCC_LAUNCHES),
+              "idct_islow": counter(islow.IDCT_LAUNCHES)}
     check(decode["ycc_canvas"] > 0 and decode["idct_islow"] == decode["ycc_canvas"],
           f"dp_config: decode launches {decode}")
     emit("dp_config", config=cfg.name, stacks=cfg.model.stacks, feats=cfg.model.feats,
@@ -3329,7 +3359,7 @@ def _dp_step(job, group, rank, world, dev):
     try:
         model = _dp_model(cfg, job["pose"], dev, group)
         local = shard_slice(job["batch"], rank, world)
-        cuda_kernels.reset_launches()
+        reset_counters(RASTER)
         nets = {"pose": model}
         out = {}
         if kind == "eval":
@@ -3363,7 +3393,7 @@ def _dp_step(job, group, rank, world, dev):
                 m = step(state, local)
             out["draws"] = record
         out.update(metrics={k: v.float() for k, v in m.items()},
-                   launches=cuda_kernels.LAUNCHES["rasterize_gaussians"])
+                   launches=counter(RASTER))
         for name, net in nets.items():
             out[name] = {"grads": {n: p.grad.float() for n, p in net.named_parameters()
                                    if p.grad is not None},
@@ -3734,7 +3764,7 @@ def phase_dp_nccl1():
             opt = make_optimizer(model.parameters(), cfg.optim, steps_per_epoch=2)
             state = TrainState(model, opt)
             kw = dict(seed=SEED, group=None if how == "plain" else group, device="cuda")
-            cuda_kernels.reset_launches()
+            reset_counters(RASTER)
             calls[how] = {"capturing": 0, "eager": 0, "norms": norms}
             dist.all_reduce = counted
             try:
@@ -3753,7 +3783,7 @@ def phase_dp_nccl1():
                 dist.all_reduce = real
             torch.cuda.synchronize()
             runs[how] = (state.snapshot(), metrics,
-                         cuda_kernels.LAUNCHES["rasterize_gaussians"])
+                         counter(RASTER))
         replay = profile_run(_graph_replay(dispatches["nccl"]))
         nccl_kernels = _kernel_names(_graph_replay(dispatches["norms"]), "nccl")
 
@@ -3764,7 +3794,7 @@ def phase_dp_nccl1():
         for how in ("joint_plain", "joint_nccl"):
             state, kw = _joint_state(jcfg, "cuda", SEED + 56, widths=(8, 16),
                                      steps_per_epoch=2)
-            cuda_kernels.reset_launches()
+            reset_counters(RASTER)
             calls[how] = {"capturing": 0, "eager": 0, "norms": 0}
             dist.all_reduce = counted
             try:
@@ -3776,7 +3806,7 @@ def phase_dp_nccl1():
                 dist.all_reduce = real
             torch.cuda.synchronize()
             runs[how] = (state.snapshot(), metrics,
-                         cuda_kernels.LAUNCHES["rasterize_gaussians"])
+                         counter(RASTER))
             dispatches[how] = dispatch
         numel = _bucket_numel(named_config("hg8_mpii"))
         all_reduce_ms = _all_reduce_ms(group, numel, torch.device("cuda:0"))
@@ -3884,12 +3914,12 @@ def _variant_run(cfg, workdir):
     step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[1:]]
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    eager = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    eager = counter(RASTER)
     eager_peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"].item() for m in metrics]
     check(eager == NUM_BATCHES, f"blocks {cfg.model.blocks}: eager launches {eager}")
@@ -3899,16 +3929,16 @@ def _variant_run(cfg, workdir):
                                   device="cuda")
     supers = [_stack([b]) for b in batches[1:]]
     torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     dispatch(state, supers[0])  # warms up, captures, replays
-    first = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    first = counter(RASTER)
     check(first == WARMUP_STEPS + 1, f"blocks {cfg.model.blocks}: first dispatch {first}")
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     t0 = time.perf_counter()
     graphed = [dispatch(state, sb) for sb in supers[1:1 + VARIANT_TIMED]]
     torch.cuda.synchronize()
     graph_s = time.perf_counter() - t0
-    timed = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    timed = counter(RASTER)
     graph_peak = torch.cuda.max_memory_allocated()
     check(timed == VARIANT_TIMED, f"blocks {cfg.model.blocks}: graphed launches {timed}")
     check(dispatch.captures == 1, f"blocks {cfg.model.blocks}: captures {dispatch.captures}")
@@ -3986,20 +4016,20 @@ def _remat_runs(cfg, B, timed):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cuda_kernels.reset_launches()
+        reset_counters(RASTER)
         t0 = time.perf_counter()
         loss = step(state, b1)["loss"].item()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        n = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        n = counter(RASTER)
         check(n == 1, f"remat {name}: {n} launches")
         launches += n
         runs[name] = (state.snapshot(), loss)
         if timed and name != "off_b":
             m = {"step_seconds": seconds, "max_memory_allocated": torch.cuda.max_memory_allocated()}
-            cuda_kernels.reset_launches()
+            reset_counters(RASTER)
             prof = profile_run(lambda: step(state, b1))
-            n = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+            n = counter(RASTER)
             check(n == 1, f"remat {name} profiled step: {n} launches")
             launches += n
             m.update(device_busy_ms=prof["device_busy_ms"], idle_share=prof["idle_share"],
@@ -4010,9 +4040,9 @@ def _remat_runs(cfg, B, timed):
         state.restore_(s0)
         dispatch = make_dispatch_step(model, opt, cfg.aug, MPII_MEAN, seed=SEED, steps=1,
                                       device="cuda")
-        cuda_kernels.reset_launches()
+        reset_counters(RASTER)
         loss = dispatch(state, _stack([b1]))["loss"].item()  # warms up, captures, replays
-        n = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        n = counter(RASTER)
         check(n == WARMUP_STEPS + 1, f"remat graph: {n} launches")
         launches += n
         runs["graph_on"] = (state.snapshot(), loss)
@@ -4202,12 +4232,12 @@ def phase_profiling(workdir):
     try:
         for K in (1, DUTY_K):
             torch.cuda.empty_cache()
-            cuda_kernels.reset_launches()
+            reset_counters(RASTER)
             t0 = time.perf_counter()
             res = duty_cycle.main(["--batch", str(DUTY_BATCH), "--k-per-dispatch", str(K),
                                    "--steps", str(DUTY_STEPS)])
             seconds = time.perf_counter() - t0
-            got = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+            got = counter(RASTER)
             per_epoch = duty_cycle.NUM_IMAGES // DUTY_BATCH  # whole K x B groups
             timed = (min(DUTY_STEPS, per_epoch) if K == 1
                      else max(1, DUTY_STEPS // K) * K)
@@ -4224,14 +4254,14 @@ def phase_profiling(workdir):
     for joint in (False, True):
         torch.cuda.empty_cache()
         name = "joint" if joint else "train"
-        cuda_kernels.reset_launches()
+        reset_counters(RASTER)
         t0 = time.perf_counter()
         out = profile_step.main(["--steps", str(PROFILE_STEPS), "--top", "12",
                                  "--trace-dir", os.path.join(workdir, f"trace_{name}"),
                                  "--out", os.path.join(workdir, f"profile_{name}.txt")]
                                 + (["--joint", "--by-category"] if joint else []))
         seconds = time.perf_counter() - t0
-        got = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+        got = counter(RASTER)
         per_step = JOINT_RASTER_LAUNCHES if joint else 1
         # 3 warm calls (the first captures after its warm-up steps), then traced
         want = per_step * (WARMUP_STEPS + 3 + PROFILE_STEPS)
@@ -4279,14 +4309,14 @@ def phase_adv_gain(workdir):
     for k, v in ADV_GAIN.items():
         argv += [f"--{k.replace('_', '-')}", str(v)]
     loop.Experiment._init_pose_from = recording
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     try:
         t0 = time.perf_counter()
         result = adversarial_gain.main(argv)
         seconds = time.perf_counter() - t0
     finally:
         loop.Experiment._init_pose_from = load
-    launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    launches = counter(RASTER)
 
     with open(os.path.join(out, "result.json")) as f:
         written = json.load(f)
@@ -4341,14 +4371,14 @@ def phase_visualize(workdir):
     ckpt = os.path.join(workdir, "viz")
     os.makedirs(ckpt)
     os.symlink(os.path.join(out, "armA_baseline"), os.path.join(ckpt, "hg2_mpii_mini"))
-    cuda_kernels.reset_launches()
+    reset_counters(RASTER)
     paths = visualize.main([
         "--checkpoint", ckpt, "--json", os.path.join(out, "data", "annotations.json"),
         "--image-path", os.path.join(out, "data", "images"),
         "--stacks", str(ADV_GAIN["stacks"]), "--features", str(ADV_GAIN["feats"]),
         "--train-batch", str(ADV_GAIN["batch"]), "--n", str(VIZ_IMAGES),
         "--out", os.path.join(ckpt, "png")])
-    launches = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    launches = counter(RASTER)
     sizes = []
     for p in paths:
         with Image.open(p) as im:

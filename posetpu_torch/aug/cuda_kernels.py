@@ -2,12 +2,12 @@
 
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs,
 launches its kernel on PyTorch's current stream without synchronising,
-raises if the launch was refused, and adds one to its count in
-:data:`LAUNCHES`.  A launch recorded into a CUDA graph is counted when the
-graph replays (:func:`counted_as_replays`, :func:`add_replay`), since the
-capture itself runs nothing.  The kernels build from ``aug/kernels/*.cu``
-at first use (:mod:`posetpu_torch.utils.cuda_build`); nothing here runs
-at import.
+raises if the launch was refused, and adds one to its counter
+``launches.<kernel>`` in :data:`posetpu_torch.utils.profiling.REGISTRY`.
+A launch recorded into a CUDA graph is counted when the graph replays
+(:func:`counted_as_replays`, :func:`add_replay`), since the capture itself
+runs nothing.  The kernels build from ``aug/kernels/*.cu`` at first use
+(:mod:`posetpu_torch.utils.cuda_build`); nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import os
 
 import torch
 
-from posetpu_torch.utils import cuda_build
+from posetpu_torch.utils import cuda_build, profiling
 
 _KERNEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels")
 RASTERIZE_SOURCE = os.path.join(_KERNEL_DIR, "rasterize.cu")
@@ -27,14 +27,9 @@ RASTERIZE_SOURCE = os.path.join(_KERNEL_DIR, "rasterize.cu")
 # every kernel source of this module, for building them all at once
 SOURCES = (RASTERIZE_SOURCE,)
 
-# launches per kernel since the last reset_launches(); counted only where a
-# wrapper launches its kernel
-LAUNCHES = {"rasterize_gaussians": 0}
-
-
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# the launch counters of this module's kernels, the ones a graph captures
+RASTERIZE_LAUNCHES = "launches.rasterize_gaussians"
+COUNTERS = (RASTERIZE_LAUNCHES,)
 
 
 @contextlib.contextmanager
@@ -43,22 +38,22 @@ def counted_as_replays():
     runs its kernels, and they count): the wrappers count the launches they
     record, but a capture runs nothing, so the counts go back to what they
     were on exit.  Yields a dict that holds, on exit, the launches the
-    capture recorded by kernel; :func:`add_replay` adds them back once per
+    capture recorded by counter; :func:`add_replay` adds them back once per
     replay."""
-    before = dict(LAUNCHES)
+    before = {name: profiling.counter(name) for name in COUNTERS}
     captured = {}
     try:
         yield captured
     finally:
-        for name in LAUNCHES:
-            captured[name] = LAUNCHES[name] - before[name]
-            LAUNCHES[name] = before[name]
+        for name in COUNTERS:
+            captured[name] = profiling.counter(name) - before[name]
+            profiling.count(name, -captured[name])
 
 
 def add_replay(captured):
     """Count one replay of a graph that recorded ``captured`` launches."""
     for name, n in captured.items():
-        LAUNCHES[name] += n
+        profiling.count(name, n)
 
 
 @functools.cache
@@ -105,5 +100,5 @@ def rasterize_gaussians_cuda(pts, visible, res, denom, win, s3):
         )
     if err != 0:
         raise RuntimeError(f"rasterize_gaussians launch failed: CUDA error {err}")
-    LAUNCHES["rasterize_gaussians"] += 1
+    profiling.count(RASTERIZE_LAUNCHES)
     return target, vis_out

@@ -28,8 +28,9 @@ differ from its batches by at most that many superbatches, and its
 ``idct_islow`` launches likewise), on the card's decode route ``threads``
 (its entropy decoder's worker threads) and the medians of
 ``GpuJpegDecoder.times`` in the window (``read_ms``, ``info_ms``,
-``host_ms``, ``copy_in_ms``, ``idct_ms``, ``canvas_ms``, and ``copy_ms``,
-0 there: the loader keeps the canvas on the card) and the files it
+``host_ms``), the medians of its stages' device spans, the window traced
+for them (``copy_in_ms``, ``idct_ms``, ``canvas_ms``, and ``copy_ms``, 0
+there: the loader keeps the canvas on the card) and the files it
 refused in the window (``refused``), and the step's wait on the loader
 (``loader_wait_ms``, the median of a dispatch's, and ``loader_wait_s``,
 the window's sum).  Everything else goes to stderr.  Every mode runs on
@@ -116,6 +117,7 @@ from posetpu_torch.train.adversarial import (
 from posetpu_torch.train.loop import seeded_init_
 from posetpu_torch.utils.device import resolve_device
 from posetpu_torch.tools.profile_step import profile_run
+from posetpu_torch.utils import profiling
 from posetpu_torch.utils.profiling import DeviceTimer, _fetch, _stack
 
 REF_GPU_IMG_PER_SEC = 12.0  # the reference's literature anchor (BASELINE.md)
@@ -168,16 +170,18 @@ def _span(timer):
     return contextlib.nullcontext() if timer is None else timer.span()
 
 
+# the registry's launch counters of the kernels, by kernel
+LAUNCH_COUNTERS = {"rasterize_gaussians": cuda_kernels.RASTERIZE_LAUNCHES,
+                   "idct_islow": islow.IDCT_LAUNCHES, "ycc_canvas": jpeg_gpu.YCC_LAUNCHES}
+
+
 def _reset_launches():
-    cuda_kernels.reset_launches()
-    jpeg_gpu.reset_launches()
+    profiling.reset_counters(*LAUNCH_COUNTERS.values())
 
 
 def _launches():
     """The launches counted since :func:`_reset_launches`, by kernel."""
-    return {"rasterize_gaussians": cuda_kernels.LAUNCHES["rasterize_gaussians"],
-            "idct_islow": islow.LAUNCHES["idct_islow"],
-            "ycc_canvas": jpeg_gpu.LAUNCHES["ycc_canvas"]}
+    return {k: profiling.counter(name) for k, name in LAUNCH_COUNTERS.items()}
 
 
 def _hourglass(stacks, feats, classes=16, scan_stacks=False):
@@ -393,17 +397,20 @@ def run_bench_loader(dev, batch=16, stacks=8, feats=128, steps=20, warmup=3, res
         _reset_launches()
         # a loader's thread appends a batch's decode times as it goes
         n_times = len(decoder.times) if decoder is not None else 0
+        since = profiling.REGISTRY.watermark()
         t0 = time.perf_counter()
-        for _ in range(n_dispatch):
-            tw = time.perf_counter()
-            b = next(it)  # the card's stream now waits for the batch's copy
-            waits.append(time.perf_counter() - tw)
-            with _span(timer):
-                m = step(state, b)
-        _fetch(m)
+        with profiling.REGISTRY.forced_on():  # the decode's device spans
+            for _ in range(n_dispatch):
+                tw = time.perf_counter()
+                b = next(it)  # the card's stream now waits for the batch's copy
+                waits.append(time.perf_counter() - tw)
+                with _span(timer):
+                    m = step(state, b)
+            _fetch(m)
         host = time.perf_counter() - t0
         launches = _launches()
         times = decoder.times[n_times:] if decoder is not None else []
+        stages = [r for r in profiling.records(since=since) if r.device]
     finally:
         it.close()  # the producer thread, and the workers of an epoch
         if backend == "grain":
@@ -417,8 +424,12 @@ def run_bench_loader(dev, batch=16, stacks=8, feats=128, steps=20, warmup=3, res
            "loader_batches": steps_run, "prefetch": loader.prefetch,
            "threads": decoder.num_threads if decoder is not None else None,
            "loader_wait_ms": 1e3 * statistics.median(waits), "loader_wait_s": sum(waits)}
-    for key in ("read_ms", "info_ms", "host_ms", "copy_in_ms", "idct_ms", "canvas_ms", "copy_ms"):
+    for key in ("read_ms", "info_ms", "host_ms"):
         out[key] = statistics.median(t[key] for t in times) if times else None
+    for key, name in (("copy_in_ms", "loader.copy_in"), ("idct_ms", "loader.idct"),
+                      ("canvas_ms", "loader.canvas"), ("copy_ms", "loader.copy_out")):
+        got = [r.ms for r in stages if r.name == name]
+        out[key] = statistics.median(got) if got else (0.0 if times else None)
     out["refused"] = sum(t["refused"] for t in times) if times else None
     return out
 

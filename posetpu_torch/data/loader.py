@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from posetpu_torch.parallel.dp import check_batch, shard_slice
+from posetpu_torch.utils import profiling
 from posetpu_torch.utils.device import resolve_device
 
 
@@ -164,13 +165,16 @@ def group_stack(src_iter, group, host_image=None):
         yield _stack(buf, host_image)
 
 
+# the end of a producer's source
+_END = object()
+
 # seconds an early exit waits for the producer thread to stop: the batch it
 # is making (a batch of 32 MPII frames decodes in under 1 s) or a worker
 # loader's own timeout (worker_loader.WORKER_TIMEOUT), with room to spare
 JOIN_TIMEOUT = 300.0
 
 
-def threaded_place_iter(src_iter, place, prefetch=2):
+def threaded_place_iter(src_iter, place, prefetch=2, epoch=None):
     """Drive ``src_iter`` from a background thread and apply ``place``
     (the copy to the device) there, so decode, collate and the copy overlap
     the training step.  The queue is abandon-safe: a consumer that exits
@@ -180,7 +184,19 @@ def threaded_place_iter(src_iter, place, prefetch=2):
     drops the prefetched batches, which with ``place`` hold device memory.
     The wait is the batch the producer is making, and at most
     ``JOIN_TIMEOUT`` seconds: a producer stuck longer (a hung source)
-    raises.  An exception in the producer is raised in the consumer."""
+    raises.  An exception in the producer is raised in the consumer.
+
+    Spans and counters (:mod:`posetpu_torch.utils.profiling`), each batch
+    k's spans with the unit (``epoch``, k): the producer's
+    ``loader.produce`` (making the batch: the source's own spans, such as
+    the decoder's), its ``loader.place`` and ``loader.put_wait`` (blocked
+    on a full queue); the consumer's ``loader.wait`` (blocked in the
+    queue's ``get``), marked ``first_of_epoch`` for the first batch, after
+    which the unit is the consumer thread's (:func:`profiling.set_unit`)
+    until the next batch or the end, so the step that takes the batch
+    shares it.  ``loader.batches`` counts
+    the batches handed over, ``loader.starved`` those the consumer found
+    the queue empty for."""
     q = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
@@ -195,9 +211,20 @@ def threaded_place_iter(src_iter, place, prefetch=2):
 
     def produce():
         try:
-            for item in src_iter:
-                if not _put(place(item)):
+            it, k = iter(src_iter), 0
+            while True:
+                with profiling.span("loader.produce", unit=(epoch, k)) as sp:
+                    item = next(it, _END)
+                    if item is _END:
+                        sp.cancel()
+                        break
+                    with profiling.span("loader.place"):
+                        item = place(item)
+                    with profiling.span("loader.put_wait"):
+                        put = _put(item)
+                if not put:
                     return
+                k += 1
             _put(None)
         except BaseException as e:
             _put(e)
@@ -209,14 +236,29 @@ def threaded_place_iter(src_iter, place, prefetch=2):
     producer = threading.Thread(target=produce, daemon=True)
     producer.start()
     try:
+        k = 0
         while True:
-            item = q.get()
+            with profiling.span("loader.wait", unit=(epoch, k)) as sp:
+                try:
+                    item, starved = q.get_nowait(), False
+                except queue.Empty:
+                    item, starved = q.get(), True
+                if item is None or isinstance(item, BaseException):
+                    sp.cancel()
+                elif k == 0:
+                    sp.mark("first_of_epoch")
             if item is None:
                 return
             if isinstance(item, BaseException):
                 raise item
+            profiling.count("loader.batches")
+            if starved:
+                profiling.count("loader.starved")
+            profiling.set_unit((epoch, k))
             yield item
+            k += 1
     finally:
+        profiling.set_unit(None)
         stop.set()
         producer.join(JOIN_TIMEOUT)
         try:
@@ -270,17 +312,16 @@ class CudaBatchPlacer:
     stream (or the decoder's) again while the compute stream may still
     read it.
 
-    ``timing=True`` also records CUDA timing events around each copy;
-    :meth:`copy_ms` reads them (it synchronizes).
+    While tracing is on (:mod:`posetpu_torch.utils.profiling`) the copies
+    are the device span ``loader.place`` of the producer's span of the
+    same name.
     """
 
-    def __init__(self, device, timing=False):
+    def __init__(self, device):
         device = torch.device(device)
         self.device = torch.device("cuda", torch.cuda.current_device()
                                    if device.index is None else device.index)
         self.stream = torch.cuda.Stream(self.device)
-        self.timing = timing
-        self._copy_events = []
 
     def host_image(self, shape):
         return torch.empty(tuple(shape), dtype=torch.uint8, pin_memory=True)
@@ -290,14 +331,11 @@ class CudaBatchPlacer:
             decoded = batch.get(IMAGE_READY)
             if decoded is not None:
                 self.stream.wait_event(decoded)
-            if self.timing:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record(self.stream)
-            out = {k: place_field(v, self.device) for k, v in batch.items() if k != IMAGE_READY}
-            done = torch.cuda.Event(enable_timing=self.timing)
+            with profiling.device_span("loader.place", self.stream):
+                out = {k: place_field(v, self.device) for k, v in batch.items()
+                       if k != IMAGE_READY}
+            done = torch.cuda.Event()
             done.record(self.stream)
-            if self.timing:
-                self._copy_events.append((start, done))
         return out, done
 
     def ready(self, placed):
@@ -308,16 +346,8 @@ class CudaBatchPlacer:
             t.record_stream(current)
         return tensors
 
-    def copy_ms(self):
-        """Device ms of each copy recorded so far (``timing=True``)."""
-        out = []
-        for start, done in self._copy_events:
-            done.synchronize()
-            out.append(start.elapsed_time(done))
-        return out
 
-
-def make_batch_placer(device="cuda", timing=False):
+def make_batch_placer(device="cuda"):
     """The ``place`` step of :class:`HostLoader` for ``device``: on CUDA a
     :class:`CudaBatchPlacer` (pinned decode buffers, copies on a stream of
     its own, event-ordered hand-off); on the CPU the batch as tensors.
@@ -325,7 +355,7 @@ def make_batch_placer(device="cuda", timing=False):
     dev = resolve_device(device)
     if dev.type == "cpu":
         return _CpuPlacer()
-    return CudaBatchPlacer(dev, timing=timing)
+    return CudaBatchPlacer(dev)
 
 
 class HostLoader:
@@ -447,7 +477,8 @@ class HostLoader:
     def decoder(self):
         """The decoder of the native and gpu routes (``None`` on Pillow's):
         a :class:`~posetpu_torch.native.jpeg_gpu.GpuJpegDecoder`'s ``timing``
-        and ``times`` time each batch's decode."""
+        and ``times`` time each batch's decode, and its stages are spans of
+        the producer's ``loader.produce``."""
         return self._decoder
 
     def _host_image(self):
@@ -588,7 +619,9 @@ class HostLoader:
 
     def __iter__(self):
         order = self._order()
+        epoch = self.epoch
         self.epoch += 1
+        profiling.count("loader.epochs")
         if self.group is None:
             src = self._batches(order)
         elif self._keep_canvas:
@@ -599,7 +632,7 @@ class HostLoader:
         ready = getattr(self.place, "ready", None)
         # decode, collate, stacking and the copy run in the producer
         # thread; the consumer only orders its stream after each ready batch
-        it = threaded_place_iter(src, place, prefetch=self.prefetch)
+        it = threaded_place_iter(src, place, prefetch=self.prefetch, epoch=epoch)
         try:
             for item in it:
                 yield item if ready is None else ready(item)

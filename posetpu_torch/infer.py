@@ -38,6 +38,7 @@ from posetpu_torch.aug.warp import affine_warp
 from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.eval.decode import final_preds, get_preds, quarter_offset
 from posetpu_torch.models import hg
+from posetpu_torch.utils import profiling
 from posetpu_torch.utils.device import resolve_device
 from posetpu_torch.utils.graphs import ShapeGraphs
 
@@ -89,7 +90,10 @@ class PosePredictor:
     are captured again; ``load_state_dict`` copies in place and keeps them.
     ``graphs.captures``, ``graphs.pool_bytes`` and
     ``graphs.capture_seconds`` report the captures.  On the CPU every call
-    runs :meth:`_forward` eagerly.
+    runs :meth:`_forward` eagerly.  Each batch's spans
+    (:mod:`posetpu_torch.utils.profiling`), ``serve.stage``,
+    ``serve.replay`` and ``serve.fetch`` (the wait for its results on the
+    host), share the unit ("serve", its sequence number).
     """
 
     def __init__(
@@ -121,7 +125,9 @@ class PosePredictor:
                 self._graph_body,
                 lambda: [*self.model.parameters(), *self.model.buffers()],
                 self.device,
+                name="serve",
             )
+        self._seq = 0  # batches launched
 
     @classmethod
     def from_config(cls, cfg, checkpoint, *, best=True, mean=MPII_MEAN, device="cuda"):
@@ -172,6 +178,7 @@ class PosePredictor:
 
     def _launch(self, images, valid_wh, center, scale):
         """Enqueue one batch; returns its pending result."""
+        seq, self._seq = self._seq, self._seq + 1
         batch = {
             "images": torch.as_tensor(np.asarray(images)),
             "valid_wh": torch.as_tensor(np.asarray(valid_wh), dtype=torch.int32),
@@ -179,9 +186,9 @@ class PosePredictor:
             "scale": torch.as_tensor(np.asarray(scale), dtype=torch.float32),
         }
         if self.device.type != "cuda":
-            return self._graph_body(batch), None
+            return self._graph_body(batch), None, seq
         # the replay's static outputs, copied out before the next replay
-        out = self.graphs(batch)
+        out = self.graphs(batch, unit=("serve", seq))
         host = {
             k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
                 v, non_blocking=True
@@ -190,14 +197,15 @@ class PosePredictor:
         }
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return host, done, seq
 
     @staticmethod
     def _fetch(pending):
-        host, done = pending
-        if done is not None:
-            done.synchronize()
-        return {k: v.numpy() for k, v in host.items()}
+        host, done, seq = pending
+        with profiling.span("serve.fetch", ("serve", seq)):
+            if done is not None:
+                done.synchronize()
+            return {k: v.numpy() for k, v in host.items()}
 
     def __call__(self, images, valid_wh, center, scale):
         """images (B, Hp, Wp, 3) uint8 zero-padded; valid_wh (B, 2) int;

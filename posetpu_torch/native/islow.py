@@ -30,8 +30,8 @@ dropped, as libjpeg's raw output crops them.
 
 :func:`idct_islow` is the kernel's wrapper: the plain version on CPU
 tensors, the kernel on CUDA tensors (or it raises), one launch counted in
-:data:`LAUNCHES`.  The library builds at first use; nothing here runs at
-import.
+the registry's :data:`IDCT_LAUNCHES` (:mod:`posetpu_torch.utils.profiling`).
+The library builds at first use; nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -40,13 +40,12 @@ import contextlib
 import ctypes
 import functools
 import os
-import threading
 
 import numpy as np
 import torch
 
 from posetpu_torch.native.staging import StagingSet
-from posetpu_torch.utils import cuda_build
+from posetpu_torch.utils import cuda_build, profiling
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels", "idct_islow.cu")
 
@@ -126,10 +125,9 @@ def component_plane(coefs, qtable, blocks_w, blocks_h, w, h):
 
 # --- the kernel ---------------------------------------------------------------
 
-# launches of the kernel since the last reset_launches(), counted where the
-# wrapper launches it (the decode runs in loaders' producer threads)
-LAUNCHES = {"idct_islow": 0}
-_count_lock = threading.Lock()
+# the registry's counter of the kernel's launches, counted where the wrapper
+# launches it
+IDCT_LAUNCHES = "launches.idct_islow"
 
 # idct_islow.cu's descriptor of one component, in int64 words: coefficient
 # offset and table offset (int16 elements), the grid's blocks wide, the
@@ -141,12 +139,6 @@ TILE_BLOCKS = 32  # idct_islow.cu's kTileBlocks: blocks of a block row a tile
 ALIGN = 8  # coefficient and table offsets, in elements: 16-byte bulk copies
 
 _staging = StagingSet()
-
-
-def reset_launches():
-    with _count_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
 
 
 # idct_islow.cu's C functions: (restype, argtypes), in its order
@@ -243,8 +235,7 @@ def idct_islow_cuda(coefs, qtables, desc, planes):
                           torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"idct_islow launch failed: CUDA error {err}")
-    with _count_lock:
-        LAUNCHES["idct_islow"] += 1
+    profiling.count(IDCT_LAUNCHES)
     return planes
 
 

@@ -26,7 +26,8 @@ so the tests reach every step but the two kernels.
 
 :func:`ycc_canvas` is the canvas kernel's wrapper: plain on CPU tensors, the
 kernel on CUDA tensors (or it raises), one launch counted in
-:data:`LAUNCHES`.  The libraries build at first use
+the registry's :data:`YCC_LAUNCHES` (:mod:`posetpu_torch.utils.profiling`).
+The libraries build at first use
 (:mod:`posetpu_torch.utils.cuda_build`); nothing here runs at import.
 """
 
@@ -53,7 +54,7 @@ from posetpu_torch.native.bindings import (
     checked_centers,
 )
 from posetpu_torch.native.staging import StagingSet
-from posetpu_torch.utils import cuda_build
+from posetpu_torch.utils import cuda_build, profiling
 from posetpu_torch.utils.device import resolve_device
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -64,11 +65,9 @@ YCC_SOURCE = os.path.join(_DIR, "kernels", "ycc_canvas.cu")
 # the kernel sources of the route, built with cuda_build.NVCC_FLAGS alone
 SOURCES = (islow.SOURCE, YCC_SOURCE)
 
-# launches of the canvas kernel since the last reset_launches(), counted
-# where the wrapper launches it (the decode runs in loaders' producer
-# threads); the IDCT's are islow.LAUNCHES
-LAUNCHES = {"ycc_canvas": 0}
-_count_lock = threading.Lock()
+# the registry's counter of the canvas kernel's launches, counted where the
+# wrapper launches it; the IDCT's is islow.IDCT_LAUNCHES
+YCC_LAUNCHES = "launches.ycc_canvas"
 
 DESC_WORDS = 24  # ycc_canvas.cu's descriptor of one image, in int64 words
 PITCH_ALIGN = 256  # row pitch of the planes the IDCT writes, in bytes
@@ -81,14 +80,6 @@ JPE_STATUSES = ("ok", "not_jpeg", "progressive", "arithmetic", "lossless", "prec
 INFO_WORDS = 21  # jpe_info's words: width, height, components, 6 a component
 
 _SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
-
-
-def reset_launches():
-    """Zero the route's launch counts: the canvas kernel's and the IDCT's."""
-    with _count_lock:  # a loader's thread may be launching
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-    islow.reset_launches()
 
 
 def jpeg_color_space(data):
@@ -245,8 +236,7 @@ def ycc_canvas_cuda(planes, samplings, windows, pad_hw, out=None):
                           torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ycc_canvas launch failed: CUDA error {err}")
-    with _count_lock:
-        LAUNCHES["ycc_canvas"] += 1
+    profiling.count(YCC_LAUNCHES)
     return out
 
 
@@ -461,13 +451,19 @@ class GpuJpegDecoder:
     files), ``info_ms`` (parsing their headers, laying out their
     coefficients and planes, and the wait for the pinned buffer's last
     copy), ``host_ms`` (the wall time of the workers' entropy decode),
-    ``desc_ms`` (the host clock of the canvas kernel's wrapper), then from
-    CUDA events on the decoder's stream ``copy_in_ms`` (the coefficients'
-    copy to the card), ``idct_ms`` (the IDCT's staging and kernel),
-    ``canvas_ms`` (the canvas kernel's staging and kernel) and ``copy_ms``
-    (the canvas into a host ``out``; 0 for a tensor ``out``), and
-    ``total_ms``.  With a tensor ``out`` a timed call waits for its canvas
-    before it returns.
+    ``desc_ms`` (the host clock of the canvas kernel's wrapper) and
+    ``total_ms`` (the call's host time): the host's clock alone, so a
+    timed call waits for nothing more than an untimed one.
+
+    While tracing is on (:mod:`posetpu_torch.utils.profiling`) the stages
+    are spans of the loader's producer, whose step the decode is:
+    ``loader.read``, ``loader.header`` and ``loader.entropy`` above, then
+    ``loader.device_decode`` (the host's calls of the copy and the two
+    kernels).  The card's time of each stage, on the decoder's stream, is a
+    device span of it: ``loader.copy_in`` (the coefficients' copy to the
+    card), ``loader.idct`` (the IDCT's staging and kernel),
+    ``loader.canvas`` (the canvas kernel's staging and kernel) and, for a
+    host ``out``, ``loader.copy_out`` (the canvas into it).
     """
 
     PINNED_BUFFERS = 2  # the coefficients' page-locked buffers, used in turn
@@ -558,27 +554,31 @@ class GpuJpegDecoder:
         and decode them with one ``jpe_decode_batch`` on the workers.
         Returns (:class:`Coefficients`, {"read_ms", "info_ms", "host_ms"})."""
         t0 = time.perf_counter()
-        datas = [_read(p) for p in paths]
+        with profiling.span("loader.read"):
+            datas = [_read(p) for p in paths]
         t1 = time.perf_counter()
-        info = np.zeros(INFO_WORDS, np.int32)
-        heads = [self._header(p, d, info) for p, d in zip(paths, datas)]
-        statuses = np.array([h if isinstance(h, int) else 0 for h in heads], np.int32)
-        heads = [h if isinstance(h, _Header) else None for h in heads]
-        layout, elements = coefficient_layout([h and h.grids for h in heads])
-        live = [i for i, lay in enumerate(layout) if lay is not None]
-        buffer = buffer_for(elements)
-        base = buffer.data_ptr()
-        coef_ptrs = np.array([base + 2 * layout[i][1][0] for i in live], np.uint64)
-        qt_ptrs = np.array([base + 2 * layout[i][0] for i in live], np.uint64)
-        lengths = np.array([len(datas[i]) for i in live], np.uint64)
-        got = np.zeros(len(live), np.int32)
+        with profiling.span("loader.header"):
+            info = np.zeros(INFO_WORDS, np.int32)
+            heads = [self._header(p, d, info) for p, d in zip(paths, datas)]
+            statuses = np.array([h if isinstance(h, int) else 0 for h in heads], np.int32)
+            heads = [h if isinstance(h, _Header) else None for h in heads]
+            layout, elements = coefficient_layout([h and h.grids for h in heads])
+            live = [i for i, lay in enumerate(layout) if lay is not None]
+            buffer = buffer_for(elements)
+            base = buffer.data_ptr()
+            coef_ptrs = np.array([base + 2 * layout[i][1][0] for i in live], np.uint64)
+            qt_ptrs = np.array([base + 2 * layout[i][0] for i in live], np.uint64)
+            lengths = np.array([len(datas[i]) for i in live], np.uint64)
+            got = np.zeros(len(live), np.int32)
         t2 = time.perf_counter()
         if live:
-            self._lib.jpe_decode_batch(
-                self._ctx, (ctypes.c_char_p * len(live))(*[datas[i] for i in live]),
-                lengths.ctypes.data_as(_P(ctypes.c_size_t)), len(live),
-                coef_ptrs.ctypes.data_as(_P(ctypes.c_void_p)),
-                qt_ptrs.ctypes.data_as(_P(ctypes.c_void_p)), got.ctypes.data_as(_P(ctypes.c_int)))
+            with profiling.span("loader.entropy"):
+                self._lib.jpe_decode_batch(
+                    self._ctx, (ctypes.c_char_p * len(live))(*[datas[i] for i in live]),
+                    lengths.ctypes.data_as(_P(ctypes.c_size_t)), len(live),
+                    coef_ptrs.ctypes.data_as(_P(ctypes.c_void_p)),
+                    qt_ptrs.ctypes.data_as(_P(ctypes.c_void_p)),
+                    got.ctypes.data_as(_P(ctypes.c_int)))
         t3 = time.perf_counter()
         for i, st in zip(live, got.tolist()):
             if st != 0:
@@ -650,29 +650,23 @@ class GpuJpegDecoder:
             setattr(self, name, t)
         return t
 
-    def _planes_cuda(self, paths, marks=None):
-        """The entropy decode into a pinned buffer, its copy to the card
-        and the IDCT kernel into the plane buffer, on the decoder's stream
-        (the caller's context).  ``marks``: CUDA events to record before
-        the copy, after it and after the kernel.  Returns (planes,
-        samplings, {"read_ms", "info_ms", "host_ms", "refused"})."""
-        coefs, ms = self._entropy(paths, self._pinned_for)
+    def _planes_cuda(self, coefs):
+        """The copy of ``coefs`` (the entropy decode, in a pinned buffer)
+        to the card and the IDCT kernel into the plane buffer, on the
+        decoder's stream (the caller's context).  Returns (planes,
+        samplings)."""
         n = coefs.elements if len(coefs.desc) else 0
         dev_coefs = self._grown("_coefs", n, torch.int16)
-        if marks:
-            marks[0].record(self.stream)
-        if n:
-            dev_coefs[:n].copy_(coefs.buffer[:n], non_blocking=True)
+        with profiling.device_span("loader.copy_in", self.stream):
+            if n:
+                dev_coefs[:n].copy_(coefs.buffer[:n], non_blocking=True)
         self._copied[self._last].record(self.stream)
-        if marks:
-            marks[1].record(self.stream)
         _, nbytes = plane_layout([h and h.planes for h in coefs.headers])
         planes, flat = self._plane_views(coefs, self._grown("_buf", nbytes, torch.uint8))
-        if flat:
-            islow.idct_islow_cuda(dev_coefs, dev_coefs, coefs.desc, flat)
-        if marks:
-            marks[2].record(self.stream)
-        return planes, [h.samplings if h else () for h in coefs.headers], ms
+        with profiling.device_span("loader.idct", self.stream):
+            if flat:
+                islow.idct_islow_cuda(dev_coefs, dev_coefs, coefs.desc, flat)
+        return planes, [h.samplings if h else () for h in coefs.headers]
 
     def decode_planes(self, paths):
         """Each file's component planes as this route has them before the
@@ -683,7 +677,7 @@ class GpuJpegDecoder:
         if self.device.type == "cpu":
             return self._planes_cpu(paths)
         with self._on_device():
-            planes, samplings, _ = self._planes_cuda(paths)
+            planes, samplings = self._planes_cuda(self._entropy(paths, self._pinned_for)[0])
             self.stream.synchronize()
         return planes, samplings
 
@@ -703,34 +697,25 @@ class GpuJpegDecoder:
             return (DecodedCanvas(out) if keep else out), *_results(windows)
         with self._on_device():
             t0 = time.perf_counter()
-            marks = ([torch.cuda.Event(enable_timing=True) for _ in range(5)]
-                     if self.timing else None)
-            planes, samplings, ms = self._planes_cuda(paths, marks)
-            windows = _windows(planes, centers, (ph, pw))
-            t1 = time.perf_counter()
-            canvas = ycc_canvas_cuda(planes, samplings, windows, (ph, pw),
-                                     out=out if keep else self._canvas_for((n, ph, pw, 3)))
-            desc_ms = 1e3 * (time.perf_counter() - t1)
-            if marks:
-                marks[3].record(self.stream)
-            if keep:
-                images = DecodedCanvas(out, self.stream)
-            else:
-                # the caller's buffer is pinned on the loader's path: a DMA
-                torch.from_numpy(out).copy_(canvas, non_blocking=True)
-                images = out
-            if marks:
-                marks[4].record(self.stream)
-            if not keep:
-                self.stream.synchronize()
-            elif marks:
-                marks[4].synchronize()
-        if marks:
+            coefs, ms = self._entropy(paths, self._pinned_for)
+            with profiling.span("loader.device_decode"):
+                planes, samplings = self._planes_cuda(coefs)
+                windows = _windows(planes, centers, (ph, pw))
+                with profiling.device_span("loader.canvas", self.stream):
+                    t1 = time.perf_counter()
+                    canvas = ycc_canvas_cuda(planes, samplings, windows, (ph, pw),
+                                             out=out if keep else self._canvas_for((n, ph, pw, 3)))
+                    desc_ms = 1e3 * (time.perf_counter() - t1)
+                if keep:
+                    images = DecodedCanvas(out, self.stream)
+                else:
+                    # the caller's buffer is pinned on the loader's path: a DMA
+                    with profiling.device_span("loader.copy_out", self.stream):
+                        torch.from_numpy(out).copy_(canvas, non_blocking=True)
+                    images = out
+                    self.stream.synchronize()
+        if self.timing:
             self.times.append({"threads": self.num_threads, **ms, "desc_ms": desc_ms,
-                               "copy_in_ms": marks[0].elapsed_time(marks[1]),
-                               "idct_ms": marks[1].elapsed_time(marks[2]),
-                               "canvas_ms": marks[2].elapsed_time(marks[3]),
-                               "copy_ms": 0.0 if keep else marks[3].elapsed_time(marks[4]),
                                "total_ms": 1e3 * (time.perf_counter() - t0)})
         return images, *_results(windows)
 

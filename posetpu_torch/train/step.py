@@ -62,7 +62,6 @@ from dataclasses import dataclass
 
 import torch
 
-from posetpu_torch.aug import cuda_kernels
 from posetpu_torch.aug.color import sample_jitter_scales
 from posetpu_torch.aug.pipeline import (
     augment_batch,
@@ -71,6 +70,7 @@ from posetpu_torch.aug.pipeline import (
 )
 from posetpu_torch.eval.decode import final_preds, pck_counts, pck_from_counts
 from posetpu_torch.parallel.dp import is_gloo, mean_grads_, reduce_metrics
+from posetpu_torch.utils import profiling
 from posetpu_torch.utils.device import resolve_device
 from posetpu_torch.utils.graphs import GraphCache, ShapeGraphs, record
 
@@ -298,6 +298,15 @@ class GraphedSteps(GraphCache):
     The captures are counted as :class:`posetpu_torch.utils.graphs.GraphCache`
     counts them; each ``pool_bytes`` is the size of its graph's own memory
     pool (the warm-up's cached blocks released first).
+
+    Spans (:mod:`posetpu_torch.utils.profiling`), a dispatch's in one unit
+    (the thread's, such as the loader's batch, else the dispatch's own):
+    ``dispatch`` (marked with its ``steps``), and in it ``dispatch.stage``
+    (the superbatch to the device, the counters loaded, the graph's static
+    inputs filled, and a capture's ``graph.capture`` where one is due),
+    ``dispatch.replay`` (with the card's time of the replay alone as its
+    device span, marked with the ``steps``) or ``dispatch.eager``, and ``dispatch.finish`` (the
+    outputs cloned, the counters advanced).
     """
 
     def __init__(self, body, counters, check_state, steps, dev, *, update_every=1):
@@ -310,37 +319,55 @@ class GraphedSteps(GraphCache):
         return tuple((step + i) % self.update_every == 0 for i in range(k))
 
     def __call__(self, state, superbatch):
-        self.check_state(state)
-        b = _to_device(superbatch, self.dev)
-        k = b["index"].shape[0]
-        if not 1 <= k <= self.steps:
-            raise ValueError(f"a superbatch of {k} steps for a dispatch of {self.steps}")
-        pattern = self.pattern(state.step, k)
-        self.counters.load(state)
-        if self.dev.type == "cuda" and k == self.steps:
-            out = self._replay(state, b, pattern)
-        else:
-            # the CPU route, and the short last group of an epoch: the
-            # same body, eagerly
-            ms = [self.body(self.counters, {n: v[i] for n, v in b.items()}, u)
-                  for i, u in enumerate(pattern)]
-            out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
-        self.counters.advance(state, pattern)
+        with profiling.span("dispatch") as sp:
+            with profiling.span("dispatch.stage"):
+                self.check_state(state)
+                b = _to_device(superbatch, self.dev)
+                k = b["index"].shape[0]
+                if not 1 <= k <= self.steps:
+                    raise ValueError(f"a superbatch of {k} steps for a dispatch of {self.steps}")
+                sp.mark("steps", k)
+                pattern = self.pattern(state.step, k)
+                self.counters.load(state)
+                g = None
+                if self.dev.type == "cuda" and k == self.steps:
+                    g = self._staged(state, b, pattern)
+            if g is None:
+                # the CPU route, and the short last group of an epoch: the
+                # same body, eagerly
+                with profiling.span("dispatch.eager"):
+                    ms = [self.body(self.counters, {n: v[i] for n, v in b.items()}, u)
+                          for i, u in enumerate(pattern)]
+                    out = {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
+            else:
+                with profiling.span("dispatch.replay"), \
+                        profiling.device_span("dispatch.replay") as dev_sp:
+                    dev_sp.mark("steps", k)
+                    g.graph.replay()
+                self._replayed(g)
+            with profiling.span("dispatch.finish"):
+                if g is not None:
+                    # the next replay writes the same outputs
+                    out = {n: v.clone() for n, v in g.out.items()}
+                self.counters.advance(state, pattern)
         return out
 
-    def _replay(self, state, b, pattern):
+    def _staged(self, state, b, pattern):
+        """The graph of ``pattern``, captured if due, its static inputs
+        filled from ``b``."""
         self._drop_if_moved(state.tensors())  # a state load replaced tensors
         g = self.graphs.get(pattern)
         if g is None:
             g = self.graphs[pattern] = self._capture(state, b, pattern)
         for n, v in b.items():
             self.static_in[n].copy_(v)
-        g.graph.replay()
-        cuda_kernels.add_replay(g.launches)
-        # the next replay writes the same outputs
-        return {n: v.clone() for n, v in g.out.items()}
+        return g
 
     def _capture(self, state, b, pattern):
+        with profiling.span("graph.capture"):
+            return self._captured(self._record(state, b, pattern))
+
+    def _record(self, state, b, pattern):
         t0 = time.perf_counter()
         if not self.graphs:  # one input buffer for every pattern's graph
             self.static_in = {n: v.clone() for n, v in b.items()}
@@ -364,8 +391,7 @@ class GraphedSteps(GraphCache):
             return {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
 
         graph, out, launches, pool_bytes = record(steps, self.dev)
-        return self._captured(
-            _Graph(graph, out, launches, time.perf_counter() - t0, pool_bytes))
+        return _Graph(graph, out, launches, time.perf_counter() - t0, pool_bytes)
 
 
 def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
@@ -487,7 +513,7 @@ class GraphedEvalStep:
         self.graphs = None
         if dev.type == "cuda":
             self.graphs = ShapeGraphs(
-                eager, lambda: [*model.parameters(), *model.buffers()], dev)
+                eager, lambda: [*model.parameters(), *model.buffers()], dev, name="validate")
 
     def __call__(self, batch):
         if self.graphs is None:

@@ -9,7 +9,9 @@ changed flag builds anew, an unchanged one is reused.  Each build writes a
 file of its own (named by the process id) and moves it into place with
 ``os.replace``, so processes that start the same first build at once each
 load a whole library.  A failed build raises; nothing falls back to a plain
-version.
+version.  The registry (:mod:`posetpu_torch.utils.profiling`) counts the
+libraries compiled as ``build.compiles``, and :func:`load_library` is the
+span ``build.<library>`` (its build, where one is due, and its load).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+from posetpu_torch.utils import profiling
 
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
@@ -76,6 +80,7 @@ def build(sources, *, compiler=None, flags=NVCC_FLAGS, libs=()) -> dict[str, str
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
     compiler = compiler or _nvcc()
+    profiling.count("build.compiles", len(todo))
     procs = []
     try:
         for src, lib in todo:
@@ -107,5 +112,7 @@ def load_library(source: str, **build_kw) -> ctypes.CDLL:
     """The ctypes handle of ``source``'s library, built if needed
     (``build_kw`` as :func:`build` takes them)."""
     if source not in _loaded:
-        _loaded[source] = ctypes.CDLL(build([source], **build_kw)[source])
+        stem = os.path.splitext(os.path.basename(source))[0]
+        with profiling.span(f"build.{stem}"):
+            _loaded[source] = ctypes.CDLL(build([source], **build_kw)[source])
     return _loaded[source]

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from posetpu_torch.aug import cuda_kernels
+from posetpu_torch.utils import profiling
 
 # calls of the function on a side stream before each capture
 WARMUP_CALLS = 1
@@ -88,7 +89,11 @@ class GraphCache:
     every one dropped when a tensor they read has moved (the recapture
     rule), and the bookkeeping of the captures made: ``captures``, and
     ``capture_seconds`` and ``pool_bytes``, each capture's seconds (warm-up
-    included) and what it added to the card's reserved memory."""
+    included) and what it added to the card's reserved memory.  The
+    registry (:mod:`posetpu_torch.utils.profiling`) counts the process's
+    ``graph.capture_s`` (every cache's capture seconds),
+    ``graph.recaptures`` (graphs dropped to be captured again) and
+    ``graph.replays``."""
 
     def __init__(self):
         self.graphs = {}
@@ -101,6 +106,8 @@ class GraphCache:
         ptrs = [t.data_ptr() for t in tensors]
         if ptrs != self._ptrs:
             # every graph reads the old storage
+            if self.graphs:
+                profiling.count("graph.recaptures", len(self.graphs))
             self.graphs.clear()
             self._ptrs = ptrs
 
@@ -109,7 +116,14 @@ class GraphCache:
         self.captures += 1
         self.capture_seconds.append(g.seconds)
         self.pool_bytes.append(g.pool_bytes)
+        profiling.count("graph.capture_s", g.seconds)
         return g
+
+    @staticmethod
+    def _replayed(g):
+        """Count one replay of ``g``, and the launches it recorded."""
+        profiling.count("graph.replays")
+        cuda_kernels.add_replay(g.launches)
 
 
 def _signature(inputs):
@@ -136,69 +150,78 @@ class ShapeGraphs(GraphCache):
     The captures are counted as :class:`GraphCache` counts them.  A
     :class:`posetpu_torch.utils.profiling.DeviceTimer` set as ``timer``
     times each call on the card: the copies in and the replay, from once
-    the host's staging is done.
+    the host's staging is done.  ``name`` names the call's spans
+    (:mod:`posetpu_torch.utils.profiling`), each with the call's ``unit``:
+    ``<name>.stage`` (the wait for the previous copy out of the staging
+    buffers, the copies into them and the copies to the card enqueued) and
+    ``<name>.replay``.
     """
 
-    def __init__(self, fn, weights, device):
+    def __init__(self, fn, weights, device, name):
         super().__init__()  # graphs: signature -> _ShapeGraph
         self.fn, self.weights, self.dev = fn, weights, device
         self.pool = None
         self.timer = None
+        self.spans = (f"{name}.stage", f"{name}.replay")
 
-    def __call__(self, inputs):
+    def __call__(self, inputs, unit=None):
         inputs = {n: _as_tensor(v) for n, v in inputs.items()}
         self._drop_if_moved(self.weights())
         key = _signature(inputs)
         g = self.graphs.get(key)
         if g is None:
             g = self.graphs[key] = self._capture(inputs)
-        self._fill(g, inputs, self.timer)
-        g.graph.replay()
+        self._fill(g, inputs, self.timer, unit)
+        with profiling.span(self.spans[1], unit):
+            g.graph.replay()
         if self.timer is not None:
             self.timer.stop()
-        cuda_kernels.add_replay(g.launches)
+        self._replayed(g)
         return g.out
 
-    def _fill(self, g, inputs, timer=None):
+    def _fill(self, g, inputs, timer=None, unit=None):
         """Copy ``inputs`` into the static buffers on the current stream:
         host data into the staging buffers first, then every copy to the
         card; ``timer`` starts between the two."""
         host = [n for n, v in inputs.items() if v.device.type == "cpu"]
-        if host and g.copied is not None:
-            g.copied.synchronize()  # the previous copy out of the staging buffers
         src = dict(inputs)
-        for n in host:
-            v = inputs[n]
-            stage = g.staging.get(n)
-            if stage is None:
-                stage = g.staging[n] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            stage.copy_(v)
-            src[n] = stage
-        if timer is not None:
-            timer.start()
-        for n, v in src.items():
-            g.static_in[n].copy_(v, non_blocking=True)
-        if host:
-            if g.copied is None:
-                g.copied = torch.cuda.Event()
-            g.copied.record()
+        with profiling.span(self.spans[0], unit):
+            if host and g.copied is not None:
+                g.copied.synchronize()  # the previous copy out of the staging buffers
+            for n in host:
+                v = inputs[n]
+                stage = g.staging.get(n)
+                if stage is None:
+                    stage = g.staging[n] = torch.empty(v.shape, dtype=v.dtype,
+                                                       pin_memory=True)
+                stage.copy_(v)
+                src[n] = stage
+            if timer is not None:
+                timer.start()
+            for n, v in src.items():
+                g.static_in[n].copy_(v, non_blocking=True)
+            if host:
+                if g.copied is None:
+                    g.copied = torch.cuda.Event()
+                g.copied.record()
 
     def _capture(self, inputs):
-        t0 = time.perf_counter()
-        static_in = {n: torch.empty(v.shape, dtype=v.dtype, device=self.dev)
-                     for n, v in inputs.items()}
-        g = _ShapeGraph(None, static_in, None, {}, 0.0, 0)
-        self._fill(g, inputs)
-        cur = torch.cuda.current_stream(self.dev)
-        side = torch.cuda.Stream(self.dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                self.fn(static_in)
-        cur.wait_stream(side)
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        g.graph, g.out, g.launches, g.pool_bytes = record(
-            lambda: self.fn(static_in), self.dev, self.pool)
-        g.seconds = time.perf_counter() - t0
+        with profiling.span("graph.capture"):
+            t0 = time.perf_counter()
+            static_in = {n: torch.empty(v.shape, dtype=v.dtype, device=self.dev)
+                         for n, v in inputs.items()}
+            g = _ShapeGraph(None, static_in, None, {}, 0.0, 0)
+            self._fill(g, inputs)
+            cur = torch.cuda.current_stream(self.dev)
+            side = torch.cuda.Stream(self.dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    self.fn(static_in)
+            cur.wait_stream(side)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            g.graph, g.out, g.launches, g.pool_bytes = record(
+                lambda: self.fn(static_in), self.dev, self.pool)
+            g.seconds = time.perf_counter() - t0
         return self._captured(g)

@@ -181,15 +181,18 @@ def test_the_window_counts_both_kernels_from_zero():
     timed window's start."""
     from posetpu_torch.aug import cuda_kernels
     from posetpu_torch.native import islow, jpeg_gpu
+    from posetpu_torch.utils import profiling
 
-    cuda_kernels.LAUNCHES["rasterize_gaussians"] = 7
-    islow.LAUNCHES["idct_islow"] = 4
-    jpeg_gpu.LAUNCHES["ycc_canvas"] = 5
+    raster, idct, ycc = (cuda_kernels.RASTERIZE_LAUNCHES, islow.IDCT_LAUNCHES,
+                         jpeg_gpu.YCC_LAUNCHES)
+    profiling.count(raster, 7)
+    profiling.count(idct, 4)
+    profiling.count(ycc, 5)
     bench._reset_launches()
     assert bench._launches() == {"rasterize_gaussians": 0, "idct_islow": 0, "ycc_canvas": 0}
-    cuda_kernels.LAUNCHES["rasterize_gaussians"] += 2
-    islow.LAUNCHES["idct_islow"] += 3
-    jpeg_gpu.LAUNCHES["ycc_canvas"] += 3
+    profiling.count(raster, 2)
+    profiling.count(idct, 3)
+    profiling.count(ycc, 3)
     assert bench._launches() == {"rasterize_gaussians": 2, "idct_islow": 3, "ycc_canvas": 3}
     bench._reset_launches()
 

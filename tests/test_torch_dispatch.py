@@ -43,6 +43,7 @@ from posetpu_torch.train.step import (
     make_dispatch_step,
     make_train_step,
 )
+from posetpu_torch.utils.profiling import counter, reset_counters
 
 FEATS, CLASSES, DEPTH, B = 8, 16, 2, 4
 MEAN = (0.4404, 0.4440, 0.4327)
@@ -289,11 +290,11 @@ def test_cuda_graph_equals_eager_steps_and_counts_replays():
                 metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
             else:
                 dispatch = make_dispatch_step(model, opt, cfg.aug, MEAN, steps=2, **kw)
-                cuda_kernels.reset_launches()
+                reset_counters(cuda_kernels.RASTERIZE_LAUNCHES)
                 parts = [dispatch(state, _stack(batches[i:i + 2])) for i in (0, 2)]
                 torch.cuda.synchronize()
                 # 4 replayed steps and the warm-up before the one capture
-                assert cuda_kernels.LAUNCHES["rasterize_gaussians"] == 4 + WARMUP_STEPS
+                assert counter(cuda_kernels.RASTERIZE_LAUNCHES) == 4 + WARMUP_STEPS
                 assert dispatch.captures == 1
                 sd = copy.deepcopy(opt.state_dict())
                 opt.load_state_dict(sd)  # new moment tensors: a new capture

@@ -23,6 +23,7 @@ from posetpu_torch.configs import named_config
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.models import hg
 from posetpu_torch.train import GraphedEvalStep, make_eval_step, make_graphed_eval_step
+from posetpu_torch.utils.profiling import counter, reset_counters
 
 
 def _cfg():
@@ -187,10 +188,10 @@ def test_validation_graph_keeps_each_batch_and_counts_replays():
     eager = make_eval_step(model, cfg.aug, MPII_MEAN)
     rng = np.random.RandomState(5)
     batches = [_eval_batch(rng) for _ in range(3)]
-    cuda_kernels.reset_launches()
+    reset_counters(cuda_kernels.RASTERIZE_LAUNCHES)
     results = [graphed(b) for b in batches]
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["rasterize_gaussians"] == 3 + WARMUP_CALLS
+    assert counter(cuda_kernels.RASTERIZE_LAUNCHES) == 3 + WARMUP_CALLS
     assert graphed.graphs.captures == 1
     for (mg, pg), b in zip(results, batches):
         me, pe = eager(b)

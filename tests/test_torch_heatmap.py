@@ -13,6 +13,7 @@ import torch
 
 from posetpu_torch.aug import AugParams, augment_batch, cuda_kernels
 from posetpu_torch.aug import heatmap as port
+from posetpu_torch.utils.profiling import counter
 
 
 def _inputs(seed, B, K, frac=False):
@@ -135,11 +136,11 @@ def cuda():
 def _kernel_vs_plain(pts, vis, res, sigma, device):
     pts_d = torch.as_tensor(pts).to(device)
     vis_d = torch.as_tensor(vis).to(device)
-    before = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    before = counter(cuda_kernels.RASTERIZE_LAUNCHES)
     t, v = port.rasterize_gaussians(pts_d, vis_d, res, sigma)
     tp, vp = port.rasterize_gaussians_plain(pts_d, vis_d, res, sigma)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["rasterize_gaussians"] == before + 1
+    assert counter(cuda_kernels.RASTERIZE_LAUNCHES) == before + 1
     np.testing.assert_array_equal(t.cpu().numpy(), tp.cpu().numpy())
     np.testing.assert_array_equal(v.cpu().numpy(), vp.cpu().numpy())
 
@@ -194,10 +195,10 @@ def test_augment_batch_on_cuda_uses_the_kernel(cuda):
     args = (images, valid_wh, center, scale, pts, vis, params)
     kw = dict(inp_res=(64, 64), out_res=(16, 16))
     cpu = augment_batch(*args, device="cpu", **kw)
-    before = cuda_kernels.LAUNCHES["rasterize_gaussians"]
+    before = counter(cuda_kernels.RASTERIZE_LAUNCHES)
     gpu = augment_batch(*args, device=cuda, **kw)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["rasterize_gaussians"] == before + 1
+    assert counter(cuda_kernels.RASTERIZE_LAUNCHES) == before + 1
     np.testing.assert_allclose(gpu["target"].cpu().numpy(), cpu["target"].numpy(), atol=1e-6)
     np.testing.assert_array_equal(gpu["target_weight"].cpu().numpy(), cpu["target_weight"].numpy())
     np.testing.assert_array_equal(gpu["tpts"].cpu().numpy(), cpu["tpts"].numpy())

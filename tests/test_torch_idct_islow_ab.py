@@ -18,7 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_other_checkout_loads_as_its_own_module():
     mod = idct_islow_ab.load_islow(REPO)
     assert mod is not islow and mod.SOURCE == islow.SOURCE
-    assert mod.LAUNCHES is not islow.LAUNCHES and mod.DESC_WORDS == islow.DESC_WORDS
+    assert mod._staging is not islow._staging and mod.DESC_WORDS == islow.DESC_WORDS
 
 
 def test_loader_batch_is_the_routes_layout(tmp_path):

@@ -75,6 +75,7 @@ from posetpu_torch.train.adversarial import (
 from posetpu_torch.train.loop import Experiment
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train.step import WARMUP_STEPS, GraphedSteps
+from posetpu_torch.utils.profiling import counter, reset_counters
 
 B = 4
 DRIFT_FACTOR = 2.0
@@ -472,7 +473,7 @@ def test_cuda_joint_graph_equals_eager_steps(exact_cuda):
         else:
             dispatch = make_joint_dispatch_step(*_args(state, cfg), seed=4, steps=2,
                                                 device="cuda", **kw)
-            cuda_kernels.reset_launches()
+            reset_counters(cuda_kernels.RASTERIZE_LAUNCHES)
             parts = [dispatch(state, _stack(batches[0:2])), dispatch(state, _stack(batches[2:4]))]
             agent_before = [t.clone() for t in state.agent.tensors()]
             parts.append(dispatch(state, _stack(batches[4:6])))
@@ -480,7 +481,7 @@ def test_cuda_joint_graph_equals_eager_steps(exact_cuda):
             for t, u in zip(state.agent.tensors(), agent_before, strict=True):
                 assert torch.equal(t, u)
             assert dispatch.captures == 3 and len(dispatch.graphs) == 3
-            assert cuda_kernels.LAUNCHES["rasterize_gaussians"] == 2 * (6 + 3 * WARMUP_STEPS)
+            assert counter(cuda_kernels.RASTERIZE_LAUNCHES) == 2 * (6 + 3 * WARMUP_STEPS)
             metrics = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
         torch.cuda.synchronize()
         runs[how] = (state, {k: v.cpu() for k, v in metrics.items()})

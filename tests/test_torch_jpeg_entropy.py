@@ -38,6 +38,7 @@ from posetpu.data.loader import load_sample as ref_load_sample
 from posetpu_torch.data import HostLoader, MpiiDataset
 from posetpu_torch.native import islow, jpeg_gpu
 from posetpu_torch.native.jpeg_gpu import GpuJpegDecoder
+from posetpu_torch.utils.profiling import counter
 
 _JPEGLIB = ("/usr/include/jpeglib.h", "/usr/local/include/jpeglib.h",
             "/usr/include/x86_64-linux-gnu/jpeglib.h",
@@ -657,7 +658,7 @@ def test_idct_wrapper_refuses_what_neither_version_takes():
     coefs, q = torch.zeros(64 * 6, dtype=torch.int16), torch.ones(64, dtype=torch.int16)
     plane = torch.empty((16, 24), dtype=torch.uint8)
     islow.idct_islow(coefs, q, [[0, 0, 3, 2]], [plane])
-    assert (plane == 128).all() and islow.LAUNCHES["idct_islow"] == 0
+    assert (plane == 128).all() and counter(islow.IDCT_LAUNCHES) == 0
     for desc, planes, match in (([[0, 0, 2, 2]], [plane], "plane from a grid"),
                                 ([[64, 0, 3, 2]], [plane], "past the buffer"),
                                 ([[0, 8, 3, 2]], [plane], "table"),

@@ -38,6 +38,7 @@ from posetpu.data.loader import load_sample as ref_load_sample
 from posetpu_torch.data import HostLoader, MpiiDataset, make_batch_placer
 from posetpu_torch.native import islow, jpeg_gpu, ycc
 from posetpu_torch.native.jpeg_gpu import GpuJpegDecoder, jpeg_color_space
+from posetpu_torch.utils.profiling import counter
 
 _JPEGLIB = ("/usr/include/jpeglib.h", "/usr/local/include/jpeglib.h",
             "/usr/include/x86_64-linux-gnu/jpeglib.h",
@@ -338,7 +339,7 @@ def test_ycc_canvas_cpu_is_the_plain_version_and_refuses_bad_input(libjpeg, file
     assert got.shape == (2, 32, 48, 3) and not got[1].any()
     np.testing.assert_array_equal(
         got[0].numpy(), ycc.window_canvas(planes, sampling, windows[0], (32, 48)).numpy())
-    assert jpeg_gpu.LAUNCHES["ycc_canvas"] == 0  # the plain version launches nothing
+    assert counter(jpeg_gpu.YCC_LAUNCHES) == 0  # the plain version launches nothing
     with pytest.raises(ValueError, match="CUDA"):
         jpeg_gpu.ycc_canvas_cuda([planes], [sampling], windows[:1], (32, 48))
 
@@ -471,10 +472,10 @@ def test_cuda_kernel_equals_the_plain_version_on_every_layout_and_alignment(pad_
     rng = np.random.RandomState(pad_hw[1])
     for misaligned in (False, True):
         planes, samplings, windows = _random_batch(rng, "cuda", pad_hw, misaligned)
-        before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+        before = counter(jpeg_gpu.YCC_LAUNCHES)
         got = jpeg_gpu.ycc_canvas(planes, samplings, windows, pad_hw)
         torch.cuda.synchronize()
-        assert jpeg_gpu.LAUNCHES["ycc_canvas"] == before + 1
+        assert counter(jpeg_gpu.YCC_LAUNCHES) == before + 1
         for i, (pl, samp, win) in enumerate(zip(planes, samplings, windows)):
             want = ycc.window_canvas(pl, samp, win, pad_hw) if pl else torch.zeros_like(got[i])
             assert torch.equal(got[i], want), (i, samp, win.tolist(), misaligned)
@@ -541,10 +542,10 @@ def test_cuda_kernel_equals_the_plain_version_on_the_routes_planes(files):
         centers = _centers(files, k=pad_hw[0])
         windows = np.array([ycc.crop_window(pl[0].shape[1], pl[0].shape[0], c, pad_hw)
                             for pl, c in zip(planes, centers)])
-        before = jpeg_gpu.LAUNCHES["ycc_canvas"]
+        before = counter(jpeg_gpu.YCC_LAUNCHES)
         got = jpeg_gpu.ycc_canvas(planes, samplings, windows, pad_hw)
         torch.cuda.synchronize()
-        assert got.is_cuda and jpeg_gpu.LAUNCHES["ycc_canvas"] == before + 1
+        assert got.is_cuda and counter(jpeg_gpu.YCC_LAUNCHES) == before + 1
         want = torch.stack([ycc.planes_to_canvas(pl, s, pad_hw, c)[0]
                             for pl, s, c in zip(planes, samplings, centers)])
         assert torch.equal(got, want)
@@ -557,10 +558,10 @@ def _idct_on_card(coefs, desc, sizes):
     dev = coefs.cuda()
     planes = [torch.full((h, w + 3), 7, dtype=torch.uint8, device="cuda")[:, 1:w + 1]
               for w, h in sizes]
-    before = islow.LAUNCHES["idct_islow"]
+    before = counter(islow.IDCT_LAUNCHES)
     islow.idct_islow(dev, dev, desc, planes)
     torch.cuda.synchronize()
-    assert islow.LAUNCHES["idct_islow"] == before + 1
+    assert counter(islow.IDCT_LAUNCHES) == before + 1
     want = [torch.empty((h, w), dtype=torch.uint8) for w, h in sizes]
     islow.idct_islow(coefs, coefs, desc, want)
     return planes, want

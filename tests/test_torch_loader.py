@@ -35,6 +35,7 @@ from posetpu_torch.data import (
     pad_batch,
     threaded_place_iter,
 )
+from posetpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LSB = 2.5
@@ -155,14 +156,17 @@ def test_cuda_placer_batches_equal_host_batches(datasets):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     ds, _ = datasets
-    placer = make_batch_placer("cuda", timing=True)
+    placer = make_batch_placer("cuda")
     host = list(HostLoader(ds, 4, pad_hw=(64, 80), seed=1, backend="pil"))
-    placed = list(HostLoader(ds, 4, pad_hw=(64, 80), seed=1, backend="pil", place=placer))
+    since = profiling.REGISTRY.watermark()
+    with profiling.REGISTRY.forced_on():  # each copy a device span of loader.place
+        placed = list(HostLoader(ds, 4, pad_hw=(64, 80), seed=1, backend="pil", place=placer))
     for p, h in zip(placed, host):
         for k, v in h.items():
             assert p[k].is_cuda
             np.testing.assert_array_equal(p[k].cpu().numpy(), v)
-    assert len(placer.copy_ms()) == len(host)
+    copies = [r for r in profiling.records("loader.place", since) if r.device]
+    assert len(copies) == len(host) and all(r.ms >= 0 for r in copies)
 
 
 def test_native_pool_matches_reference_pil(native, datasets, tmp_path):

@@ -18,7 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_other_checkout_loads_as_its_own_module():
     mod = ycc_canvas_ab.load_route(REPO)
     assert mod is not jpeg_gpu and mod.YCC_SOURCE == jpeg_gpu.YCC_SOURCE
-    assert mod.LAUNCHES is not jpeg_gpu.LAUNCHES and mod.DESC_WORDS == jpeg_gpu.DESC_WORDS
+    assert mod._staging is not jpeg_gpu._staging and mod.DESC_WORDS == jpeg_gpu.DESC_WORDS
 
 
 def test_loader_batch_is_pitched_like_the_routes_planes():
