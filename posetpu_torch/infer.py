@@ -123,7 +123,7 @@ class PosePredictor:
         if self.device.type == "cuda":
             self.graphs = ShapeGraphs(
                 self._graph_body,
-                lambda: [*self.model.parameters(), *self.model.buffers()],
+                lambda: (self.model,),
                 self.device,
                 name="serve",
             )

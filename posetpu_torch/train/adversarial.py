@@ -89,6 +89,10 @@ class JointState:
     agent: TrainState
     step: int = 0
 
+    def holders(self):
+        """(modules, optimizers): the pose network's and the agent's."""
+        return (self.pose.model, self.agent.model), (self.pose.optimizer, self.agent.optimizer)
+
     def tensors(self):
         """Every tensor a joint step updates in place
         (:meth:`TrainState.tensors` of the pose network's state, then the

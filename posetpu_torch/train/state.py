@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from posetpu_torch.utils.graphs import state_slots
+
 
 @dataclass
 class TrainState:
@@ -39,18 +41,17 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
 
+    def holders(self):
+        """(modules, optimizers): what holds :meth:`tensors`."""
+        return (self.model,), (self.optimizer,)
+
     def tensors(self):
         """Every tensor a train step updates in place, in a fixed order:
         parameters, buffers (BatchNorm statistics) and the optimizer's
         moments, which are made first (zero) where no update has made them
-        yet, so the list is the same before and after a step."""
-        self.optimizer.init_moments()
-        out = list(self.model.parameters()) + list(self.model.buffers())
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                st = self.optimizer.state[p]
-                out += [st[k] for k in sorted(st)]
-        return out
+        yet, so the list is the same before and after a step
+        (:func:`posetpu_torch.utils.graphs.state_slots`)."""
+        return [d[k] for d, k in zip(*state_slots(*self.holders()))]
 
     def snapshot(self):
         """(clones of :meth:`tensors`, the optimizer's count, ``step``)."""

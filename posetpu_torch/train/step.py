@@ -25,8 +25,11 @@ in.  The rules of the graph:
   and replays the graph captured for that pattern (:class:`GraphedSteps`);
 - the capture is made at the first full dispatch, after any state load
   (``--resume``, ``--init-pose-from``), and again whenever a parameter,
-  buffer or moment tensor has been replaced since (``load_state_dict`` of
-  an optimizer replaces its moments);
+  buffer or moment tensor has moved or been replaced since
+  (``load_state_dict`` of an optimizer replaces its moments); the check
+  is :class:`posetpu_torch.utils.graphs.GraphCache`'s, which walks the
+  state's modules and optimizers (its ``holders()``) only when they may
+  hold other tensors than at its last walk;
 - the side-stream warm-up before a capture applies real updates, so the
   parameters, buffers and moments are saved first and put back *in place*
   after it (:meth:`TrainState.snapshot
@@ -293,7 +296,9 @@ class GraphedSteps(GraphCache):
     most ``update_every`` patterns.  On CUDA each pattern is captured as
     one ``torch.cuda.CUDAGraph`` (its own memory pool) at its first full
     dispatch and replayed after; the rules are the module docstring's.
-    ``check_state(state)`` raises for a state of other models.
+    ``check_state(state)`` raises for a state of other models; the state's
+    ``holders()`` gives the modules and optimizers whose tensors the
+    graphs read (the recapture check's).
 
     The captures are counted as :class:`posetpu_torch.utils.graphs.GraphCache`
     counts them; each ``pool_bytes`` is the size of its graph's own memory
@@ -355,7 +360,7 @@ class GraphedSteps(GraphCache):
     def _staged(self, state, b, pattern):
         """The graph of ``pattern``, captured if due, its static inputs
         filled from ``b``."""
-        self._drop_if_moved(state.tensors())  # a state load replaced tensors
+        self._drop_if_moved(*state.holders())  # a state load replaced tensors
         g = self.graphs.get(pattern)
         if g is None:
             g = self.graphs[pattern] = self._capture(state, b, pattern)
@@ -513,7 +518,7 @@ class GraphedEvalStep:
         self.graphs = None
         if dev.type == "cuda":
             self.graphs = ShapeGraphs(
-                eager, lambda: [*model.parameters(), *model.buffers()], dev, name="validate")
+                eager, lambda: (model,), dev, name="validate")
 
     def __call__(self, batch):
         if self.graphs is None:

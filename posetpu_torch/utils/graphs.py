@@ -14,7 +14,8 @@ training:
 - every graph reads the weights where they were at its capture: when a
   weight's storage has moved (``load_state_dict`` of a module copies in
   place, a ``.to()`` or a parameter replaced does not), every graph is
-  dropped and captured again at its next call;
+  dropped and captured again at its next call (:class:`GraphCache` says
+  how a call finds that out without walking the module tree);
 - the inputs are copied into the graph's static buffers *outside* the
   capture (a capture refuses host-to-card copies): a CUDA tensor card to
   card; host data first into a pinned staging buffer of the graph's own,
@@ -34,11 +35,13 @@ signature.
 
 from __future__ import annotations
 
+import operator
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.nn.modules import module as nn_module
 
 from posetpu_torch.aug import cuda_kernels
 from posetpu_torch.utils import profiling
@@ -83,6 +86,81 @@ def record(fn, dev, pool=None):
     return graph, out, launches, torch.cuda.memory_reserved(dev) - reserved
 
 
+# parameters, buffers and submodules registered in the process so far, by
+# ``register_*`` or by setting a module's attribute: torch's registration
+# hooks are global, so the count is too; a cache only compares it with the
+# value it saw at its last walk
+_registrations = 0
+_hooks = []
+
+
+def _registered(module, name, value):
+    global _registrations
+    _registrations += 1  # returns None: the value is registered as it is
+
+
+def _watch_registrations():
+    """Count every registration from now on (once a process)."""
+    if not _hooks:
+        _hooks.extend(hook(_registered) for hook in (
+            nn_module.register_module_parameter_registration_hook,
+            nn_module.register_module_buffer_registration_hook,
+            nn_module.register_module_module_registration_hook))
+
+
+def state_slots(modules, optimizers=()):
+    """``(dicts, keys)``: where each tensor that a step or a forward of
+    ``modules`` reads in place lives, ``dicts[i][keys[i]]`` the i-th, in a
+    fixed order: the parameters of each module (its tree's
+    ``_parameters`` dicts, each tensor once, in ``parameters()``'s order),
+    then its buffers likewise, then the moments of each optimizer by
+    parameter and key (an ``OptaxRMSprop``, whose ``init_moments()`` makes
+    first those no update has made yet, so the list is the same before
+    and after a step)."""
+    dicts, keys = [], []
+    for m in modules:
+        for kind in ("_parameters", "_buffers"):
+            seen = set()
+            for sub in m.modules():
+                d = getattr(sub, kind)
+                for k, t in d.items():
+                    if t is not None and id(t) not in seen:
+                        seen.add(id(t))
+                        dicts.append(d)
+                        keys.append(k)
+    for opt in optimizers:
+        opt.init_moments()
+        for group in opt.param_groups:
+            for p in group["params"]:
+                st = opt.state[p]
+                for k in sorted(st):
+                    dicts.append(st)
+                    keys.append(k)
+    return dicts, keys
+
+
+def _sign(modules, optimizers):
+    """What changes, in O(1) of the tensors, when the set of tensors of
+    :func:`state_slots` may have: (the objects, compared by identity: the
+    modules, the optimizers, each optimizer's ``state`` and
+    ``param_groups``, which its ``load_state_dict`` replaces; the counts,
+    compared by value: the process's registrations, each optimizer's
+    number of groups)."""
+    objs = (*modules, *optimizers, *(o.state for o in optimizers),
+            *(o.param_groups for o in optimizers))
+    return objs, (_registrations, *(len(o.param_groups) for o in optimizers))
+
+
+def _same(a, b):
+    return (b is not None and a[1] == b[1] and len(a[0]) == len(b[0])
+            and all(map(operator.is_, a[0], b[0])))
+
+
+def _pointers(slots):
+    """The data pointer of the tensor in each slot now."""
+    return list(map(torch.Tensor.data_ptr, map(operator.getitem, *slots)))
+
+
 class GraphCache:
     """What :class:`ShapeGraphs` and
     :class:`posetpu_torch.train.step.GraphedSteps` share: ``graphs`` by key,
@@ -92,18 +170,48 @@ class GraphCache:
     included) and what it added to the card's reserved memory.  The
     registry (:mod:`posetpu_torch.utils.profiling`) counts the process's
     ``graph.capture_s`` (every cache's capture seconds),
-    ``graph.recaptures`` (graphs dropped to be captured again) and
-    ``graph.replays``."""
+    ``graph.recaptures`` (graphs dropped to be captured again),
+    ``graph.state_walks`` (walks of the tensors' slots, below) and
+    ``graph.replays``.
+
+    The recapture check (:meth:`_drop_if_moved`) runs before every call.
+    It keeps, from its last walk of the modules and optimizers
+    (:func:`state_slots`), the dict and key that hold each tensor and the
+    tensors' data pointers.  Each call reads every slot again and compares
+    every pointer, in one pass: that sees a storage moved (``.data =``,
+    ``.to()``, ``set_``, a swap) and a tensor replaced in its dict (a
+    parameter or buffer set by ``setattr``, a buffer moved by ``.to()``, a
+    moment replaced in ``optimizer.state[p]``).  It walks again only when
+    an O(1) sign (:func:`_sign`) says the set of tensors may have changed
+    (a parameter, buffer or submodule registered anywhere in the process;
+    an optimizer's ``load_state_dict``, or a group added), when a slot is
+    gone, or when a pointer moved, so the slots kept are always those of
+    the graphs' capture.  It does not see a submodule taken out of a
+    ``ModuleList`` by ``del``, nor a parameter's whole moment dict
+    replaced (``optimizer.state[p] = {...}``)."""
 
     def __init__(self):
+        _watch_registrations()
         self.graphs = {}
-        self._ptrs = None
+        self._sign = self._slots = self._ptrs = None
         self.captures = 0
         self.capture_seconds = []
         self.pool_bytes = []
 
-    def _drop_if_moved(self, tensors):
-        ptrs = [t.data_ptr() for t in tensors]
+    def _drop_if_moved(self, modules, optimizers=()):
+        """Drop every graph if a tensor of ``modules`` (parameters and
+        buffers) or ``optimizers`` (moments) has moved since the last
+        call."""
+        sign = _sign(modules, optimizers)
+        if _same(sign, self._sign):
+            try:
+                if _pointers(self._slots) == self._ptrs:
+                    return
+            except KeyError:  # a tensor deleted from its dict
+                pass
+        profiling.count("graph.state_walks")
+        self._sign, self._slots = sign, state_slots(modules, optimizers)
+        ptrs = _pointers(self._slots)
         if ptrs != self._ptrs:
             # every graph reads the old storage
             if self.graphs:
@@ -142,8 +250,8 @@ class ShapeGraphs(GraphCache):
 
     ``fn`` takes a dict of CUDA tensors and returns tensors (a tensor, or
     dicts and tuples of them); it must not synchronize with the host.
-    ``weights()`` lists the tensors the graphs read in place (a module's
-    parameters and buffers).  ``inputs`` maps names to numpy arrays, CPU
+    ``modules()`` returns the modules whose parameters and buffers the
+    graphs read in place.  ``inputs`` maps names to numpy arrays, CPU
     tensors or CUDA tensors; each keeps its dtype.  The outputs returned
     are the graph's static ones: copy them before the next call.
 
@@ -157,16 +265,16 @@ class ShapeGraphs(GraphCache):
     ``<name>.replay``.
     """
 
-    def __init__(self, fn, weights, device, name):
+    def __init__(self, fn, modules, device, name):
         super().__init__()  # graphs: signature -> _ShapeGraph
-        self.fn, self.weights, self.dev = fn, weights, device
+        self.fn, self.modules, self.dev = fn, modules, device
         self.pool = None
         self.timer = None
         self.spans = (f"{name}.stage", f"{name}.replay")
 
     def __call__(self, inputs, unit=None):
         inputs = {n: _as_tensor(v) for n, v in inputs.items()}
-        self._drop_if_moved(self.weights())
+        self._drop_if_moved(self.modules())
         key = _signature(inputs)
         g = self.graphs.get(key)
         if g is None:

@@ -18,7 +18,8 @@
 - on the card (``cuda`` marker; skips here) the captured graph equals
   eager steps exactly in f32 with deterministic algorithms, counts the
   rasterizer's launches per replay and the warm-up's as they ran, and
-  captures again after a state load.
+  captures again after a state load and after a parameter's storage
+  moved, walking the state once a capture and not once a dispatch.
 """
 
 import copy
@@ -260,10 +261,12 @@ def test_k_above_one_with_the_agent_trains(split, tmp_path):
 
 @pytest.mark.cuda
 def test_cuda_graph_equals_eager_steps_and_counts_replays():
-    """f32, TF32 off, deterministic algorithms: two graphed dispatches of
-    K = 2 equal 4 eager steps exactly; the rasterizer counts one launch a
+    """f32, TF32 off, deterministic algorithms: four graphed dispatches of
+    K = 2 equal 8 eager steps exactly; the rasterizer counts one launch a
     replayed step; a state load (``load_state_dict``) makes it capture
-    again, and the next dispatch still equals eager steps."""
+    again, and so does a parameter's storage moved (``p.data =``), and
+    each next dispatch still equals eager steps; the state is walked once
+    a capture (``graph.state_walks``), not once a dispatch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from posetpu_torch.aug import cuda_kernels
@@ -277,7 +280,7 @@ def test_cuda_graph_equals_eager_steps_and_counts_replays():
         cfg = _cfg()
         torch.manual_seed(0)
         base = _model()
-        batches = [_batch(30 + i) for i in range(6)]
+        batches = [_batch(30 + i) for i in range(8)]
         runs = {}
         for how in ("eager", "graph"):
             model = copy.deepcopy(base).cuda()
@@ -290,7 +293,7 @@ def test_cuda_graph_equals_eager_steps_and_counts_replays():
                 metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
             else:
                 dispatch = make_dispatch_step(model, opt, cfg.aug, MEAN, steps=2, **kw)
-                reset_counters(cuda_kernels.RASTERIZE_LAUNCHES)
+                reset_counters(cuda_kernels.RASTERIZE_LAUNCHES, "graph.state_walks")
                 parts = [dispatch(state, _stack(batches[i:i + 2])) for i in (0, 2)]
                 torch.cuda.synchronize()
                 # 4 replayed steps and the warm-up before the one capture
@@ -300,6 +303,11 @@ def test_cuda_graph_equals_eager_steps_and_counts_replays():
                 opt.load_state_dict(sd)  # new moment tensors: a new capture
                 parts.append(dispatch(state, _stack(batches[4:6])))
                 assert dispatch.captures == 2
+                w = next(model.parameters())
+                w.data = w.data.clone()  # new storage: a new capture
+                parts.append(dispatch(state, _stack(batches[6:8])))
+                assert dispatch.captures == 3
+                assert counter("graph.state_walks") == dispatch.captures  # of 4 dispatches
                 metrics = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
             torch.cuda.synchronize()
             runs[how] = (_snapshot(state), {k: v.cpu() for k, v in metrics.items()})
@@ -308,7 +316,7 @@ def test_cuda_graph_equals_eager_steps_and_counts_replays():
         torch.use_deterministic_algorithms(prev[2])
     (sd_e, mo_e, count_e, step_e), met_e = runs["eager"]
     (sd_g, mo_g, count_g, step_g), met_g = runs["graph"]
-    assert (count_e, step_e) == (count_g, step_g) == (6, 6)
+    assert (count_e, step_e) == (count_g, step_g) == (8, 8)
     for k in sd_e:
         assert torch.equal(sd_e[k], sd_g[k]), k
     for i in mo_e:

@@ -13,7 +13,15 @@ captured again; each input shape, and each set of optional validation
 fields, takes a graph of its own; three validation batches keep three
 different predictions; the rasterizer counts one launch a replay; a
 ``DeviceTimer`` set on the graphs spans each call.
+
+The recapture check that every graph cache runs before a call
+(``GraphCache._drop_if_moved``) is driven directly on the CPU, on a small
+hourglass's ``TrainState`` and on a ``JointState`` whose agent is moved:
+each way a state tensor can move drops a sentinel graph and counts a
+recapture; calls where nothing moved keep it and walk nothing.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -23,6 +31,9 @@ from posetpu_torch.configs import named_config
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.models import hg
 from posetpu_torch.train import GraphedEvalStep, make_eval_step, make_graphed_eval_step
+from posetpu_torch.train.adversarial import JointState, agent_from_config
+from posetpu_torch.train.state import TrainState, make_optimizer
+from posetpu_torch.utils.graphs import GraphCache
 from posetpu_torch.utils.profiling import counter, reset_counters
 
 
@@ -91,6 +102,156 @@ def test_cpu_serving_and_validation_run_their_eager_bodies():
     b = _eval_batch(np.random.RandomState(1))
     (mg, pg), (me, pe) = graphed(b), eager(b)
     assert torch.equal(pg, pe) and all(torch.equal(mg[k], me[k]) for k in me)
+
+
+def _train_state(which):
+    """A small hourglass's ``TrainState`` ("pose"), or a ``JointState``
+    ("agent"); and the ``TrainState`` a move is made on."""
+    cfg = named_config("hg8_mpii_asr")
+    cfg.optim.momentum = 0.9  # a second moment key a parameter
+    model = _model()
+    state = TrainState(model, make_optimizer(model.parameters(), cfg.optim))
+    if which == "pose":
+        return state, state
+    agent, agent_opt, _ = agent_from_config(cfg, widths=(8, 16), device="cpu")
+    agent_state = TrainState(agent, agent_opt)
+    return JointState(state, agent_state), agent_state
+
+
+def _first(module, kind):
+    return next((m, n) for m in module.modules() for n in getattr(m, kind))
+
+
+def _set_param(st):
+    m, n = _first(st.model, "_parameters")
+    setattr(m, n, torch.nn.Parameter(getattr(m, n).detach().clone()))
+
+
+def _set_buffer(st):
+    m, n = _first(st.model, "_buffers")
+    setattr(m, n, getattr(m, n).clone())
+
+
+def _set_moment(st):
+    moments = st.optimizer.state[st.optimizer.param_groups[0]["params"][0]]
+    moments["nu"] = moments["nu"].clone()
+
+
+def _set_(st):
+    p = next(st.model.parameters())
+    with torch.no_grad():
+        p.set_(p.detach().clone())
+
+
+def _swap(st):
+    p = next(st.model.parameters())
+    torch.utils.swap_tensors(p, torch.nn.Parameter(p.detach().clone()))
+
+
+def _data(st):
+    p = next(st.model.parameters())
+    p.data = p.data.clone()
+
+
+def _set_child(st):
+    name, child = next(st.model.named_children())
+    setattr(st.model, name, copy.deepcopy(child))
+
+
+def _delete(st):
+    m, n = _first(st.model, "_parameters")
+    delattr(m, n)
+
+
+def _register(st):
+    m, _ = _first(st.model, "_parameters")
+    m.register_parameter("extra", torch.nn.Parameter(torch.zeros(3)))
+
+
+MOVES = {
+    "optimizer_load_state_dict": lambda st: st.optimizer.load_state_dict(
+        copy.deepcopy(st.optimizer.state_dict())),
+    "param_data": _data,
+    "model_to": lambda st: st.model.to(torch.float64),
+    "param_setattr": _set_param,
+    "buffer_setattr": _set_buffer,
+    "moment_replaced": _set_moment,
+    "param_set_": _set_,
+    "param_swapped": _swap,
+    "submodule_setattr": _set_child,
+    "param_registered": _register,
+    "param_deleted": _delete,
+}
+
+
+def _ptrs(state):
+    return [t.data_ptr() for t in state.tensors()]
+
+
+@pytest.mark.parametrize("which", ["pose", "agent"])
+@pytest.mark.parametrize("move", list(MOVES))
+def test_graph_cache_recaptures_when_a_state_tensor_moves(which, move):
+    """A move the full walk's pointers see drops every graph, counts them
+    as recaptures and walks once; the next call is quiet again."""
+    state, target = _train_state(which)
+    cache = GraphCache()
+    cache._drop_if_moved(*state.holders())
+    cache.graphs["sentinel"] = object()
+    before = _ptrs(state)
+    recaptures, walks = counter("graph.recaptures"), counter("graph.state_walks")
+    MOVES[move](target)
+    assert _ptrs(state) != before  # the move is one the full walk sees
+    cache._drop_if_moved(*state.holders())
+    assert cache.graphs == {}
+    assert counter("graph.recaptures") == recaptures + 1
+    assert counter("graph.state_walks") == walks + 1
+    cache.graphs["sentinel"] = object()
+    cache._drop_if_moved(*state.holders())
+    assert "sentinel" in cache.graphs and counter("graph.state_walks") == walks + 1
+
+
+def _in_place(state):
+    """Every tensor changed in place: an update, a module's and an
+    optimizer moment's load that copy."""
+    with torch.no_grad():
+        for t in state.tensors():
+            t.add_(1)
+    for st in (state.pose, state.agent) if isinstance(state, JointState) else (state,):
+        st.model.load_state_dict(copy.deepcopy(st.model.state_dict()))
+
+
+@pytest.mark.parametrize("which", ["pose", "agent"])
+@pytest.mark.parametrize("between", ["nothing", "in_place"])
+def test_graph_cache_keeps_its_graphs_while_nothing_moves(which, between):
+    """Calls over a state whose tensors stay where they are keep the
+    graphs and walk nothing after the first."""
+    state, _ = _train_state(which)
+    cache = GraphCache()
+    cache._drop_if_moved(*state.holders())
+    cache.graphs["sentinel"] = object()
+    recaptures, walks = counter("graph.recaptures"), counter("graph.state_walks")
+    for _ in range(5):
+        if between == "in_place":
+            _in_place(state)
+        cache._drop_if_moved(*state.holders())
+    assert "sentinel" in cache.graphs
+    assert counter("graph.recaptures") == recaptures
+    assert counter("graph.state_walks") == walks
+
+
+def test_graph_cache_walks_again_after_a_registration_elsewhere():
+    """A module built anywhere in the process registers parameters: the
+    next call walks once, finds every pointer where it was, and keeps the
+    graphs."""
+    state, _ = _train_state("pose")
+    cache = GraphCache()
+    cache._drop_if_moved(*state.holders())
+    cache.graphs["sentinel"] = object()
+    walks = counter("graph.state_walks")
+    torch.nn.Linear(2, 2)
+    cache._drop_if_moved(*state.holders())
+    cache._drop_if_moved(*state.holders())
+    assert "sentinel" in cache.graphs and counter("graph.state_walks") == walks + 1
 
 
 def test_experiment_validates_through_the_graphed_step(tmp_path):

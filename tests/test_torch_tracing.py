@@ -293,19 +293,20 @@ def test_a_batchs_spans_share_its_unit_across_threads(split):
 
 
 class _State:
-    """A state of one tensor for :class:`GraphedSteps`."""
+    """A state of one tensor, a module's buffer, for :class:`GraphedSteps`."""
 
     def __init__(self, dev):
-        self.step, self.w = 0, torch.zeros(4, device=dev)
+        self.step, self.model = 0, torch.nn.Module()
+        self.model.register_buffer("w", torch.zeros(4, device=dev))
 
-    def tensors(self):
-        return [self.w]
+    def holders(self):
+        return (self.model,), ()
 
     def snapshot(self):
-        return self.w.clone()
+        return self.model.w.clone()
 
     def restore_(self, saved):
-        self.w.copy_(saved)
+        self.model.w.copy_(saved)
 
 
 class _Counters:
