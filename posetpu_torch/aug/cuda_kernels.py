@@ -5,14 +5,13 @@ launches its kernel on PyTorch's current stream without synchronising,
 raises if the launch was refused, and adds one to its counter
 ``launches.<kernel>`` in :data:`posetpu_torch.utils.profiling.REGISTRY`.
 A launch recorded into a CUDA graph is counted when the graph replays
-(:func:`counted_as_replays`, :func:`add_replay`), since the capture itself
-runs nothing.  The kernels build from ``aug/kernels/*.cu`` at first use
+(:func:`posetpu_torch.utils.profiling.counted_as_replays`), since the
+capture itself runs nothing.  The kernels build from ``aug/kernels/*.cu`` at first use
 (:mod:`posetpu_torch.utils.cuda_build`); nothing here runs at import.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import os
@@ -28,32 +27,17 @@ RASTERIZE_SOURCE = os.path.join(_KERNEL_DIR, "rasterize.cu")
 SOURCES = (RASTERIZE_SOURCE,)
 
 # the launch counters of this module's kernels, the ones a graph captures
-RASTERIZE_LAUNCHES = "launches.rasterize_gaussians"
+RASTERIZE_LAUNCHES = profiling.launch_counter("launches.rasterize_gaussians")
 COUNTERS = (RASTERIZE_LAUNCHES,)
 
 
-@contextlib.contextmanager
 def counted_as_replays():
-    """Around a CUDA graph's capture, and nothing else (a warm-up before it
-    runs its kernels, and they count): the wrappers count the launches they
-    record, but a capture runs nothing, so the counts go back to what they
-    were on exit.  Yields a dict that holds, on exit, the launches the
-    capture recorded by counter; :func:`add_replay` adds them back once per
-    replay."""
-    before = {name: profiling.counter(name) for name in COUNTERS}
-    captured = {}
-    try:
-        yield captured
-    finally:
-        for name in COUNTERS:
-            captured[name] = profiling.counter(name) - before[name]
-            profiling.count(name, -captured[name])
+    """:func:`posetpu_torch.utils.profiling.counted_as_replays` over this
+    module's counters alone."""
+    return profiling.counted_as_replays(COUNTERS)
 
 
-def add_replay(captured):
-    """Count one replay of a graph that recorded ``captured`` launches."""
-    for name, n in captured.items():
-        profiling.count(name, n)
+add_replay = profiling.add_replay
 
 
 @functools.cache

@@ -39,6 +39,8 @@ STREAM_SCALE_BIN = 2
 STREAM_ROT_BIN = 3
 STREAM_OCC = 4  # the tree's level and each level's cell: disjoint draws
 STREAM_ADV_FLIP = 5
+# the ViT's drop-path masks (posetpu_torch.models.vitpose)
+STREAM_DROP_PATH = 6
 
 
 def pcg_hash(x):

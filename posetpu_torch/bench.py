@@ -100,12 +100,12 @@ import numpy as np
 import torch
 
 from posetpu_torch.aug import cuda_kernels
-from posetpu_torch.configs import named_config
+from posetpu_torch.configs import ModelConfig, named_config
 from posetpu_torch.data import HostLoader, MpiiDataset, WorkerLoader, make_batch_placer
 from posetpu_torch.data.synthetic import whole_group_split
 from posetpu_torch.data.worker_loader import stop_worker_server
 from posetpu_torch.infer import PosePredictor
-from posetpu_torch.models import hg
+from posetpu_torch.models import build_model
 from posetpu_torch.native import islow, jpeg_gpu
 from posetpu_torch.train import TrainState, make_dispatch_step, make_optimizer
 from posetpu_torch.train.adversarial import (
@@ -185,8 +185,8 @@ def _launches():
 
 
 def _hourglass(stacks, feats, classes=16, scan_stacks=False):
-    model = hg(num_stacks=stacks, num_blocks=1, num_classes=classes, num_feats=feats,
-               scan_stacks=scan_stacks, remat=scan_stacks)
+    model = build_model(ModelConfig(stacks=stacks, classes=classes, feats=feats,
+                                    scan_stacks=scan_stacks))
     return seeded_init_(model, SEED)
 
 

@@ -9,7 +9,7 @@ Layout, as the JAX package's::
 Each holds the train state (:class:`posetpu_torch.train.state.TrainState`
 or :class:`posetpu_torch.train.adversarial.JointState`), the epoch and the
 best accuracy.  A train state is its model's ``state_dict`` (parameters and
-BatchNorm statistics), its optimizer's ``state_dict`` (RMSprop moments),
+BatchNorm statistics), its optimizer's ``state_dict`` (its moments),
 and two counters that neither ``state_dict`` holds: the optimizer's update
 count, which the learning-rate schedule reads, and ``step``, which keys the
 augmentation draws.  Both are saved and restored, so a resumed run neither

@@ -2,11 +2,13 @@
 
 from posetpu_torch.configs.config import (
     NAMED_CONFIGS,
+    AdamWConfig,
     AgentConfig,
     AugConfig,
     ExperimentConfig,
     ModelConfig,
     OptimConfig,
+    ViTConfig,
     add_overrides,
     apply_overrides,
     named_config,
@@ -14,11 +16,13 @@ from posetpu_torch.configs.config import (
 
 __all__ = [
     "NAMED_CONFIGS",
+    "AdamWConfig",
     "AgentConfig",
     "AugConfig",
     "ExperimentConfig",
     "ModelConfig",
     "OptimConfig",
+    "ViTConfig",
     "add_overrides",
     "apply_overrides",
     "named_config",

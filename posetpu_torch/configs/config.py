@@ -18,6 +18,14 @@ recomputes each hourglass in the backward pass
 the JAX package's scanned checkpoint layout (every stack's parameters
 stacked on a leading axis, the last stack's unused remap kept) and implies
 remat, as it does there.
+``arch`` names the pose network: "hourglass" (:class:`ModelConfig`) or
+"vit" (:class:`ViTConfig`, ViTPose's plain vision transformer and its
+deconvolution head); ``optimizer`` names the update: "rmsprop"
+(:class:`OptimConfig`) or "adamw" (:class:`AdamWConfig`, with ViTPose's
+layer-wise learning-rate decay, global-norm clip and linear warm-up).  The
+ViT's and AdamW's fields live on those subclasses, so the base classes hold
+the JAX package's fields and no others (the hourglass configs are compared
+with it field for field).
 ``num_devices`` (``--num-devices``) is the number of data-parallel ranks,
 one process a GPU (:mod:`posetpu_torch.parallel`).  ``loader_backend="grain"`` selects the port's worker-process
 loader (:class:`posetpu_torch.data.WorkerLoader`), so a reference command
@@ -34,6 +42,7 @@ from typing import Optional, Sequence, Tuple
 
 @dataclass
 class ModelConfig:
+    arch = "hourglass"  # not a field: ViTConfig's is
     stacks: int = 8  # reference --stacks
     blocks: int = 1  # reference --blocks
     classes: int = 16  # reference --num-classes
@@ -43,6 +52,24 @@ class ModelConfig:
     # the reference's nn.scan layout of the stacks (implies remat)
     scan_stacks: bool = False
     bf16: bool = True
+
+
+@dataclass
+class ViTConfig(ModelConfig):
+    """ViTPose (Xu et al. 2022): a patch embedding, ``vit_depth`` pre-norm
+    blocks of ``num_heads`` attention heads and an MLP of 4 x
+    ``embed_dim``, drop-path rates rising from 0 to ``drop_path_rate``, a
+    last LayerNorm, then two stride-2 deconvolutions of 256 and a 1x1
+    conv to ``classes`` heatmaps (:mod:`posetpu_torch.models.vitpose`
+    holds ViTPose-H's patch, MLP ratio and head as constants).  The
+    hourglass fields are unused."""
+
+    arch: str = "vit"
+    img_size: int = 256  # the square input side: the position embedding's grid
+    embed_dim: int = 1280
+    vit_depth: int = 32
+    num_heads: int = 16
+    drop_path_rate: float = 0.55
 
 
 @dataclass
@@ -69,6 +96,27 @@ class OptimConfig:
     rms_eps: float = 1e-8
     momentum: float = 0.0
     weight_decay: float = 0.0
+    # not fields: AdamWConfig's are
+    optimizer = "rmsprop"
+    clip_norm = 0.0
+
+
+@dataclass
+class AdamWConfig(OptimConfig):
+    """torch's AdamW as ViTPose trains with it (mmcv): each parameter's
+    learning rate scaled by ``layer_decay`` ** (last layer - its layer)
+    where the network groups its parameters by layer, the gradient clipped
+    to a global L2 norm of ``clip_norm`` (0: off), and the learning rate
+    warmed up linearly over ``warmup_iters`` updates, then dropped by
+    ``gamma`` at each epoch of ``schedule``
+    (:class:`posetpu_torch.train.state.LayerDecayAdamW` holds ViTPose's
+    betas, eps and warm-up ratio as constants).  The RMSprop fields are
+    unused."""
+
+    optimizer: str = "adamw"
+    layer_decay: float = 1.0
+    clip_norm: float = 0.0
+    warmup_iters: int = 0
 
 
 @dataclass
@@ -163,6 +211,19 @@ NAMED_CONFIGS = {
         agent=AgentConfig(enabled=True),
         batch_size=48,
         num_devices=8,
+    ),
+    # ViTPose-H (Xu et al. 2022, arXiv:2204.12484), ViTPose_huge_coco_256x192's
+    # network and optimizer on the repo's MPII data path: 256x256 crops,
+    # 64x64 heatmaps at sigma 2, 16 joints, the loss masked by the targets'
+    # weights; 64 images a GPU of its 8
+    "vitpose_h_mpii": ExperimentConfig(
+        "vitpose_h_mpii",
+        model=ViTConfig(classes=16),
+        aug=AugConfig(sigma=2.0),
+        optim=AdamWConfig(lr=5e-4, epochs=210, schedule=(170, 200), gamma=0.1,
+                          weight_decay=0.1, layer_decay=0.85, clip_norm=1.0,
+                          warmup_iters=500),
+        batch_size=64,
     ),
 }
 

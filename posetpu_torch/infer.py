@@ -37,7 +37,7 @@ from posetpu_torch.aug.color import color_normalize
 from posetpu_torch.aug.warp import affine_warp
 from posetpu_torch.ckpt.manager import CheckpointManager
 from posetpu_torch.eval.decode import final_preds, get_preds, quarter_offset
-from posetpu_torch.models import hg
+from posetpu_torch.models import build_model
 from posetpu_torch.utils import profiling
 from posetpu_torch.utils.device import resolve_device
 from posetpu_torch.utils.graphs import ShapeGraphs
@@ -132,20 +132,14 @@ class PosePredictor:
     @classmethod
     def from_config(cls, cfg, checkpoint, *, best=True, mean=MPII_MEAN, device="cuda"):
         """Build from an ExperimentConfig and ``checkpoint``: a state dict of
-        :class:`posetpu_torch.models.HourglassNet`, or a path
-        (:func:`load_checkpoint_model`, with ``best``).  The network is
-        built from ``cfg.model``, ``blocks`` and ``scan_stacks`` included
-        (the checkpoint's layout); remat does not matter in eval."""
+        the config's network, or a path (:func:`load_checkpoint_model`,
+        with ``best``).  The network is built from ``cfg.model``
+        (:func:`posetpu_torch.models.build_model`: the hourglass with its
+        ``blocks`` and ``scan_stacks``, the checkpoint's layout, or
+        ViTPose); remat does not matter in eval."""
         device = resolve_device(device)
-        model = hg(
-            num_stacks=cfg.model.stacks,
-            num_blocks=cfg.model.blocks,
-            num_classes=cfg.model.classes,
-            num_feats=cfg.model.feats,
-            depth=cfg.model.depth,
-            dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32,
-            scan_stacks=cfg.model.scan_stacks,
-        )
+        with profiling.span("model.build"):
+            model = build_model(cfg.model)
         if not isinstance(checkpoint, Mapping):
             checkpoint = load_checkpoint_model(checkpoint, best=best)
         model.load_state_dict(checkpoint)

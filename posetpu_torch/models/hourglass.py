@@ -109,6 +109,12 @@ class HourglassNet(nn.Module):
     """Full stacked network (reference factory defaults: 8 stacks, 1 block,
     16 classes, 128 features)."""
 
+    # the training recipe the train loop takes from the network, as from
+    # ViTPose: no draws of its own, the reference's unweighted loss, and
+    # the JAX package's initialisation (``seeded_init_``'s own rule)
+    keyed = False
+    masked_loss = False
+
     def __init__(
         self,
         num_stacks=8,
@@ -163,6 +169,11 @@ class HourglassNet(nn.Module):
         )
         # a plain list: the modules are registered above already
         self._norms = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
+
+    def param_groups(self, optim_cfg):
+        """The parameters as ``optim_cfg``'s optimizer takes them: one
+        group of them all."""
+        return list(self.parameters())
 
     def forward(self, x):
         """x (B, H, W, 3) NHWC float -> list of ``num_stacks`` (B, K, H/4,

@@ -61,7 +61,7 @@ def main(argv=None):
 
     from posetpu_torch.configs import named_config
     from posetpu_torch.data import HostLoader, MpiiDataset, make_batch_placer
-    from posetpu_torch.models import hg
+    from posetpu_torch.models import build_model
     from posetpu_torch.train import TrainState, make_dispatch_step, make_optimizer
     from posetpu_torch.train.loop import seeded_init_
     from posetpu_torch.utils.device import resolve_device
@@ -84,8 +84,8 @@ def main(argv=None):
     cfg = named_config("hg8_mpii")
     cfg.aug.inp_res = (args.res, args.res)
     cfg.aug.out_res = (args.res // 4, args.res // 4)
-    model = seeded_init_(hg(num_stacks=args.stacks, num_blocks=1, num_classes=16,
-                            num_feats=args.feats), 0).to(dev)
+    cfg.model.stacks, cfg.model.feats = args.stacks, args.feats
+    model = seeded_init_(build_model(cfg.model), 0).to(dev)
     opt = make_optimizer(model.parameters(), cfg.optim, 1000)
     state = TrainState(model, opt)
 

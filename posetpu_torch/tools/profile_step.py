@@ -155,7 +155,7 @@ def build_step(joint, stacks, feats, batch, eager, dev):
     hg8_mpii (or hg8_mpii_asr with ``joint``) at ``stacks``/``feats``, on
     an in-memory batch, through the driver's one-step graph or eagerly."""
     from posetpu_torch.configs import named_config
-    from posetpu_torch.models import hg
+    from posetpu_torch.models import build_model
     from posetpu_torch.train import (
         JointState,
         TrainState,
@@ -170,7 +170,8 @@ def build_step(joint, stacks, feats, batch, eager, dev):
 
     cfg = named_config("hg8_mpii_asr" if joint else "hg8_mpii")
     mean = (0.44, 0.44, 0.43)
-    model = seeded_init_(hg(num_stacks=stacks, num_feats=feats, num_classes=16), 0).to(dev)
+    cfg.model.stacks, cfg.model.feats = stacks, feats
+    model = seeded_init_(build_model(cfg.model), 0).to(dev)
     opt = make_optimizer(model.parameters(), cfg.optim, 1000)
     pose = TrainState(model, opt)
     b = _batch(batch, dev)

@@ -51,7 +51,7 @@ from posetpu_torch.data.synthetic import make_synthetic_dataset
 from posetpu_torch.data.worker_loader import WorkerLoader
 from posetpu_torch.eval.decode import pck_from_counts
 from posetpu_torch.eval.export import save_preds
-from posetpu_torch.models import hg
+from posetpu_torch.models import HourglassNet, build_model
 from posetpu_torch.models.batchnorm import convert_cross_replica_
 from posetpu_torch.parallel.dp import (
     barrier,
@@ -67,6 +67,7 @@ from posetpu_torch.train.adversarial import (
 )
 from posetpu_torch.train.state import TrainState, make_optimizer
 from posetpu_torch.train.step import make_dispatch_step, make_graphed_eval_step
+from posetpu_torch.utils import profiling
 from posetpu_torch.utils.device import resolve_device
 from posetpu_torch.utils.logger import AverageMeter, Logger
 
@@ -115,8 +116,12 @@ def seeded_init_(module, seed):
     ``_TRUNC_STD`` so the cut keeps the variance), in module order.
     ``fan_in`` is in_channels/groups * kh * kw for a conv and in_features
     for a linear layer.  Every bias is zero; BatchNorm keeps its unit scale
-    and zero shift."""
+    and zero shift.  A network with a rule of its own (``init_weights_``,
+    as :class:`posetpu_torch.models.ViTPose` has) draws it from the same
+    generator instead."""
     g = torch.Generator().manual_seed(int(seed))
+    if hasattr(module, "init_weights_"):
+        return module.init_weights_(g)
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -209,19 +214,17 @@ class Experiment:
         )
         self.steps_per_epoch = cfg.steps_per_epoch or len(self.loader)
 
-        m = cfg.model
-        self.model = seeded_init_(
-            hg(num_stacks=m.stacks, num_blocks=m.blocks, num_classes=m.classes,
-               num_feats=m.feats, depth=m.depth,
-               dtype=torch.bfloat16 if m.bf16 else torch.float32,
-               # the scanned layout implies remat, as in the reference
-               remat=m.remat or m.scan_stacks, scan_stacks=m.scan_stacks),
-            cfg.seed,
-        )
+        with profiling.span("model.build"):
+            self.model = seeded_init_(build_model(cfg.model), cfg.seed)
+        if (cfg.agent.enabled or cfg.init_pose_from) and not isinstance(self.model,
+                                                                         HourglassNet):
+            raise ValueError(f"{type(self.model).__name__} trains pose-only from its own "
+                             "weights: the agent and --init-pose-from take the hourglass")
         # every rank draws the same weights; the broadcast makes it so
         broadcast_state_(convert_cross_replica_(self.model.to(self.device), self.group),
                          self.group)
-        opt = make_optimizer(self.model.parameters(), cfg.optim, self.steps_per_epoch)
+        opt = make_optimizer(self.model.param_groups(cfg.optim), cfg.optim,
+                             self.steps_per_epoch)
         pose_state = TrainState(self.model, opt)
         if cfg.agent.enabled:
             agent, agent_opt, joint_kw = agent_from_config(
@@ -240,6 +243,7 @@ class Experiment:
             self.state = pose_state
             self.train_step = make_dispatch_step(
                 self.model, opt, cfg.aug, self.mean, self.std, seed=cfg.seed,
+                mask_loss=self.model.masked_loss, clip_norm=cfg.optim.clip_norm,
                 steps=self.K, group=self.group, device=self.device,
             )
         # on CUDA one CUDA graph per batch signature (the padded batches

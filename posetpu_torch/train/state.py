@@ -14,6 +14,15 @@ it is not, and :class:`OptaxRMSprop` follows optax:
 - The schedule is read at the optimizer's update count *before* the
   update, and a drop applies once ``count >= boundary``.  There is one
   update count, as optax holds it, and no torch ``LRScheduler``.
+
+A ViT config (:class:`posetpu_torch.configs.AdamWConfig`) trains with
+:class:`LayerDecayAdamW`, torch's fused AdamW as ViTPose's mmcv runner
+drives it: over the network's groups
+(:meth:`posetpu_torch.models.ViTPose.param_groups`: one a layer and weight
+decay or none), each group's learning rate the schedule's times its
+``lr_scale``, and the warm-up-then-step schedule
+(:func:`warmup_step_schedule`) read at the same single update count, on
+the card inside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -24,14 +33,15 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from posetpu_torch.utils import profiling
 from posetpu_torch.utils.graphs import state_slots
 
 
 @dataclass
 class TrainState:
     """What a train step reads and advances: the model (parameters and
-    BatchNorm statistics), its optimizer (RMSprop moments and the update
-    count) and the number of train steps taken, which keys the
+    BatchNorm statistics), its optimizer (RMSprop's or AdamW's moments and
+    the update count) and the number of train steps taken, which keys the
     augmentation draws.  ``step`` and the optimizer's ``count`` are Python
     ints, the record that checkpoints save; a graphed dispatch
     (:func:`posetpu_torch.train.step.make_dispatch_step`) mirrors them in
@@ -209,14 +219,129 @@ class OptaxRMSprop(torch.optim.Optimizer):
         self.count = int(carried["count"])
 
 
+# AdamW's constants as ViTPose trains with it, and the warm-up's first
+# share of the rate
+ADAMW_BETAS = (0.9, 0.999)
+ADAMW_EPS = 1e-8
+WARMUP_RATIO = 0.001
+
+
+def warmup_step_schedule(optim_cfg, steps_per_epoch):
+    """mmcv's step policy behind a linear warm-up, as ViTPose configures
+    it: ``count -> lr``, where the step-decayed rate is ``optim_cfg.lr``
+    times ``gamma`` for each epoch of ``schedule`` reached (update
+    ``int(e) * steps_per_epoch`` on), and while ``count <
+    warmup_iters`` it is scaled by ``1 - (1 - count / warmup_iters) (1 -
+    WARMUP_RATIO)``.  ``count`` is a 0-d int64 tensor, read on its device
+    (a train step inside a CUDA graph reads it there) in float64, as mmcv
+    computes in Python floats (in float32, ``1 - 0.999`` alone is 1.3e-5
+    off); the result is a 0-d float32 tensor."""
+    boundaries = sorted({int(e) * steps_per_epoch for e in optim_cfg.schedule})
+    warm, ratio = int(optim_cfg.warmup_iters), WARMUP_RATIO
+
+    def schedule(count):
+        v = torch.full((), float(optim_cfg.lr), dtype=torch.float64, device=count.device)
+        for b in boundaries:
+            v = torch.where(count >= b, v * float(optim_cfg.gamma), v)
+        if warm > 0:
+            k = (1.0 - count.to(torch.float64) / warm) * (1.0 - ratio)
+            v = torch.where(count < warm, v * (1.0 - k), v)
+        return v.to(torch.float32)
+
+    return schedule
+
+
+class LayerDecayAdamW(torch.optim.AdamW):
+    """torch's fused ``AdamW`` with ViTPose's betas and eps, over groups
+    that each carry an ``lr_scale`` (1 where a group gives none): an
+    update's rate in a group is the schedule's at the update count before
+    it times ``lr_scale``, written on the card into the group's own 0-d
+    ``lr`` tensor, which the fused kernel reads there, so an update inside
+    a CUDA graph reads its count on the device as an eager one does.
+    ``count`` (the host's record, which the schedule reads) starts at 0, as
+    each parameter's ``step`` (which torch's bias corrections read) does;
+    an update advances both, and leaves a parameter without a gradient as
+    it is (torch's rule: ViTPose's every parameter has one).  Build it
+    after the parameters are on their device; it is capturable there on
+    the card."""
+
+    def __init__(self, params, schedule, *, weight_decay=0.0):
+        super().__init__(params, lr=0.0, betas=ADAMW_BETAS, eps=ADAMW_EPS,
+                         weight_decay=weight_decay, fused=True)
+        for group in self.param_groups:
+            group.setdefault("lr_scale", 1.0)
+        self._own_lrs()
+        self.schedule = schedule
+        self.count = 0
+
+    def _own_lrs(self):
+        """A 0-d ``lr`` tensor for each group on its parameters' device,
+        and ``capturable`` there where that is the card."""
+        for group in self.param_groups:
+            dev = group["params"][0].device
+            group["lr"] = torch.zeros((), device=dev)
+            group["capturable"] = dev.type == "cuda"
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict(state_dict)
+        self._own_lrs()
+
+    def init_moments(self):
+        """Make every parameter's state now as torch's first update would
+        (``step`` 0, zero moments): a CUDA graph's capture needs them at
+        fixed addresses before it starts."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("LayerDecayAdamW takes no closure")
+        dev = self.param_groups[0]["lr"].device
+        # a fill on the device, not a copy from the host: no sync
+        self.step_at(torch.full((), self.count, dtype=torch.int64, device=dev))
+        self.count += 1
+
+    @torch.no_grad()
+    def step_at(self, count):
+        """One update at ``count``, a 0-d int64 tensor on the parameters'
+        device, which then advances by one in place (the update a CUDA
+        graph can replay); ``self.count`` is the caller's to advance."""
+        lrs = [group["lr"] for group in self.param_groups]
+        torch._foreach_copy_(lrs, [self.schedule(count)] * len(lrs))
+        torch._foreach_mul_(lrs, [group["lr_scale"] for group in self.param_groups])
+        super().step()
+        count.add_(1)
+
+
 def make_optimizer(params, optim_cfg, steps_per_epoch=1):
-    """The JAX package's optimizer (``make_optimizer``) over ``params``:
-    optax-exact RMSprop with the step-decay schedule."""
-    return OptaxRMSprop(
-        params,
-        lr_schedule(optim_cfg, steps_per_epoch),
-        decay=optim_cfg.rms_decay,
-        eps=optim_cfg.rms_eps,
-        momentum=optim_cfg.momentum,
-        weight_decay=optim_cfg.weight_decay,
-    )
+    """The optimizer of ``optim_cfg`` over ``params`` (parameters, or
+    groups of them as torch takes them: a network's ``param_groups``): the
+    JAX package's (``make_optimizer``), optax-exact RMSprop with the
+    step-decay schedule; or for an
+    :class:`posetpu_torch.configs.AdamWConfig`, :class:`LayerDecayAdamW`
+    with :func:`warmup_step_schedule`.  Sets the registry's counters
+    ``optim.param_groups`` and ``optim.params``."""
+    if optim_cfg.optimizer == "adamw":
+        opt = LayerDecayAdamW(params, warmup_step_schedule(optim_cfg, steps_per_epoch),
+                              weight_decay=optim_cfg.weight_decay)
+    elif optim_cfg.optimizer == "rmsprop":
+        opt = OptaxRMSprop(
+            params,
+            lr_schedule(optim_cfg, steps_per_epoch),
+            decay=optim_cfg.rms_decay,
+            eps=optim_cfg.rms_eps,
+            momentum=optim_cfg.momentum,
+            weight_decay=optim_cfg.weight_decay,
+        )
+    else:
+        raise ValueError(f"unknown optimizer {optim_cfg.optimizer!r} "
+                         "(expected 'rmsprop' or 'adamw')")
+    profiling.set_counter("optim.param_groups", len(opt.param_groups))
+    profiling.set_counter("optim.params", sum(len(g["params"]) for g in opt.param_groups))
+    return opt

@@ -113,13 +113,19 @@ def _normalization(mean, std, dev):
     return mean_t, std_t
 
 
-def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev, group):
+def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev, group,
+                clip_norm=0.0):
     """``run(step, batch, update) -> metrics``: one train step's math with
     the draws keyed on ``step`` (an int or a 0-d device tensor) and
     ``update()`` applying the optimizer; with a ``group``, the gradients
-    and metrics reduced over its ranks."""
+    and metrics reduced over its ranks; with ``clip_norm``, the gradients
+    clipped to that global L2 norm before the update, on the device
+    without a sync (``clip_grad_norm_``'s foreach route).  A network that
+    draws (``keyed``: ViTPose's drop path) takes ``keys=(seed, step,
+    index)`` with its input."""
     model.to(dev)
     mean_t, std_t = _normalization(mean, std, dev)
+    keyed = getattr(model, "keyed", False)
 
     def run(step, batch, update):
         b = _to_device(batch, dev)
@@ -141,7 +147,8 @@ def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev, grou
                 dataset=aug_cfg.dataset, jitter_scales=jitter, device=dev,
             )
         model.train()
-        outs = model(aug["input"])
+        outs = (model(aug["input"], keys=(seed, step, b["index"])) if keyed
+                else model(aug["input"]))
         loss = stacked_mse(
             outs, aug["target"], aug["target_weight"] if mask_loss else None
         )
@@ -149,6 +156,8 @@ def _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss, dev, grou
         loss.backward()
         if group is not None:
             mean_grads_(model.parameters(), group)
+        if clip_norm:
+            torch.nn.utils.clip_grad_norm_(model.parameters(), clip_norm, foreach=True)
         update()
         loss = loss.detach()
         hit, cnt = pck_counts(outs[-1].detach(), aug["target"])
@@ -167,7 +176,7 @@ def _check_state(state, model, optimizer):
 
 
 def make_train_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
-                    mask_loss=False, group=None, device="cuda"):
+                    mask_loss=False, clip_norm=0.0, group=None, device="cuda"):
     """Build the baseline train step (no agent): draw augmentation, augment
     on the device, forward in train mode, summed-stack MSE, backward, one
     optimizer update, train PCK from the last stack.
@@ -181,8 +190,10 @@ def make_train_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     :func:`sample_jitter_scales` when ``aug_cfg.color_jitter``) are keyed on
     (``seed``, ``state.step``, ``index``), so a sample draws the same
     whatever its batch.  ``mask_loss`` weights the loss by the
-    ``target_weight`` of each joint.  ``metrics`` (``loss``, ``acc``) stay
-    device tensors: the step never waits for the device.
+    ``target_weight`` of each joint; ``clip_norm`` (0: off) clips the
+    gradients to that global L2 norm before the update.  ``metrics``
+    (``loss``, ``acc``) stay device tensors: the step never waits for the
+    device.
 
     With ``group`` (data parallelism) ``batch`` is this rank's slice of
     the global batch, and the gradients, loss and PCK counts are reduced
@@ -193,7 +204,7 @@ def make_train_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     ``device="cpu"``).
     """
     run = _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss,
-                      resolve_device(device), group)
+                      resolve_device(device), group, clip_norm)
 
     def train_step(state, batch):
         _check_state(state, model, optimizer)
@@ -226,7 +237,7 @@ class DeviceCounters:
 
 
 def make_train_body(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
-                    mask_loss=False, group=None, device="cuda"):
+                    mask_loss=False, clip_norm=0.0, group=None, device="cuda"):
     """:func:`make_train_step`'s math with its counters on the device:
     ``body(counters, batch) -> metrics`` keys the draws on
     ``counters.step``, reads the schedule at ``counters.count``
@@ -235,9 +246,9 @@ def make_train_body(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     by one in place.  It syncs with the host nowhere, so a CUDA graph can
     capture it.  The state's Python ints are the caller's to advance.
     Draws, updates and metrics equal ``make_train_step``'s exactly, with
-    ``group`` as there."""
+    ``clip_norm`` and ``group`` as there."""
     run = _train_math(model, optimizer, aug_cfg, mean, std, seed, mask_loss,
-                      resolve_device(device), group)
+                      resolve_device(device), group, clip_norm)
 
     def body(counters, batch):
         metrics = run(counters.step, batch, lambda: optimizer.step_at(counters.count))
@@ -400,7 +411,8 @@ class GraphedSteps(GraphCache):
 
 
 def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
-                       mask_loss=False, steps=2, group=None, device="cuda"):
+                       mask_loss=False, clip_norm=0.0, steps=2, group=None,
+                       device="cuda"):
     """K = ``steps`` train steps per dispatch — the counterpart of
     ``fuse_steps`` with ``HostLoader(group=K)``.
 
@@ -414,8 +426,8 @@ def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     On CUDA a full superbatch runs as one ``torch.cuda.CUDAGraph`` of K
     :func:`make_train_body` steps over a static (K, B, ...) buffer: the
     superbatch is copied into it on the current stream, the graph replays,
-    the rasterizer's launches are counted once per replay
-    (:func:`posetpu_torch.aug.cuda_kernels.add_replay`).  The capture is
+    the launches it recorded are counted once per replay
+    (:func:`posetpu_torch.utils.profiling.add_replay`).  The capture is
     made at the first full dispatch and after every state load (module
     docstring); a capture or replay that fails raises, and nothing falls
     back to eager steps.  A short superbatch (an epoch's last group) runs
@@ -430,7 +442,8 @@ def make_dispatch_step(model, optimizer, aug_cfg, mean, std=None, *, seed=0,
     dev = resolve_device(device)
     check_dispatch(steps, dev, group)
     body = make_train_body(model, optimizer, aug_cfg, mean, std, seed=seed,
-                           mask_loss=mask_loss, group=group, device=dev)
+                           mask_loss=mask_loss, clip_norm=clip_norm, group=group,
+                           device=dev)
     return GraphedSteps(lambda counters, batch, _update: body(counters, batch),
                         DeviceCounters(dev), lambda st: _check_state(st, model, optimizer),
                         steps, dev)

@@ -10,7 +10,7 @@ training:
   captured at its first call, after ``WARMUP_CALLS`` calls of the function
   on a side stream (cuDNN and cuBLAS handles, the kernels' library, lazily
   made constants); the warm-up's kernel launches run and count, the
-  capture's count once per replay (:func:`posetpu_torch.aug.cuda_kernels.add_replay`);
+  capture's count once per replay (:func:`posetpu_torch.utils.profiling.add_replay`);
 - every graph reads the weights where they were at its capture: when a
   weight's storage has moved (``load_state_dict`` of a module copies in
   place, a ``.to()`` or a parameter replaced does not), every graph is
@@ -43,7 +43,6 @@ import numpy as np
 import torch
 from torch.nn.modules import module as nn_module
 
-from posetpu_torch.aug import cuda_kernels
 from posetpu_torch.utils import profiling
 
 # calls of the function on a side stream before each capture
@@ -79,7 +78,7 @@ def record(fn, dev, pool=None):
     graph = torch.cuda.CUDAGraph()
     # thread_local: a loader's thread may go on pinning and copying on its
     # own stream while this thread captures
-    with cuda_kernels.counted_as_replays() as launches:
+    with profiling.counted_as_replays() as launches:
         with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
             out = fn()
     torch.cuda.synchronize(dev)
@@ -114,9 +113,10 @@ def state_slots(modules, optimizers=()):
     fixed order: the parameters of each module (its tree's
     ``_parameters`` dicts, each tensor once, in ``parameters()``'s order),
     then its buffers likewise, then the moments of each optimizer by
-    parameter and key (an ``OptaxRMSprop``, whose ``init_moments()`` makes
-    first those no update has made yet, so the list is the same before
-    and after a step)."""
+    parameter and key, over all its groups (an ``OptaxRMSprop`` or a
+    ``LayerDecayAdamW``, whose ``init_moments()`` makes first those no
+    update has made yet, so the list is the same before and after a
+    step)."""
     dicts, keys = [], []
     for m in modules:
         for kind in ("_parameters", "_buffers"):
@@ -231,7 +231,7 @@ class GraphCache:
     def _replayed(g):
         """Count one replay of ``g``, and the launches it recorded."""
         profiling.count("graph.replays")
-        cuda_kernels.add_replay(g.launches)
+        profiling.add_replay(g.launches)
 
 
 def _signature(inputs):

@@ -314,6 +314,12 @@ class Registry:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + n
 
+    def set_counter(self, name, value):
+        """Set counter ``name`` to ``value`` (a count of something built,
+        not of events)."""
+        with self._lock:
+            self._counters[name] = value
+
     def counter(self, name):
         """Counter ``name``'s value (0 before its first count)."""
         return self._counters.get(name, 0)
@@ -348,9 +354,50 @@ set_unit = REGISTRY.set_unit
 records = REGISTRY.records
 window = REGISTRY.window
 count = REGISTRY.count
+set_counter = REGISTRY.set_counter
 counter = REGISTRY.counter
 counters = REGISTRY.counters
 reset_counters = REGISTRY.reset_counters
+
+
+# counters of launches that a CUDA graph's capture records: the capture runs
+# nothing, so such a launch counts once a replay; each module that counts
+# launches registers its counters here (launch_counter)
+_launch_counters = []
+
+
+def launch_counter(name):
+    """Register ``name`` as a counter of launches, which counts once a
+    replay where a CUDA graph captured them (:func:`counted_as_replays`);
+    returns ``name``."""
+    if name not in _launch_counters:
+        _launch_counters.append(name)
+    return name
+
+
+@contextlib.contextmanager
+def counted_as_replays(names=None):
+    """Around a CUDA graph's capture, and nothing else (a warm-up before it
+    runs its kernels, and they count): the callers count the launches they
+    record, but a capture runs nothing, so counters ``names`` (every
+    :func:`launch_counter` by default) go back on exit to what they were.
+    Yields a dict that holds, on exit, the launches the capture recorded by
+    counter; :func:`add_replay` adds them back once per replay."""
+    names = tuple(_launch_counters if names is None else names)
+    before = {name: counter(name) for name in names}
+    captured = {}
+    try:
+        yield captured
+    finally:
+        for name in names:
+            captured[name] = counter(name) - before[name]
+            count(name, -captured[name])
+
+
+def add_replay(captured):
+    """Count one replay of a graph that recorded ``captured`` launches."""
+    for name, n in captured.items():
+        count(name, n)
 
 
 def merge_spans(path, recs, counts=()):
