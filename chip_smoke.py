@@ -9,12 +9,22 @@ Phases, each printing one JSON line:
 
   device     the card's name and its nvidia-smi name/power-limit line
   build      every native source of the port compiled at once: the
-             rasterizer, the idct_islow and ycc_canvas kernels (nvcc) and
-             the decode route's entropy decoder (g++)
+             rasterizer, the conv-bias, idct_islow and ycc_canvas kernels
+             (nvcc) and the decode route's entropy decoder (g++)
   kernels    each kernel against its plain PyTorch version on the card
              (exactly, for the rasterizer, on random and edge points), and
              both timed with CUDA events beside the card's write floor at
              the main path's shape and at one beyond the L2
+  conv_bias  the hourglass's conv-bias kernels at every conv-output shape
+             of hg8_mpii at batch 32, channels-last: the add bit for bit
+             against torch's add_, the gradient within the kernel's error
+             bound (its summation depth) of a float64 sum and within one
+             bf16 ulp of torch's sum, and the bound failing a zero gradient
+             and one with a block's partial row lost; each timed beside
+             torch's call and its bytes bound.  Their launches are checked
+             on every main path below: 378 adds a forward (a serving or
+             validation batch, a train step; two forwards a joint step) and
+             378 gradients a backward, counted once a replay
   bench      every mode of python -m posetpu_torch.bench at full width with
              fewer steps and trials (the default K steps a graph,
              --scan-stacks, --serve and --serve --pipeline 2, --joint,
@@ -222,8 +232,9 @@ the first batch; the host phase reports TensorBoard and /dev/shm.
 Then ``processes``: the worker loaders' server and resource tracker are
 stopped (the script waits for both), and anything else the run started
 that still runs is ended and fails the run.  Then the kernel summary line
-(the rasterizer's launches from validate, idct_islow's and ycc_canvas's
-from fit_jpeg_gpu, and each by path, the bench's modes as bench_<mode>),
+(the rasterizer's launches from validate, the conv-bias kernels' from the
+graphed train dispatch, idct_islow's and ycc_canvas's from fit_jpeg_gpu,
+and each by path, the bench's modes as bench_<mode>),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure
 raises (non-zero exit, no final line); without CUDA it exits non-zero at
@@ -278,7 +289,7 @@ from posetpu_torch.eval import cli as eval_cli
 from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.native import GpuJpegDecoder, islow, jpeg_gpu, ycc
-from posetpu_torch.models import hg
+from posetpu_torch.models import conv_bias, hg
 from posetpu_torch.models.batchnorm import BatchNorm2d, convert_cross_replica_
 from posetpu_torch.parallel import (
     RankPool,
@@ -446,15 +457,15 @@ def phase_device():
 
 
 def phase_build():
-    """Every native source at once: the augmentation kernels and the
-    decode route's (the idct_islow and ycc_canvas kernels, and the entropy
+    """Every native source at once: the augmentation and conv-bias kernels
+    and the decode route's (the idct_islow and ycc_canvas kernels, and the entropy
     decoder built with g++), one compiler process each, all started
     together."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
-        aug = ex.submit(cuda_build.build, cuda_kernels.SOURCES)
+        aug = ex.submit(cuda_build.build, cuda_kernels.SOURCES + conv_bias.SOURCES)
         native = ex.submit(jpeg_gpu.build_all)
         paths = {**aug.result(), **native.result()}
     seconds = time.perf_counter() - t0
@@ -579,6 +590,129 @@ def phase_kernels():
     emit("kernels", cases=len(cases), max_abs_err=max_err,
          cases_detail=cases, shapes=shapes)
     return summary
+
+
+def _hg8_conv_outputs():
+    """{(C, H, W, dtype): convolutions an image} of hg8_mpii's forward at
+    256² on the card, from hooks on its biased convolutions."""
+    model = hg().cuda().eval()
+    seen = {}
+
+    def hook(mod, inp, out):
+        key = (*out.shape[1:], out.dtype)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, conv_bias.Conv2d)]
+    with torch.no_grad():
+        model(torch.zeros(1, 256, 256, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+# biased convolutions of an hg8 network: one conv-bias add each a forward,
+# one gradient each a backward
+HG8_CONVS = 378
+
+
+def _conv_bias_launches():
+    return {"conv_bias": counter(conv_bias.ADD_LAUNCHES),
+            "conv_bias_grad": counter(conv_bias.GRAD_LAUNCHES)}
+
+
+def _check_conv_bias(label, launches, forwards, backwards):
+    """``launches`` holds HG8_CONVS conv-bias adds a forward and gradients
+    a backward."""
+    want = {"conv_bias": HG8_CONVS * forwards, "conv_bias_grad": HG8_CONVS * backwards}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{label}: conv-bias launches {got}, want {want} "
+                       f"({forwards} forwards, {backwards} backwards)")
+
+
+def _lost_partial(g, sms):
+    """What the gradient kernel would give for channels-last ``g`` with
+    block 0's partial row lost: the exact column sums less the rows block 0
+    sums (row r where r mod (blocks * R) < R), rounded to ``g``'s type."""
+    N, C, H, W = g.shape
+    rows = N * H * W
+    vec = 16 // g.element_size()
+    blocks, tile, _ = conv_bias.grad_grid(rows, C, vec if C % vec == 0 else 1, sms)
+    R = conv_bias.SUM_THREADS // tile
+    m = g.permute(0, 2, 3, 1).reshape(rows, C).double()
+    lost = torch.arange(rows, device=g.device) % (blocks * R) < R
+    return (m.sum(0) - m[lost].sum(0)).to(g.dtype)
+
+
+def phase_conv_bias():
+    """The conv-bias kernels at hg8_mpii's conv outputs, batch 32,
+    channels-last as the main path runs them: the add against its plain
+    version (torch's ``add_``) exactly; the gradient within the kernel's
+    error bound of a float64 sum (``conv_bias.gradient_misses``: its own
+    summation depth, not the rows') and within one bf16 ulp of torch's
+    ``sum((0, 2, 3))`` beside the two float sums' error; the same bound
+    fails a zero gradient and one with a block's partial row lost.  Each is
+    timed beside its plain version and its bytes bound, and the shapes'
+    times summed over the convolutions of one train step.  Returns the two
+    kernels' summaries; their launches come from the main paths' phases."""
+    sms = conv_bias.sm_count("cuda")
+    shapes, totals = [], dict.fromkeys(
+        ("add_ms", "add_plain_ms", "add_bound_ms", "grad_ms", "grad_plain_ms",
+         "grad_bound_ms"), 0.0)
+    for (C, H, W, dtype), n in sorted(_hg8_conv_outputs().items(), key=str):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + C + H)
+        x, g = (torch.randn(BATCH, C, H, W, device="cuda", generator=gen).to(dtype)
+                .contiguous(memory_format=torch.channels_last) for _ in range(2))
+        b = torch.randn(C, device="cuda", generator=gen).to(dtype)
+        label = f"conv_bias ({BATCH}, {C}, {H}, {W}) {dtype}"
+        before = counter(conv_bias.ADD_LAUNCHES)
+        got = conv_bias.bias_add_cuda_(x.clone(), b)
+        check(counter(conv_bias.ADD_LAUNCHES) == before + 1, f"{label}: no add launch")
+        check(torch.equal(got, conv_bias.bias_add_plain_(x.clone(), b)), f"{label}: add")
+        kernel = conv_bias.bias_grad_cuda(g)
+        plain = conv_bias.bias_grad_plain(g)
+        check(not conv_bias.gradient_misses(kernel, g, sms).any(),
+              f"{label}: gradient beyond the kernel's float32 error bound")
+        if dtype == torch.bfloat16:
+            check(not conv_bias.gradient_misses(kernel, g, sms, torch_sum=plain).any(),
+                  f"{label}: gradient beyond one bf16 ulp of torch's")
+        zeros = torch.zeros_like(kernel)
+        check(bool(conv_bias.gradient_misses(zeros, g, sms).any())
+              and bool(conv_bias.gradient_misses(_lost_partial(g, sms), g, sms).any()),
+              f"{label}: the gradient bound lets a planted fault through")
+        exact = g.double().sum((0, 2, 3))
+        nbytes = x.numel() * x.element_size()
+        row = {"shape": [BATCH, C, H, W], "dtype": str(dtype).split(".")[1],
+               "convs_an_image": n,
+               "sum_depth": conv_bias.sum_depth(BATCH * H * W, C, 16 // x.element_size(),
+                                                sms),
+               "grad_max_rel_err": float(((kernel.double() - exact).abs()
+                                          / exact.abs().clamp_min(1e-3)).max()),
+               "add_ms": cuda_ms(lambda: conv_bias.bias_add_cuda_(x, b)),
+               "add_plain_ms": cuda_ms(lambda: conv_bias.bias_add_plain_(x, b)),
+               "add_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+               "grad_ms": cuda_ms(lambda: conv_bias.bias_grad_cuda(g)),
+               "grad_plain_ms": cuda_ms(lambda: conv_bias.bias_grad_plain(g)),
+               "grad_bound_ms": (nbytes + C * x.element_size()) / HBM_BYTES_PER_S * 1e3}
+        shapes.append(row)
+        for k in totals:
+            totals[k] += n * row[k]
+    convs = sum(r["convs_an_image"] for r in shapes)
+    check(convs == HG8_CONVS, f"hg8_mpii has {convs} biased convolutions, not {HG8_CONVS}")
+    emit("conv_bias", convs=convs, step_ms=totals, shapes=shapes)
+    common = {"route": "cuda", "source": "posetpu_torch/models/kernels/conv_bias.cu",
+              "shapes": shapes}
+    return [{"name": "conv_bias_add", "counter": "conv_bias",
+             "replaces": "torch _convolution's output.add_(bias)",
+             "ms": totals["add_ms"], "plain_ms": totals["add_plain_ms"],
+             "bound_ms": totals["add_bound_ms"], "bound_by": "bytes",
+             # the plain version is torch's own add: the library path it replaced
+             "library_ms": totals["add_plain_ms"], **common},
+            {"name": "conv_bias_grad", "counter": "conv_bias_grad",
+             "replaces": "torch convolution_backward's grad_output.sum((0, 2, 3))",
+             "ms": totals["grad_ms"], "plain_ms": totals["grad_plain_ms"],
+             "bound_ms": totals["grad_bound_ms"], "bound_by": "bytes",
+             "library_ms": totals["grad_plain_ms"], **common}]
 
 
 # bench: every mode of python -m posetpu_torch.bench at full width, with
@@ -1454,11 +1588,12 @@ def phase_serve(cfg):
     torch.cuda.synchronize()
     check(predictor.graphs.captures == 1, f"captures {predictor.graphs.captures}")
 
-    reset_counters(RASTER)
+    reset_counters(RASTER, *conv_bias.COUNTERS)
     t0 = time.perf_counter()
     outs = list(predictor.predict_iter(iter(batches), depth=2))
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER)}
+    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
+    _check_conv_bias("serve graph", launches, NUM_BATCHES, 0)
     t0 = time.perf_counter()
     eager = list(_serve_eager_iter(predictor, iter(batches), depth=2))
     eager_s = time.perf_counter() - t0
@@ -1558,22 +1693,24 @@ def phase_validate(cfg, predictor):
     eager(batches[0])  # the eager step's cuDNN set-up
     torch.cuda.synchronize()
 
-    reset_counters(RASTER)
+    reset_counters(RASTER, *conv_bias.COUNTERS)
     t0 = time.perf_counter()
     results = [graphed(b) for b in batches]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER)}
+    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
     check(launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in graphed validation: {launches}")
-    reset_counters(RASTER)
+    _check_conv_bias("graphed validation", launches, NUM_BATCHES, 0)
+    reset_counters(RASTER, *conv_bias.COUNTERS)
     t0 = time.perf_counter()
     refs = [eager(b) for b in batches]
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    eager_launches = {"rasterize_gaussians": counter(RASTER)}
+    eager_launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
     check(eager_launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in eager validation: {eager_launches}")
+    _check_conv_bias("eager validation", eager_launches, NUM_BATCHES, 0)
     check(graphed.graphs.captures == 1, f"captures {graphed.graphs.captures}")
 
     losses, accs, cnt = [], [], 0
@@ -1703,16 +1840,17 @@ def phase_train(cfg):
     step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
     torch.cuda.synchronize()
 
-    reset_counters(RASTER)
+    reset_counters(RASTER, *conv_bias.COUNTERS)
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER)}
+    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
     peak = torch.cuda.max_memory_allocated()
 
     check(launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in training: {launches}")
+    _check_conv_bias("training", launches, NUM_BATCHES, NUM_BATCHES)
     losses = [m["loss"].item() for m in metrics]
     accs = [m["acc"].item() for m in metrics]
     for loss, acc in zip(losses, accs):
@@ -1891,6 +2029,14 @@ def _joint_state(cfg, dev, seed, widths=(32, 64, 128, 256),
     return JointState(TrainState(pose, pose_opt), TrainState(agent, agent_opt)), kw
 
 
+def _pose_forwards(kw):
+    """The pose network's forwards a joint step of options ``kw`` runs: the
+    reward's reference forward where it has one and does not mix the
+    reference crops into the train batch, and the train forward."""
+    ref = kw.get("ref_baseline", True) and not kw.get("pose_ref_weight", 0.0)
+    return 2 if ref else 1
+
+
 def _joint_step_for(state, cfg, dev, kw):
     return make_joint_step(state.pose.model, state.agent.model, state.pose.optimizer,
                            state.agent.optimizer, cfg.aug, MPII_MEAN, seed=SEED,
@@ -1916,16 +2062,17 @@ def phase_joint(cfg):
     step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
     torch.cuda.synchronize()
 
-    reset_counters(RASTER)
+    reset_counters(RASTER, *conv_bias.COUNTERS)
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER)}
+    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
     peak = torch.cuda.max_memory_allocated()
 
     check(launches["rasterize_gaussians"] == JOINT_RASTER_LAUNCHES * steps,
           f"rasterizer launches in the joint steps: {launches}")
+    _check_conv_bias(f"{cfg.name} joint steps", launches, _pose_forwards(kw) * steps, steps)
     values = {k: [m[k].item() for m in metrics] for k in metrics[0]}
     for k, vs in values.items():
         check(all(math.isfinite(v) for v in vs), f"joint {k} {vs}")
@@ -2732,12 +2879,12 @@ def phase_dispatch(cfg):
     check(first == WARMUP_STEPS + K, f"first dispatch: {first} launches, want "
           f"{WARMUP_STEPS} warm-up + {K} replayed")
 
-    reset_counters(RASTER)
+    reset_counters(RASTER, *conv_bias.COUNTERS)
     t0 = time.perf_counter()
     metrics = [dispatch(state, sb) for sb in supers[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER)}
+    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
@@ -2762,6 +2909,7 @@ def phase_dispatch(cfg):
     check(dispatch.captures == 1, f"captures {dispatch.captures}")
     check(launches["rasterize_gaussians"] == K * DISPATCH_TIMED,
           f"rasterizer launches over {DISPATCH_TIMED} dispatches: {launches}")
+    _check_conv_bias("train dispatches", launches, K * DISPATCH_TIMED, K * DISPATCH_TIMED)
     steps = K * (2 + DISPATCH_TIMED) + 1
     check(state.step == opt.count == steps, f"step {state.step}, count {opt.count}")
     check(all(math.isfinite(x) for ls in losses for x in ls), f"dispatch losses {losses}")
@@ -2769,7 +2917,7 @@ def phase_dispatch(cfg):
           f"graph vs eager {graph_gap}, eager vs eager {eager_gap}")
     check(graph_loss_gap <= GRAPH_GAP_FACTOR * eager_loss_gap,
           f"losses: graph vs eager {graph_loss_gap}, eager vs eager {eager_loss_gap}")
-    return launches["rasterize_gaussians"]
+    return launches
 
 
 def phase_dispatch_parity():
@@ -3046,12 +3194,12 @@ def phase_joint_dispatch():
           f"first joint dispatch: {first} launches, want {JOINT_RASTER_LAUNCHES} x "
           f"({WARMUP_STEPS} warm-up + {K} replayed)")
 
-    reset_counters(RASTER)
+    reset_counters(RASTER, *conv_bias.COUNTERS)
     t0 = time.perf_counter()
     metrics = [dispatch(state, sb) for sb in supers[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER)}
+    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
@@ -3075,6 +3223,8 @@ def phase_joint_dispatch():
     check(dispatch.captures == 1, f"captures {dispatch.captures}")
     check(launches["rasterize_gaussians"] == JOINT_RASTER_LAUNCHES * K * DISPATCH_TIMED,
           f"rasterizer launches over {DISPATCH_TIMED} joint dispatches: {launches}")
+    _check_conv_bias("joint dispatches", launches, _pose_forwards(kw) * K * DISPATCH_TIMED,
+                     K * DISPATCH_TIMED)
     steps = K * (2 + DISPATCH_TIMED) + 1
     check((state.step, state.pose.step, state.pose.optimizer.count, state.agent.step,
            state.agent.optimizer.count) == (steps,) * 5, f"joint step {state.step}")
@@ -3084,7 +3234,7 @@ def phase_joint_dispatch():
           f"graph vs eager {graph_gap}, eager vs eager {eager_gap}")
     check(graph_loss_gap <= GRAPH_GAP_FACTOR * eager_loss_gap,
           f"losses: graph vs eager {graph_loss_gap}, eager vs eager {eager_loss_gap}")
-    total = launches["rasterize_gaussians"]
+    total = launches
     del dispatch, eager, state, s0, runs
     torch.cuda.empty_cache()
 
@@ -4471,6 +4621,7 @@ def _run_phases(smi):
     """Every phase after ``device``; returns the kernel summaries."""
     phase_build()
     raster = phase_kernels()
+    conv_bias_summaries = phase_conv_bias()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         bench_launches = phase_bench(smi, workdir)
@@ -4536,10 +4687,11 @@ def _run_phases(smi):
                                   "fit": fit_launches,
                                   "fit_jpeg_gpu": fit_jpeg_gpu_launches,
                                   "fit_joint": fit_joint_launches,
-                                  "dispatch": dispatch_launches,
+                                  "dispatch": dispatch_launches["rasterize_gaussians"],
                                   "dispatch_parity": dispatch_parity_launches,
                                   "fit_dispatch": fit_dispatch_launches,
-                                  "joint_dispatch": joint_dispatch_launches,
+                                  "joint_dispatch":
+                                      joint_dispatch_launches["rasterize_gaussians"],
                                   "joint_dispatch_lsp": joint_dispatch_lsp_launches,
                                   "joint_dispatch_parity": joint_dispatch_parity_launches,
                                   "fit_joint_dispatch": fit_joint_dispatch_launches,
@@ -4553,6 +4705,14 @@ def _run_phases(smi):
                                   "adv_gain": adv_gain_launches,
                                   **{f"bench_{name}": n["rasterize_gaussians"]
                                      for name, n in bench_launches.items()}}
+    conv_paths = {"dispatch": dispatch_launches, "train": train_launches,
+                  "joint": joint_launches, "joint_lsp": lsp_launches,
+                  "joint_dispatch": joint_dispatch_launches, "serve_graph": serve_launches,
+                  "validate_graph": launches, "validate": eager_launches}
+    for summary in conv_bias_summaries:
+        name = summary.pop("counter")
+        summary["launches"] = dispatch_launches[name]
+        summary["launches_by_path"] = {path: n[name] for path, n in conv_paths.items()}
     for summary in (ycc_summary, idct_summary):
         name = summary["name"]
         summary["launches"] = decode_fit_jpeg_gpu[name]
@@ -4563,7 +4723,7 @@ def _run_phases(smi):
                                        **{f"bench_{mode}": n[name]
                                           for mode, n in bench_launches.items()
                                           if mode.startswith("loader_host")}}
-    return [raster, ycc_summary, idct_summary]
+    return [raster, ycc_summary, idct_summary, *conv_bias_summaries]
 
 
 if __name__ == "__main__":

@@ -26,6 +26,9 @@ With ``dtype=torch.bfloat16`` the forward runs under bf16 autocast with
 float32 parameters and BatchNorm statistics, as the reference computes in
 bf16 over f32 params; the ``score`` head stays float32 either way.
 BatchNorm: eps 1e-5; flax ``momentum=0.9`` is torch ``momentum=0.1``.
+Every convolution is :class:`posetpu_torch.models.conv_bias.Conv2d`:
+torch's module, whose bias on CUDA in bf16 or float32 is the hand-written
+op of :mod:`posetpu_torch.models.conv_bias` (the same output bit for bit).
 
 In train mode the running variances follow flax, which averages in the
 *biased* batch variance where torch takes the unbiased one
@@ -42,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from posetpu_torch.models.batchnorm import BatchNorm2d, flax_train_forward, remat
+from posetpu_torch.models.conv_bias import Conv2d
 
 
 class Bottleneck(nn.Module):
@@ -53,12 +57,12 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = 2 * planes
         self.bn1 = BatchNorm2d(cin)
-        self.conv1 = nn.Conv2d(cin, planes, 1)
+        self.conv1 = Conv2d(cin, planes, 1)
         self.bn2 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1)
         self.bn3 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, cout, 1)
-        self.proj = nn.Conv2d(cin, cout, 1) if cin != cout else None
+        self.conv3 = Conv2d(planes, cout, 1)
+        self.proj = Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x):
         y = self.conv1(F.relu(self.bn1(x)))
@@ -136,7 +140,7 @@ class HourglassNet(nn.Module):
         self.scan_stacks = scan_stacks
         ch = 2 * num_feats
         self.stem = nn.Sequential(
-            nn.Conv2d(3, 64, 7, 2, 3),
+            Conv2d(3, 64, 7, 2, 3),
             BatchNorm2d(64),
             nn.ReLU(inplace=True),
             Bottleneck(64, 64),
@@ -153,19 +157,19 @@ class HourglassNet(nn.Module):
         self.fc = nn.ModuleList(
             [
                 nn.Sequential(
-                    nn.Conv2d(ch, ch, 1), BatchNorm2d(ch), nn.ReLU(inplace=True)
+                    Conv2d(ch, ch, 1), BatchNorm2d(ch), nn.ReLU(inplace=True)
                 )
                 for _ in range(num_stacks)
             ]
         )
         self.score = nn.ModuleList(
-            [nn.Conv2d(ch, num_classes, 1) for _ in range(num_stacks)]
+            [Conv2d(ch, num_classes, 1) for _ in range(num_stacks)]
         )
         # no remap after the last stack; the scanned layout holds one
         remaps = num_stacks if scan_stacks else num_stacks - 1
-        self.fc_ = nn.ModuleList([nn.Conv2d(ch, ch, 1) for _ in range(remaps)])
+        self.fc_ = nn.ModuleList([Conv2d(ch, ch, 1) for _ in range(remaps)])
         self.score_ = nn.ModuleList(
-            [nn.Conv2d(num_classes, ch, 1) for _ in range(remaps)]
+            [Conv2d(num_classes, ch, 1) for _ in range(remaps)]
         )
         # a plain list: the modules are registered above already
         self._norms = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
