@@ -265,7 +265,6 @@ import torch
 import posetpu_torch.train.adversarial as adversarial
 from posetpu_torch.aug import (
     augment_batch,
-    cuda_kernels,
     neutral_params,
     sample_aug_params_ps,
 )
@@ -288,7 +287,8 @@ from posetpu_torch.data.worker_loader import (
 from posetpu_torch.eval import cli as eval_cli
 from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
-from posetpu_torch.native import GpuJpegDecoder, islow, jpeg_gpu, ycc
+from posetpu_torch.libraries import LIBRARIES
+from posetpu_torch.native import GpuJpegDecoder, bindings, islow, jpeg_gpu, ycc
 from posetpu_torch.models import conv_bias, hg
 from posetpu_torch.models.batchnorm import BatchNorm2d, convert_cross_replica_
 from posetpu_torch.parallel import (
@@ -457,17 +457,12 @@ def phase_device():
 
 
 def phase_build():
-    """Every native source at once: the augmentation and conv-bias kernels
-    and the decode route's (the idct_islow and ycc_canvas kernels, and the entropy
-    decoder built with g++), one compiler process each, all started
-    together."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    """Every native library of the port (``LIBRARIES``) at once, one
+    compiler process each, all started together.  The host pool is left to
+    the host phase's route probe, which builds it where libjpeg is: a
+    machine without libjpeg lacks that route and no other."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        aug = ex.submit(cuda_build.build, cuda_kernels.SOURCES + conv_bias.SOURCES)
-        native = ex.submit(jpeg_gpu.build_all)
-        paths = {**aug.result(), **native.result()}
+    paths = cuda_build.build([lib for lib in LIBRARIES if lib is not bindings.POOL])
     seconds = time.perf_counter() - t0
     ptxas = []
     for lib in paths.values():
@@ -1258,10 +1253,10 @@ def phase_jpeg_gpu(workdir):
             windows = np.array([ycc.crop_window(w, h, c, pad) if pl else (0, 0, 0, 0)
                                 for (w, h), c, pl in zip(sizes[name], centers, planes)],
                                np.int64)
-            before = counter(jpeg_gpu.YCC_LAUNCHES)
-            got = jpeg_gpu.ycc_canvas(planes, samplings, windows, pad)
+            before = counter(ycc.YCC_LAUNCHES)
+            got = ycc.ycc_canvas(planes, samplings, windows, pad)
             torch.cuda.synchronize()
-            check(counter(jpeg_gpu.YCC_LAUNCHES) == before + 1,
+            check(counter(ycc.YCC_LAUNCHES) == before + 1,
                   "the ycc_canvas wrapper did not launch its kernel once")
             want = torch.stack([ycc.planes_to_canvas(pl, s, pad, c)[0] if pl else
                                 torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
@@ -1292,10 +1287,10 @@ def phase_jpeg_gpu(workdir):
                                           ("odd_offsets", planes, odd),
                                           ("zero_slots", holes, zero)):
                 wins = np.where(np.array([bool(p) for p in pl_set])[:, None], wins, 0)
-                before = counter(jpeg_gpu.YCC_LAUNCHES)
-                got = jpeg_gpu.ycc_canvas(pl_set, samplings, wins, pad)
+                before = counter(ycc.YCC_LAUNCHES)
+                got = ycc.ycc_canvas(pl_set, samplings, wins, pad)
                 torch.cuda.synchronize()
-                check(counter(jpeg_gpu.YCC_LAUNCHES) == before + 1,
+                check(counter(ycc.YCC_LAUNCHES) == before + 1,
                       "the ycc_canvas wrapper did not launch its kernel once")
                 want = torch.stack([ycc.window_canvas(pl, s, w, pad) if pl
                                     else torch.zeros((*pad, 3), dtype=torch.uint8, device="cuda")
@@ -1348,7 +1343,7 @@ def phase_jpeg_gpu(workdir):
     words, tiles = islow.descriptors(co.desc, planes)
     blocks = sum(-(-w // 8) * -(-h // 8) for w, h in co.sizes)
     dev_words = torch.from_numpy(words).cuda()
-    fn, stream = islow.launch_fn(), torch.cuda.current_stream().cuda_stream
+    fn, stream = islow.IDCT.idct_islow_launch, torch.cuda.current_stream().cuda_stream
     check(fn(dev_words.data_ptr(), len(planes), tiles, dev.data_ptr(), dev.data_ptr(),
              stream) == 0, "idct_islow launch")
     alone = buf.clone()
@@ -1378,9 +1373,8 @@ def phase_jpeg_gpu(workdir):
                         for pl, c in zip(planes, centers)], np.int64)
     out = torch.empty((BATCH, *pad, 3), dtype=torch.uint8, device="cuda")
     # the kernel alone, its descriptors already on the card
-    desc = torch.from_numpy(jpeg_gpu._descriptors(planes, samplings, windows, pad,
-                                                  out.device)).cuda()
-    fn, stream = jpeg_gpu._ycc_fn(), torch.cuda.current_stream().cuda_stream
+    desc = torch.from_numpy(ycc.descriptors(planes, samplings, windows, pad, out.device)).cuda()
+    fn, stream = ycc.YCC.ycc_canvas_launch, torch.cuda.current_stream().cuda_stream
     out.fill_(7)
     check(fn(desc.data_ptr(), BATCH, *pad, out.data_ptr(), stream) == 0, "ycc_canvas launch")
     alone = out.clone()
@@ -1388,9 +1382,9 @@ def phase_jpeg_gpu(workdir):
     # the wrapper: its checks, the descriptors, their staging and copy, the
     # launch (a call's host waits for the kernel of the call STAGING_SLOTS
     # before it, so back to back this reads the host's time where it is longer)
-    before = counter(jpeg_gpu.YCC_LAUNCHES)
-    wrapper_ms = cuda_ms(lambda: jpeg_gpu.ycc_canvas(planes, samplings, windows, pad, out=out))
-    check(counter(jpeg_gpu.YCC_LAUNCHES) > before, "ycc_canvas did not launch")
+    before = counter(ycc.YCC_LAUNCHES)
+    wrapper_ms = cuda_ms(lambda: ycc.ycc_canvas(planes, samplings, windows, pad, out=out))
+    check(counter(ycc.YCC_LAUNCHES) > before, "ycc_canvas did not launch")
     check(torch.equal(out, alone), "the kernel alone and through its wrapper differ")
     plain_ms = cuda_ms(lambda: torch.stack([ycc.window_canvas(pl, s, w, pad) for pl, s, w
                                             in zip(planes, samplings, windows)]),
@@ -2555,13 +2549,13 @@ def _cli(main, argv):
     Experiment's (train, validation) decode routes."""
     buf = io.StringIO()
     reset_counters(RASTER)
-    reset_counters(islow.IDCT_LAUNCHES, jpeg_gpu.YCC_LAUNCHES)
+    reset_counters(islow.IDCT_LAUNCHES, ycc.YCC_LAUNCHES)
     with contextlib.redirect_stdout(buf), _loader_routes() as routes:
         result = main(argv)
     torch.cuda.synchronize()
     launches = counter(RASTER)
     print(buf.getvalue(), end="", file=sys.stderr, flush=True)
-    decode = {"ycc_canvas": counter(jpeg_gpu.YCC_LAUNCHES),
+    decode = {"ycc_canvas": counter(ycc.YCC_LAUNCHES),
               "idct_islow": counter(islow.IDCT_LAUNCHES), "routes": routes}
     return result, launches, buf.getvalue(), decode
 
@@ -3389,7 +3383,7 @@ def phase_dp_config(workdir):
     torch.cuda.empty_cache()
     exp = Experiment(cfg, device="cuda")
     routes = (exp.loader.backend, exp.val_loader.backend)
-    reset_counters(islow.IDCT_LAUNCHES, jpeg_gpu.YCC_LAUNCHES)
+    reset_counters(islow.IDCT_LAUNCHES, ycc.YCC_LAUNCHES)
     try:
         check(routes == ("gpu", "gpu"), f"dp_config decode routes {routes}")
         check(exp.world == 1 and exp.group is None, "one rank")
@@ -3439,7 +3433,7 @@ def phase_dp_config(workdir):
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         exp.close()
-    decode = {"ycc_canvas": counter(jpeg_gpu.YCC_LAUNCHES),
+    decode = {"ycc_canvas": counter(ycc.YCC_LAUNCHES),
               "idct_islow": counter(islow.IDCT_LAUNCHES)}
     check(decode["ycc_canvas"] > 0 and decode["idct_islow"] == decode["ycc_canvas"],
           f"dp_config: decode launches {decode}")

@@ -7,48 +7,26 @@ raises if the launch was refused, and adds one to its counter
 A launch recorded into a CUDA graph is counted when the graph replays
 (:func:`posetpu_torch.utils.profiling.counted_as_replays`), since the
 capture itself runs nothing.  The kernels build from ``aug/kernels/*.cu`` at first use
-(:mod:`posetpu_torch.utils.cuda_build`); nothing here runs at import.
+(:class:`posetpu_torch.utils.cuda_build.Library`); nothing here runs at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
 
 from posetpu_torch.utils import cuda_build, profiling
 
-_KERNEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels")
-RASTERIZE_SOURCE = os.path.join(_KERNEL_DIR, "rasterize.cu")
+RASTERIZE = cuda_build.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels", "rasterize.cu"),
+    {"rasterize_gaussians_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])},
+)
 
-# every kernel source of this module, for building them all at once
-SOURCES = (RASTERIZE_SOURCE,)
-
-# the launch counters of this module's kernels, the ones a graph captures
+# the launch counter of this module's kernel, one a graph captures
 RASTERIZE_LAUNCHES = profiling.launch_counter("launches.rasterize_gaussians")
-COUNTERS = (RASTERIZE_LAUNCHES,)
-
-
-def counted_as_replays():
-    """:func:`posetpu_torch.utils.profiling.counted_as_replays` over this
-    module's counters alone."""
-    return profiling.counted_as_replays(COUNTERS)
-
-
-add_replay = profiling.add_replay
-
-
-@functools.cache
-def _rasterize_fn():
-    """The launch function, looked up and typed once per process."""
-    fn = cuda_build.load_library(RASTERIZE_SOURCE).rasterize_gaussians_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float
-    ] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def rasterize_gaussians_cuda(pts, visible, res, denom, win, s3):
@@ -77,12 +55,10 @@ def rasterize_gaussians_cuda(pts, visible, res, denom, win, s3):
     target = torch.empty((B, K, H, W), dtype=torch.float32, device=pts.device)
     vis_out = torch.empty((B, K), dtype=torch.float32, device=pts.device)
     with torch.cuda.device(pts.device):
-        err = _rasterize_fn()(
+        err = RASTERIZE.rasterize_gaussians_launch(
             pts.data_ptr(), visible.data_ptr(), target.data_ptr(),
             vis_out.data_ptr(), B * K, H, W, denom, win, s3,
             torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"rasterize_gaussians launch failed: CUDA error {err}")
-    profiling.count(RASTERIZE_LAUNCHES)
+    cuda_build.count_launch(err, "rasterize_gaussians", RASTERIZE_LAUNCHES)
     return target, vis_out

@@ -106,7 +106,7 @@ from posetpu_torch.data.synthetic import whole_group_split
 from posetpu_torch.data.worker_loader import stop_worker_server
 from posetpu_torch.infer import PosePredictor
 from posetpu_torch.models import build_model
-from posetpu_torch.native import islow, jpeg_gpu
+from posetpu_torch.native import islow, ycc
 from posetpu_torch.train import TrainState, make_dispatch_step, make_optimizer
 from posetpu_torch.train.adversarial import (
     JointState,
@@ -172,7 +172,7 @@ def _span(timer):
 
 # the registry's launch counters of the kernels, by kernel
 LAUNCH_COUNTERS = {"rasterize_gaussians": cuda_kernels.RASTERIZE_LAUNCHES,
-                   "idct_islow": islow.IDCT_LAUNCHES, "ycc_canvas": jpeg_gpu.YCC_LAUNCHES}
+                   "idct_islow": islow.IDCT_LAUNCHES, "ycc_canvas": ycc.YCC_LAUNCHES}
 
 
 def _reset_launches():

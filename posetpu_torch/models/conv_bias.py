@@ -50,8 +50,15 @@ import torch.nn as nn
 
 from posetpu_torch.utils import cuda_build, profiling
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels", "conv_bias.cu")
-SOURCES = (SOURCE,)
+CONV_BIAS = cuda_build.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels", "conv_bias.cu"),
+    {"conv_bias_add_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p,
+                                             ctypes.c_longlong] + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p]),
+     "conv_bias_grad_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_longlong]
+                               + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+                               + [ctypes.c_int, ctypes.c_void_p])},
+)
 
 ADD_LAUNCHES = profiling.launch_counter("launches.conv_bias")
 GRAD_LAUNCHES = profiling.launch_counter("launches.conv_bias_grad")
@@ -191,22 +198,6 @@ def gradient_misses(got, g, sms, torch_sum=None):
     return (got - want).abs() > room
 
 
-@functools.cache
-def _fns():
-    """The two launch functions, looked up and typed once a process."""
-    lib = cuda_build.load_library(SOURCE)
-    add = lib.conv_bias_add_launch
-    add.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    add.restype = ctypes.c_int
-    grad = lib.conv_bias_grad_launch
-    grad.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    grad.restype = ctypes.c_int
-    return add, grad
-
-
 def sm_count(device):
     """The SMs of CUDA ``device``."""
     return _sms(torch.device(device).index)
@@ -242,11 +233,10 @@ def bias_add_cuda_(out, bias):
     numel, C, code, vec = add_args(out, bias)
     dev = out.device
     with torch.cuda.device(dev):
-        err = _fns()[0](out.data_ptr(), bias.data_ptr(), numel, C, code, vec,
-                        sm_count(dev), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv_bias_add launch failed: CUDA error {err}")
-    profiling.count(ADD_LAUNCHES)
+        err = CONV_BIAS.conv_bias_add_launch(out.data_ptr(), bias.data_ptr(), numel, C, code,
+                                             vec, sm_count(dev),
+                                             torch.cuda.current_stream().cuda_stream)
+    cuda_build.count_launch(err, "conv_bias_add", ADD_LAUNCHES)
     return out
 
 
@@ -263,12 +253,12 @@ def bias_grad_cuda(grad):
     out = torch.empty(C, dtype=grad.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fns()[1](grad.data_ptr(), rows, C, code, vec, gx, tile, int(cluster),
-                        None if cluster else partial.data_ptr(), out.data_ptr(),
-                        _ticket_slot(dev.index, stream), stream)
-    if err != 0:
-        raise RuntimeError(f"conv_bias_grad launch failed: CUDA error {err}")
-    profiling.count(GRAD_LAUNCHES)
+        err = CONV_BIAS.conv_bias_grad_launch(grad.data_ptr(), rows, C, code, vec, gx, tile,
+                                              int(cluster),
+                                              None if cluster else partial.data_ptr(),
+                                              out.data_ptr(), _ticket_slot(dev.index, stream),
+                                              stream)
+    cuda_build.count_launch(err, "conv_bias_grad", GRAD_LAUNCHES)
     return out
 
 

@@ -1,7 +1,7 @@
 """ctypes bindings of the C++ JPEG decode pool (``decode_pool.cpp``).
 
 The pool builds at first use with ``g++ ... -ljpeg -lpthread`` through
-:mod:`posetpu_torch.utils.cuda_build`, the builder the CUDA kernels use: into
+:class:`posetpu_torch.utils.cuda_build.Library`, as the CUDA kernels do: into
 ``posetpu_torch/_build/``, under a name keyed by the source and flags,
 written to a file of its own and moved into place.  Processes that start the
 first build at once each load a whole library.  Nothing here runs at import.
@@ -10,55 +10,26 @@ first build at once each load a whole library.  Nothing here runs at import.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
-import shutil
 
 import numpy as np
 
 from posetpu_torch.utils import cuda_build
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "decode_pool.cpp")
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-GXX_LIBS = ("-ljpeg", "-lpthread")
-
-
-def _gxx() -> str:
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found: the native decode pool cannot build")
-    return gxx
-
-
-@functools.cache
-def _lib():
-    """The pool's library, built if needed, its functions typed once."""
-    lib = cuda_build.load_library(SOURCE, compiler=_gxx(), flags=GXX_FLAGS,
-                                  libs=GXX_LIBS)
-    lib.pool_create.restype = ctypes.c_void_p
-    lib.pool_create.argtypes = [ctypes.c_int]
-    lib.pool_destroy.restype = None
-    lib.pool_destroy.argtypes = [ctypes.c_void_p]
-    lib.pool_decode_batch.restype = ctypes.c_int
-    lib.pool_decode_batch.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_char_p),
-        ctypes.c_int,
-        ctypes.c_int,
-        ctypes.c_int,
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.pool_decode_planes.restype = ctypes.c_int64
-    lib.pool_decode_planes.argtypes = [
-        ctypes.c_char_p,
-        ctypes.c_void_p,
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int32),
-    ]
-    return lib
+POOL = cuda_build.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "decode_pool.cpp"),
+    {
+        "pool_create": (ctypes.c_void_p, [ctypes.c_int]),
+        "pool_destroy": (None, [ctypes.c_void_p]),
+        "pool_decode_batch": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]),
+        "pool_decode_planes": (ctypes.c_int64, [ctypes.c_char_p, ctypes.c_void_p,
+                                                ctypes.c_int64, ctypes.POINTER(ctypes.c_int32)]),
+    },
+    toolchain="g++", libs=("-ljpeg", "-lpthread"),
+)
 
 
 # libjpeg's J_COLOR_SPACE values (jpeglib.h)
@@ -72,15 +43,14 @@ def read_planes(path):
     array per component]), or None where libjpeg cannot decode the file.
     The image's size is the first plane's when it has the largest
     sampling factors.  Raises RuntimeError when the pool cannot build."""
-    lib = _lib()
     info = np.zeros(4 + 4 * 4, np.int32)
     info_p = info.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
     c_path = os.fsencode(path)
-    need = lib.pool_decode_planes(c_path, None, 0, info_p)
+    need = POOL.pool_decode_planes(c_path, None, 0, info_p)
     if need < 0:
         return None
     buf = np.empty(need, np.uint8)
-    if lib.pool_decode_planes(c_path, buf.ctypes.data, need, info_p) != need:
+    if POOL.pool_decode_planes(c_path, buf.ctypes.data, need, info_p) != need:
         return None
     factors, planes, at = [], [], 0
     for c in range(int(info[2])):
@@ -134,9 +104,8 @@ class NativeDecoder:
     """
 
     def __init__(self, num_threads=None):
-        self._lib = _lib()
         n = num_threads or min(16, os.cpu_count() or 4)
-        self._pool = self._lib.pool_create(int(n))
+        self._pool = POOL.pool_create(int(n))
 
     def decode_batch(self, paths, centers, pad_hw, out=None):
         if self._pool is None:
@@ -146,7 +115,7 @@ class NativeDecoder:
         wh = np.zeros((n, 2), np.int32)
         offs = np.zeros((n, 2), np.int32)
         c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
-        self._lib.pool_decode_batch(
+        POOL.pool_decode_batch(
             self._pool,
             c_paths,
             n,
@@ -162,7 +131,7 @@ class NativeDecoder:
 
     def close(self):
         if self._pool:
-            self._lib.pool_destroy(self._pool)
+            POOL.pool_destroy(self._pool)
             self._pool = None
 
     def __del__(self):

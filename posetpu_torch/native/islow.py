@@ -38,16 +38,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import os
 
 import numpy as np
 import torch
 
 from posetpu_torch.native.staging import StagingSet
-from posetpu_torch.utils import cuda_build, profiling
-
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels", "idct_islow.cu")
+from posetpu_torch.utils import cuda_build
 
 # jidctint.c at CONST_BITS 13: FIX(x) = (INT32)(x * (1 << 13) + 0.5)
 CONST_BITS, PASS1_BITS = 13, 2
@@ -140,35 +137,17 @@ ALIGN = 8  # coefficient and table offsets, in elements: 16-byte bulk copies
 
 _staging = StagingSet()
 
-
-# idct_islow.cu's C functions: (restype, argtypes), in its order
-SIGNATURES = {
-    "idct_islow_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
-    "idct_islow_stage_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
-}
-
-
-@functools.cache
-def _lib():
-    """The kernel's library, built if needed, its functions typed once."""
-    lib = cuda_build.load_library(SOURCE)
-    for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = restype, argtypes
-    return lib
-
-
-def _stage_fn():
-    """The kernel's launch after staging its descriptors from the host."""
-    return _lib().idct_islow_stage_launch
-
-
-def launch_fn():
-    """The kernel's launch, its descriptors already on the card (for
-    timing the kernel alone)."""
-    return _lib().idct_islow_launch
+IDCT = cuda_build.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels", "idct_islow.cu"),
+    {
+        # the kernel alone, its descriptors already on the card
+        "idct_islow_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+        # the kernel after staging its descriptors from the host
+        "idct_islow_stage_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    },
+)
 
 
 def _checked(coefs, qtables, desc, planes):
@@ -230,12 +209,11 @@ def idct_islow_cuda(coefs, qtables, desc, planes):
     on_dev = torch.cuda.current_device() == dev.index
     with st.lock, contextlib.nullcontext() if on_dev else torch.cuda.device(dev):
         host, dev_words, done = st.reserve(words.size)
-        err = _stage_fn()(words.ctypes.data, host, dev_words, done, len(planes), tiles,
-                          coefs.data_ptr(), qtables.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"idct_islow launch failed: CUDA error {err}")
-    profiling.count(IDCT_LAUNCHES)
+        err = IDCT.idct_islow_stage_launch(words.ctypes.data, host, dev_words, done,
+                                           len(planes), tiles, coefs.data_ptr(),
+                                           qtables.data_ptr(),
+                                           torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.count_launch(err, "idct_islow", IDCT_LAUNCHES)
     return planes
 
 

@@ -21,21 +21,20 @@ bit.  On CUDA a batch goes:
    the caller's tensor.
 
 On the CPU the same entropy decoder runs, then the plain versions
-(:func:`posetpu_torch.native.islow.idct_islow`, :mod:`posetpu_torch.native.ycc`),
-so the tests reach every step but the two kernels.
-
-:func:`ycc_canvas` is the canvas kernel's wrapper: plain on CPU tensors, the
-kernel on CUDA tensors (or it raises), one launch counted in
-the registry's :data:`YCC_LAUNCHES` (:mod:`posetpu_torch.utils.profiling`).
-The libraries build at first use
-(:mod:`posetpu_torch.utils.cuda_build`); nothing here runs at import.
+(:func:`posetpu_torch.native.islow.idct_islow`,
+:func:`posetpu_torch.native.ycc.ycc_canvas`), so the tests reach every step
+but the two kernels.  The two kernels' wrappers live beside their plain
+versions, in :mod:`posetpu_torch.native.islow` and
+:mod:`posetpu_torch.native.ycc`; this module holds the decoder and the
+entropy decoder's library (:data:`ENTROPY`).  The libraries build at first
+use (:class:`posetpu_torch.utils.cuda_build.Library`); nothing here runs at
+import.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import os
 import threading
 import time
@@ -43,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from posetpu_torch.native import bindings, islow, ycc
+from posetpu_torch.native import islow, ycc
 from posetpu_torch.native.bindings import (
     JCS_CMYK,
     JCS_GRAYSCALE,
@@ -53,23 +52,9 @@ from posetpu_torch.native.bindings import (
     batch_args,
     checked_centers,
 )
-from posetpu_torch.native.staging import StagingSet
 from posetpu_torch.utils import cuda_build, profiling
 from posetpu_torch.utils.device import resolve_device
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
-ENTROPY_SOURCE = os.path.join(_DIR, "jpeg_entropy.cpp")
-ENTROPY_LIBS = ("-lpthread",)
-YCC_SOURCE = os.path.join(_DIR, "kernels", "ycc_canvas.cu")
-
-# the kernel sources of the route, built with cuda_build.NVCC_FLAGS alone
-SOURCES = (islow.SOURCE, YCC_SOURCE)
-
-# the registry's counter of the canvas kernel's launches, counted where the
-# wrapper launches it; the IDCT's is islow.IDCT_LAUNCHES
-YCC_LAUNCHES = "launches.ycc_canvas"
-
-DESC_WORDS = 24  # ycc_canvas.cu's descriptor of one image, in int64 words
 PITCH_ALIGN = 256  # row pitch of the planes the IDCT writes, in bytes
 
 # jpeg_entropy.cpp's statuses, by name; any status but 0 sends the file to
@@ -123,188 +108,29 @@ def jpeg_color_space(data):
     return None
 
 
-# --- the canvas kernel -----------------------------------------------------------
-
-
-@functools.cache
-def _ycc_fn():
-    """The kernel's launch, its descriptors already on the card."""
-    fn = cuda_build.load_library(YCC_SOURCE).ycc_canvas_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _stage_fn():
-    """The kernel's launch after staging its descriptors from the host."""
-    fn = cuda_build.load_library(YCC_SOURCE).ycc_canvas_stage_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _descriptors(planes, samplings, windows, pad_hw, device):
-    """(N, DESC_WORDS) int64: ycc_canvas.cu's descriptor of each image, its
-    row zero where the window is (0, 0) (such an image needs no planes).
-    Raises ValueError on planes, samplings or windows the kernel does not
-    take, or planes on another device than ``device``."""
-    ph, pw = pad_hw
-    windows = np.asarray(windows, np.int64).reshape(len(planes), 4)
-    live = (windows[:, 2] > 0) & (windows[:, 3] > 0)
-    wins = windows.tolist()
-    index = device.index if device.type == "cuda" else -1  # Tensor.get_device()'s
-    rows, cols, words = [], [], []  # per plane: its image, component, words
-    for n in np.flatnonzero(live).tolist():
-        pl, samp = planes[n], samplings[n]
-        off_x, off_y, vw, vh = wins[n]
-        if len(pl) not in (1, 3) or len(samp) != len(pl) or tuple(samp[0]) != (1, 1):
-            raise ValueError(f"bad planes/sampling: {len(pl)} planes, sampling {samp}")
-        for c, (p, (hf, vf)) in enumerate(zip(pl, samp)):
-            if p.get_device() != index:
-                raise ValueError("ycc_canvas_cuda takes tensors on one CUDA device")
-            stride = p.stride()
-            if p.dtype is not torch.uint8 or len(stride) != 2 or stride[1] != 1:
-                raise ValueError("planes must be 2-D uint8 with unit column stride")
-            h, w = p.shape
-            if c == 0:
-                H, W = h, w
-            else:
-                if hf not in (1, 2) or vf not in (1, 2):
-                    raise ValueError(f"upsampling factors must be 1 or 2, got {(hf, vf)}")
-                if w != -(-W // hf) or h != -(-H // vf):  # ycc.component_size
-                    raise ValueError(f"component of shape {(h, w)} for a {W}x{H} image "
-                                     f"at {(hf, vf)}")
-            rows.append(n)
-            cols.append(c)
-            words.append((p.data_ptr(), stride[0], w, h, hf, vf))
-        if off_x < 0 or off_y < 0 or off_x + vw > W or off_y + vh > H or vw > pw or vh > ph:
-            raise ValueError(f"window {[off_x, off_y, vw, vh]} outside a {W}x{H} image "
-                             "or the canvas")
-    desc = np.zeros((len(planes), DESC_WORDS), np.int64)
-    if rows:
-        rows = np.array(rows)
-        # words 0-17: pointer, pitch, width, height, h, v, each for 3 components
-        desc[rows[:, None], np.array(cols)[:, None] + 3 * np.arange(6)] = np.array(words, np.int64)
-        np.add.at(desc[:, 18], rows, 1)
-    desc[live, 19:23] = windows[live]
-    return desc
-
-
-_staging = StagingSet()
-
-
-def _canvas_out(out, shape, device):
-    """``out`` once checked, or a new uint8 tensor of ``shape`` on ``device``."""
-    if out is None:
-        return torch.empty(shape, dtype=torch.uint8, device=device)
-    if (out.dtype != torch.uint8 or tuple(out.shape) != shape or not out.is_contiguous()
-            or out.device != device):
-        raise ValueError(f"out must be a contiguous uint8 tensor of shape {shape} on {device}")
-    return out
-
-
-def ycc_canvas_cuda(planes, samplings, windows, pad_hw, out=None):
-    """Kernel counterpart of :func:`posetpu_torch.native.ycc.window_canvas`
-    for a batch, in one launch on the current stream.  ``planes``: per image
-    a tuple of 1 (grayscale) or 3 2-D uint8 CUDA tensors at their stored
-    sizes (rows may be padded: any row stride, unit column stride);
-    ``samplings``: per image per component (h, v) upsampling factors, the
-    luma's (1, 1), the others 1 or 2; ``windows``: (N, 4) (off_x, off_y,
-    valid_w, valid_h), (0, 0) sizes for an all-zero slot.  Returns ``out``
-    or a new (N, ph, pw, 3) uint8 tensor."""
-    ph, pw = (int(p) for p in pad_hw)
-    n = len(planes)
-    windows = np.asarray(windows, np.int64).reshape(n, 4)
-    dev = next((p.device for pl in planes if pl for p in pl), None)
-    if out is not None:
-        dev = out.device
-    if dev is None or dev.type != "cuda":
-        raise ValueError("ycc_canvas_cuda takes CUDA tensors")
-    desc = _descriptors(planes, samplings, windows, (ph, pw), dev)
-    out = _canvas_out(out, (n, ph, pw, 3), dev)
-    if n == 0:
-        return out
-    st = _staging.get(dev)
-    # the descriptors go through the device's staging buffers, in the same C
-    # call as the launch
-    on_dev = torch.cuda.current_device() == dev.index
-    with st.lock, contextlib.nullcontext() if on_dev else torch.cuda.device(dev):
-        host, dev_descs, done = st.reserve(desc.size)
-        err = _stage_fn()(desc.ctypes.data, host, dev_descs, done, n, ph, pw, out.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ycc_canvas launch failed: CUDA error {err}")
-    profiling.count(YCC_LAUNCHES)
-    return out
-
-
-def ycc_canvas(planes, samplings, windows, pad_hw, out=None):
-    """:func:`ycc_canvas_cuda` on CUDA tensors; on CPU tensors the plain
-    version, :func:`~posetpu_torch.native.ycc.window_canvas` image by image."""
-    on_cuda = (out is not None and out.is_cuda) or any(p.is_cuda for pl in planes for p in pl)
-    if on_cuda:
-        return ycc_canvas_cuda(planes, samplings, windows, pad_hw, out=out)
-    if out is None:
-        out = torch.empty((len(planes), *(int(p) for p in pad_hw), 3), dtype=torch.uint8)
-    for slot, pl, samp, win in zip(out, planes, samplings, np.asarray(windows).reshape(-1, 4)):
-        if pl:
-            slot.copy_(ycc.window_canvas(pl, samp, win, pad_hw))
-        else:
-            slot.zero_()
-    return out
-
-
 # --- the entropy decoder -----------------------------------------------------------
 
 _P = ctypes.POINTER
-# jpeg_entropy.cpp's C functions: (restype, argtypes), in its order
-SIGNATURES = {
-    "jpe_create": (ctypes.c_void_p, [ctypes.c_int]),
-    "jpe_destroy": (None, [ctypes.c_void_p]),
-    "jpe_info": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, _P(ctypes.c_int)]),
-    "jpe_decode_batch": (None, [ctypes.c_void_p, _P(ctypes.c_char_p), _P(ctypes.c_size_t),
-                                ctypes.c_int, _P(ctypes.c_void_p), _P(ctypes.c_void_p),
-                                _P(ctypes.c_int)]),
-    "jpe_counts": (None, [ctypes.c_void_p, _P(ctypes.c_longlong)]),
-}
+# the entropy decoder: g++, no libjpeg; its C functions in its order
+ENTROPY = cuda_build.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "jpeg_entropy.cpp"),
+    {
+        "jpe_create": (ctypes.c_void_p, [ctypes.c_int]),
+        "jpe_destroy": (None, [ctypes.c_void_p]),
+        "jpe_info": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, _P(ctypes.c_int)]),
+        "jpe_decode_batch": (None, [ctypes.c_void_p, _P(ctypes.c_char_p), _P(ctypes.c_size_t),
+                                    ctypes.c_int, _P(ctypes.c_void_p), _P(ctypes.c_void_p),
+                                    _P(ctypes.c_int)]),
+        "jpe_counts": (None, [ctypes.c_void_p, _P(ctypes.c_longlong)]),
+    },
+    toolchain="g++", libs=("-lpthread",),
+)
 
 
 def default_threads():
     """The workers of a decoder by default: the host pool's rule
     (``NativeDecoder``), ``min(16, os.cpu_count() or 4)``."""
     return min(16, os.cpu_count() or 4)
-
-
-def _entropy_build_kw():
-    return {"compiler": bindings._gxx(), "flags": bindings.GXX_FLAGS, "libs": ENTROPY_LIBS}
-
-
-@functools.cache
-def _entropy_lib():
-    """The entropy decoder's library (g++, no libjpeg), built if needed,
-    its functions typed once."""
-    lib = cuda_build.load_library(ENTROPY_SOURCE, **_entropy_build_kw())
-    for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = restype, argtypes
-    return lib
-
-
-def build_all():
-    """Build every library of the route at once (the two kernels with
-    nvcc, the entropy decoder with g++), one compiler process each, all
-    started together: {source: library path}."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(2) as ex:
-        jobs = [ex.submit(cuda_build.build, SOURCES),
-                ex.submit(cuda_build.build, [ENTROPY_SOURCE], **_entropy_build_kw())]
-        paths = {}
-        for j in jobs:
-            paths.update(j.result())
-    return paths
 
 
 def _read(path):
@@ -475,8 +301,7 @@ class GpuJpegDecoder:
         self.refused = 0
         self.num_threads = int(num_threads or default_threads())
         self._lock = threading.Lock()
-        self._lib = _entropy_lib()
-        self._ctx = self._lib.jpe_create(self.num_threads)
+        self._ctx = ENTROPY.jpe_create(self.num_threads)
         if not self._ctx:
             raise RuntimeError(f"the JPEG entropy decoder failed to start {self.num_threads} "
                                "threads")
@@ -485,8 +310,8 @@ class GpuJpegDecoder:
             return
         self.device = torch.device("cuda", torch.cuda.current_device()
                                    if dev.index is None else dev.index)
-        islow._stage_fn()
-        _stage_fn()
+        islow.IDCT.load()
+        ycc.YCC.load()
         self.stream = torch.cuda.Stream(self.device)
         self._pinned = [None] * self.PINNED_BUFFERS
         with torch.cuda.device(self.device):
@@ -498,7 +323,7 @@ class GpuJpegDecoder:
 
     def close(self):
         if self._ctx:
-            self._lib.jpe_destroy(self._ctx)
+            ENTROPY.jpe_destroy(self._ctx)
             self._ctx = None
 
     def __del__(self):
@@ -536,7 +361,7 @@ class GpuJpegDecoder:
         planes through this route's upsampling and conversion)."""
         if data is None:
             return JPE_STATUSES.index("not_jpeg")
-        st = self._lib.jpe_info(data, len(data), info.ctypes.data_as(_P(ctypes.c_int)))
+        st = ENTROPY.jpe_info(data, len(data), info.ctypes.data_as(_P(ctypes.c_int)))
         if st != 0:
             return st
         hd = _Header(info)
@@ -573,7 +398,7 @@ class GpuJpegDecoder:
         t2 = time.perf_counter()
         if live:
             with profiling.span("loader.entropy"):
-                self._lib.jpe_decode_batch(
+                ENTROPY.jpe_decode_batch(
                     self._ctx, (ctypes.c_char_p * len(live))(*[datas[i] for i in live]),
                     lengths.ctypes.data_as(_P(ctypes.c_size_t)), len(live),
                     coef_ptrs.ctypes.data_as(_P(ctypes.c_void_p)),
@@ -595,7 +420,7 @@ class GpuJpegDecoder:
         self._check_open()
         counts = np.zeros(2, np.int64)
         with self._lock:
-            self._lib.jpe_counts(self._ctx, counts.ctypes.data_as(_P(ctypes.c_longlong)))
+            ENTROPY.jpe_counts(self._ctx, counts.ctypes.data_as(_P(ctypes.c_longlong)))
         return int(counts[0]), int(counts[1])
 
     def coefficients(self, paths):
@@ -686,14 +511,14 @@ class GpuJpegDecoder:
         if keep:
             n, (ph, pw) = len(paths), (int(v) for v in pad_hw)
             centers = checked_centers(centers, n)
-            out = _canvas_out(out, (n, ph, pw, 3), self.device)
+            out = ycc.canvas_out(out, (n, ph, pw, 3), self.device)
         else:
             n, (ph, pw), centers, out = batch_args(paths, centers, pad_hw, out)
         if self.device.type == "cpu":
             planes, samplings = self._planes_cpu(paths)
             windows = _windows(planes, centers, (ph, pw))
-            ycc_canvas(planes, samplings, windows, (ph, pw),
-                       out=out if keep else torch.from_numpy(out))
+            ycc.ycc_canvas(planes, samplings, windows, (ph, pw),
+                           out=out if keep else torch.from_numpy(out))
             return (DecodedCanvas(out) if keep else out), *_results(windows)
         with self._on_device():
             t0 = time.perf_counter()
@@ -703,8 +528,9 @@ class GpuJpegDecoder:
                 windows = _windows(planes, centers, (ph, pw))
                 with profiling.device_span("loader.canvas", self.stream):
                     t1 = time.perf_counter()
-                    canvas = ycc_canvas_cuda(planes, samplings, windows, (ph, pw),
-                                             out=out if keep else self._canvas_for((n, ph, pw, 3)))
+                    canvas = ycc.ycc_canvas_cuda(
+                        planes, samplings, windows, (ph, pw),
+                        out=out if keep else self._canvas_for((n, ph, pw, 3)))
                     desc_ms = 1e3 * (time.perf_counter() - t1)
                 if keep:
                     images = DecodedCanvas(out, self.stream)

@@ -3,13 +3,14 @@
     python -m posetpu_torch.tools.sass_report [SOURCE.cu ...] [--out DIR]
         [--path START STOP [--taken ADDR ...]]
 
-Builds each source (default: every kernel source of the port) with the
-port's ``nvcc`` flags, disassembles the library with ``cuobjdump -sass``
-and prints one JSON line per kernel function: its instruction count, its
-loops (each backward branch, with the instructions between its target and
-itself) and its basic blocks (address range, instruction count, last
-instruction).  With ``--out`` the full listing of each
-library is written there as ``<library>.sass``.  Reading the blocks on a
+Builds each source (default: every CUDA source of
+:data:`posetpu_torch.libraries.LIBRARIES`) with the port's ``nvcc`` flags,
+disassembles the library with ``cuobjdump -sass`` and prints one JSON line
+per kernel function: its instruction count, its loops (each backward
+branch, with the instructions between its target and itself) and its basic
+blocks (address range, instruction count, last instruction).  With
+``--out`` the full listing of each library is written there as
+``<library>.sass``.  Reading the blocks on a
 kernel's path gives the instructions one pixel costs; ``--path START STOP
 [--taken ADDR ...]`` counts them along one path through the listing (the
 branches named taken, every other conditional branch falling through),
@@ -25,12 +26,8 @@ import re
 import subprocess
 from collections import Counter
 
-from posetpu_torch.aug import cuda_kernels
-from posetpu_torch.native import jpeg_gpu
+from posetpu_torch.libraries import LIBRARIES
 from posetpu_torch.utils import cuda_build
-
-# every kernel source of the port built with cuda_build.NVCC_FLAGS alone
-SOURCES = (*cuda_kernels.SOURCES, *jpeg_gpu.SOURCES)
 
 _FUNCTION = re.compile(r"Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -147,7 +144,8 @@ def _cuobjdump():
 
 def parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sources", nargs="*", default=list(SOURCES))
+    ap.add_argument("sources", nargs="*",
+                    default=[lib.source for lib in LIBRARIES if lib.toolchain == "nvcc"])
     ap.add_argument("--out", help="directory for the full listings")
     ap.add_argument("--path", nargs=2, metavar=("START", "STOP"),
                     help="also count the instructions from address START through STOP "
@@ -161,7 +159,7 @@ def main(argv=None):
     args = parser().parse_args(argv)
     span = [int(a, 16) for a in args.path] if args.path else None
     taken = {int(a, 16) for a in args.taken}
-    libs = cuda_build.build(args.sources)
+    libs = cuda_build.build([cuda_build.Library(src, {}) for src in args.sources])
     for src in args.sources:
         text = subprocess.run(
             [_cuobjdump(), "-sass", libs[src]], capture_output=True, text=True,

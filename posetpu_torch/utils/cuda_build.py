@@ -1,17 +1,19 @@
-"""Build the port's native sources at first use and load them with ctypes.
+"""Build the port's native libraries at first use and load them with ctypes.
 
-Each source exposes a plain C interface (no PyTorch headers): the CUDA
-kernels (``.cu``) compile with ``nvcc`` in seconds, the host JPEG pool
-(``native/decode_pool.cpp``) with ``g++``.  The shared library goes into
-``posetpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by
-a hash of the source text and the compiler flags: an edited source or a
-changed flag builds anew, an unchanged one is reused.  Each build writes a
-file of its own (named by the process id) and moves it into place with
-``os.replace``, so processes that start the same first build at once each
-load a whole library.  A failed build raises; nothing falls back to a plain
-version.  The registry (:mod:`posetpu_torch.utils.profiling`) counts the
-libraries compiled as ``build.compiles``, and :func:`load_library` is the
-span ``build.<library>`` (its build, where one is due, and its load).
+Each library is one :class:`Library`, declared beside the code that calls
+it: a source with a plain C interface (no PyTorch headers), its toolchain
+and its C entry points.  The CUDA kernels (``.cu``) compile with ``nvcc``
+in seconds, the host libraries (``.cpp``) with ``g++``.  The shared library
+goes into ``posetpu_torch/_build/`` (listed in ``.gitignore``) under a name
+keyed by a hash of the source text and the compiler flags: an edited source
+or a changed flag builds anew, an unchanged one is reused.  Each build
+writes a file of its own (named by the process id) and moves it into place
+with ``os.replace``, so processes that start the same first build at once
+each load a whole library.  A failed build raises; nothing falls back to a
+plain version.  The registry (:mod:`posetpu_torch.utils.profiling`) counts
+the libraries compiled as ``build.compiles``, and :meth:`Library.load` is
+the span ``build.<library>`` (its build, where one is due, and its load).
+:mod:`posetpu_torch.libraries` lists every library of the port.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 from posetpu_torch.utils import profiling
 
@@ -38,9 +41,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_TIMEOUT_S = 600
+# the host libraries' g++ flags; each library adds its link libraries after
+# the source
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_TIMEOUT_S = 600
 
 
 def _nvcc() -> str:
@@ -53,6 +58,13 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the port's host libraries cannot build")
+    return gxx
 
 
 def library_path(source: str, flags=NVCC_FLAGS, libs=()) -> str:
@@ -68,38 +80,89 @@ def library_path(source: str, flags=NVCC_FLAGS, libs=()) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build(sources, *, compiler=None, flags=NVCC_FLAGS, libs=()) -> dict[str, str]:
-    """Compile every source that has no library yet, one compiler process
-    per source, all started together: ``compiler flags -o out source
-    libs``.  ``compiler`` defaults to ``nvcc``.  Returns {source: library
-    path}.  The compiler's report (for ``nvcc``, ``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside each library as ``<library>.log``."""
-    paths = {s: library_path(s, flags, libs) for s in sources}
-    todo = [(s, p) for s, p in paths.items() if not os.path.exists(p)]
+class Library:
+    """One native library: ``source``, built with ``nvcc`` and
+    :data:`NVCC_FLAGS` or, with ``toolchain="g++"``, with ``g++``,
+    :data:`GXX_FLAGS` and the link libraries ``libs``; and its C entry
+    points, ``functions`` {name: (restype, argtypes)}.
+
+    Nothing builds until an entry point is first read: then the library is
+    built if needed and loaded (:meth:`load`), and every entry point, typed
+    once, becomes an attribute of this declaration, so that a launch looks
+    up no more than that attribute.  Raises RuntimeError where the library
+    cannot build."""
+
+    def __init__(self, source, functions, *, toolchain="nvcc", libs=()):
+        if toolchain not in ("nvcc", "g++"):
+            raise ValueError(f"toolchain must be nvcc or g++, got {toolchain!r}")
+        self.source, self.functions = source, functions
+        self.toolchain, self.libs = toolchain, tuple(libs)
+        self.flags = NVCC_FLAGS if toolchain == "nvcc" else GXX_FLAGS
+        self.stem = os.path.splitext(os.path.basename(source))[0]
+        self._lock = threading.Lock()
+        self._handle = None
+
+    def path(self) -> str:
+        return library_path(self.source, self.flags, self.libs)
+
+    def compiler(self) -> str:
+        return _nvcc() if self.toolchain == "nvcc" else _gxx()
+
+    def load(self) -> ctypes.CDLL:
+        """The ctypes handle, built if needed, its entry points typed and
+        set on this declaration once a process."""
+        with self._lock:
+            if self._handle is None:
+                with profiling.span(f"build.{self.stem}"):
+                    handle = ctypes.CDLL(build([self])[self.source])
+                for name, (restype, argtypes) in self.functions.items():
+                    fn = getattr(handle, name)
+                    fn.restype, fn.argtypes = restype, argtypes
+                    setattr(self, name, fn)
+                self._handle = handle
+        return self._handle
+
+    def __getattr__(self, name):
+        # reached for an entry point only before the first load
+        if name in self.__dict__.get("functions", ()):
+            self.load()
+            return self.__dict__[name]
+        raise AttributeError(f"{type(self).__name__} has no attribute {name!r}")
+
+
+def build(libraries) -> dict[str, str]:
+    """Compile every one of ``libraries`` (:class:`Library`) that has no
+    library file yet, one compiler process each, all started together:
+    ``compiler flags -o out source libs``.  Returns {source: library path}.
+    The compiler's report (for ``nvcc``, ``-Xptxas -v``: registers, shared
+    memory, spills) is kept beside each library as ``<library>.log``."""
+    paths = {lib.source: lib.path() for lib in libraries}
+    todo = [(lib, paths[lib.source]) for lib in libraries
+            if not os.path.exists(paths[lib.source])]
     if not todo:
         return paths
+    compilers = [lib.compiler() for lib, _ in todo]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    compiler = compiler or _nvcc()
     profiling.count("build.compiles", len(todo))
     procs = []
     try:
-        for src, lib in todo:
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [compiler, *flags, "-o", tmp, src, *libs]
+        for compiler, (lib, out) in zip(compilers, todo):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [compiler, *lib.flags, "-o", tmp, lib.source, *lib.libs]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
-            procs.append((src, lib, tmp, proc))
-        for src, lib, tmp, proc in procs:
-            out, _ = proc.communicate(timeout=_TIMEOUT_S)
+            procs.append((compiler, lib.source, out, tmp, proc))
+        for compiler, src, out, tmp, proc in procs:
+            log, _ = proc.communicate(timeout=_TIMEOUT_S)
             if proc.returncode != 0:
-                raise RuntimeError(f"{os.path.basename(compiler)} failed on {src}:\n{out}")
-            with open(f"{lib}.{os.getpid()}.log", "w") as f:
-                f.write(out)
-            os.replace(f"{lib}.{os.getpid()}.log", lib + ".log")
-            os.replace(tmp, lib)  # atomic: a reader never sees half a library
+                raise RuntimeError(f"{os.path.basename(compiler)} failed on {src}:\n{log}")
+            with open(f"{out}.{os.getpid()}.log", "w") as f:
+                f.write(log)
+            os.replace(f"{out}.{os.getpid()}.log", out + ".log")
+            os.replace(tmp, out)  # atomic: a reader never sees half a library
     finally:
-        for _, _, tmp, proc in procs:
+        for *_, tmp, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -108,11 +171,9 @@ def build(sources, *, compiler=None, flags=NVCC_FLAGS, libs=()) -> dict[str, str
     return paths
 
 
-def load_library(source: str, **build_kw) -> ctypes.CDLL:
-    """The ctypes handle of ``source``'s library, built if needed
-    (``build_kw`` as :func:`build` takes them)."""
-    if source not in _loaded:
-        stem = os.path.splitext(os.path.basename(source))[0]
-        with profiling.span(f"build.{stem}"):
-            _loaded[source] = ctypes.CDLL(build([source], **build_kw)[source])
-    return _loaded[source]
+def count_launch(err, kernel, counter):
+    """After a launch that returned ``err`` (its cudaError_t): raise unless
+    it is 0, else add one to the registry's ``counter``."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    profiling.count(counter)

@@ -35,6 +35,7 @@ signature.
 
 from __future__ import annotations
 
+import gc
 import operator
 import time
 from dataclasses import dataclass, field
@@ -71,16 +72,26 @@ def record(fn, dev, pool=None):
     ``pool`` (``None``: a pool of its own).  Returns (graph, the outputs
     ``fn`` returned, the kernel launches the capture recorded, what the
     capture added to the card's reserved memory, the cache's free blocks
-    released first).  Raises if the capture fails."""
+    released first).  Raises if the capture fails.  The cyclic garbage
+    collector is paused during the capture: a collection there that frees
+    another graph (a predictor or a step left in a reference cycle)
+    destroys that graph mid-capture, which CUDA refuses and which
+    invalidates this capture."""
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
     graph = torch.cuda.CUDAGraph()
-    # thread_local: a loader's thread may go on pinning and copying on its
-    # own stream while this thread captures
-    with profiling.counted_as_replays() as launches:
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-            out = fn()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        # thread_local: a loader's thread may go on pinning and copying on
+        # its own stream while this thread captures
+        with profiling.counted_as_replays() as launches:
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                out = fn()
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize(dev)
     return graph, out, launches, torch.cuda.memory_reserved(dev) - reserved
 

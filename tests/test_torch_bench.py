@@ -180,11 +180,11 @@ def test_the_window_counts_both_kernels_from_zero():
     """The line's launches are the wrappers' own counts, all reset at the
     timed window's start."""
     from posetpu_torch.aug import cuda_kernels
-    from posetpu_torch.native import islow, jpeg_gpu
+    from posetpu_torch.native import islow
+    from posetpu_torch.native.ycc import YCC_LAUNCHES
     from posetpu_torch.utils import profiling
 
-    raster, idct, ycc = (cuda_kernels.RASTERIZE_LAUNCHES, islow.IDCT_LAUNCHES,
-                         jpeg_gpu.YCC_LAUNCHES)
+    raster, idct, ycc = (cuda_kernels.RASTERIZE_LAUNCHES, islow.IDCT_LAUNCHES, YCC_LAUNCHES)
     profiling.count(raster, 7)
     profiling.count(idct, 4)
     profiling.count(ycc, 5)

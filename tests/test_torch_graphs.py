@@ -21,7 +21,9 @@ each way a state tensor can move drops a sentinel graph and counts a
 recapture; calls where nothing moved keep it and walk nothing.
 """
 
+import contextlib
 import copy
+import gc
 
 import numpy as np
 import pytest
@@ -33,6 +35,7 @@ from posetpu_torch.models import hg
 from posetpu_torch.train import GraphedEvalStep, make_eval_step, make_graphed_eval_step
 from posetpu_torch.train.adversarial import JointState, agent_from_config
 from posetpu_torch.train.state import TrainState, make_optimizer
+from posetpu_torch.utils import graphs
 from posetpu_torch.utils.graphs import GraphCache
 from posetpu_torch.utils.profiling import counter, reset_counters
 
@@ -363,3 +366,39 @@ def test_validation_graph_keeps_each_batch_and_counts_replays():
         assert not torch.equal(a, b)
     graphed(_eval_batch(rng, optional=False))  # no mask or offset: its own graph
     assert graphed.graphs.captures == 2
+
+
+def test_capture_pauses_the_cyclic_collector(monkeypatch):
+    """graphs.record captures with the cyclic collector paused, and
+    restores it after, also when the capture raises: a collection inside a
+    capture that freed an old predictor's graph (PosePredictor is a
+    reference cycle) invalidated that capture on the card."""
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None, capture_error_mode=None):
+        seen.append(("enter", gc.isenabled()))
+        yield
+        seen.append(("exit", gc.isenabled()))
+
+    for name, fn in (("synchronize", lambda dev=None: None), ("empty_cache", lambda: None),
+                     ("memory_reserved", lambda dev=None: 0), ("CUDAGraph", object),
+                     ("graph", fake_graph)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    assert gc.isenabled()
+    _, out, launches, _ = graphs.record(lambda: gc.isenabled(), "cuda")
+    assert out is False and not any(launches.values()) and gc.isenabled()
+    assert seen == [("enter", False), ("exit", False)]
+
+    def boom():
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.record(boom, "cuda")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        graphs.record(lambda: None, "cuda")
+        assert not gc.isenabled()  # left as it was found
+    finally:
+        gc.enable()

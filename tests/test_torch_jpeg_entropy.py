@@ -13,8 +13,8 @@ jidctint.c's int32 arithmetic (tables scaled up to 128x as 16-bit entries,
 forged coefficients of +-2047) the route refuses the file as "range"; every
 file it takes is libjpeg's bit for bit.  Files the route refuses read
 ``ok`` False, are counted, and reach the JAX package's Pillow loader's
-answer through the port's loader.  The ctypes signatures and the kernel's
-descriptor and tile constants are parsed from the sources.  The plain IDCT
+answer through the port's loader.  The kernel's descriptor and tile
+constants are parsed from the sources.  The plain IDCT
 is also held to its definition on hand-made blocks and to its range-limit
 table.
 """
@@ -357,7 +357,7 @@ def test_the_cheap_bound_is_derived_from_jidctint():
     jidctint.c's 1-D pass (the plain version's _pass, read off unit inputs
     at a shift that leaves the factors whole), and kRangeBound as its
     comment derives it."""
-    src = open(jpeg_gpu.ENTROPY_SOURCE).read()
+    src = open(jpeg_gpu.ENTROPY.source).read()
     weights = [int(v) for v in re.search(r"kWeight\[8\] = \{([^}]*)\}", src)[1].split(",")]
     shift = 20
     for k in range(8):
@@ -373,12 +373,14 @@ def test_info_words_describe_the_grids_and_planes(decoder):
     MCUs of 16x16), stored plane sizes libjpeg's."""
     data = jpeg_bytes("420", 161, 121, 0)
     info = np.zeros(jpeg_gpu.INFO_WORDS, np.int32)
-    st = decoder._lib.jpe_info(data, len(data), info.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    st = jpeg_gpu.ENTROPY.jpe_info(data, len(data),
+                                   info.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     assert st == 0
     assert info.tolist() == [161, 121, 3, 2, 2, 22, 16, 161, 121, 1, 1, 11, 8, 81, 61,
                              1, 1, 11, 8, 81, 61]
     gray = jpeg_bytes("gray", 17, 33, 0)
-    st = decoder._lib.jpe_info(gray, len(gray), info.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    st = jpeg_gpu.ENTROPY.jpe_info(gray, len(gray),
+                                   info.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     assert st == 0 and info.tolist()[:9] == [17, 33, 1, 1, 1, 3, 5, 17, 33]
 
 
@@ -446,7 +448,8 @@ def test_forged_size_is_refused_before_anything_is_allocated(decoder):
     block at least) is refused by jpe_info, which sizes the buffers."""
     data = _set_sof(jpeg_bytes("gray", 16, 16, 0), height=65500, width=65500)
     info = np.zeros(jpeg_gpu.INFO_WORDS, np.int32)
-    st = decoder._lib.jpe_info(data, len(data), info.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    st = jpeg_gpu.ENTROPY.jpe_info(data, len(data),
+                                   info.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     assert jpeg_gpu.JPE_STATUSES[st] == "dimensions"
 
 
@@ -633,7 +636,7 @@ def test_plain_idct_equals_jidctint_written_out():
 def test_idct_descriptors_are_the_kernels_words():
     """islow.descriptors: the words idct_islow.cu documents, each
     component's first tile and tiles a row at the kernel's tile width."""
-    src = open(islow.SOURCE).read()
+    src = open(islow.IDCT.source).read()
     assert f"constexpr int kDescWords = {islow.DESC_WORDS};" in src
     warps = int(re.search(r"constexpr int kConsumers = (\d+);", src)[1])
     rounds = int(re.search(r"constexpr int kRounds = (\d+);", src)[1])
@@ -670,47 +673,3 @@ def test_idct_wrapper_refuses_what_neither_version_takes():
         islow.idct_islow(coefs.int(), q, [[0, 0, 3, 2]], [plane])
     with pytest.raises(ValueError, match="CUDA"):
         islow.idct_islow_cuda(coefs, q, [[0, 0, 3, 2]], [plane])
-
-
-_P = ctypes.POINTER
-# the C types of the two interfaces and their ctypes
-C_TYPES = {"void": None, "void*": ctypes.c_void_p, "int": ctypes.c_int,
-           "int*": _P(ctypes.c_int), "size_t": ctypes.c_size_t, "long long": ctypes.c_longlong,
-           "long long*": _P(ctypes.c_longlong),
-           "const void*": ctypes.c_void_p,
-           "const unsigned char*": ctypes.c_char_p,
-           "const unsigned char* const*": _P(ctypes.c_char_p),
-           "const size_t*": _P(ctypes.c_size_t), "void* const*": _P(ctypes.c_void_p)}
-
-
-def _declarations(path, prefix):
-    """{name: (C return type, [C parameter types])} of the functions named
-    ``prefix...`` in ``path``'s extern "C" block."""
-    with open(path) as f:
-        src = f.read()
-    block = src[src.index('extern "C" {'):]
-    out = {}
-    for ret, name, params in re.findall(rf"^(\w[\w ]*\**)\s*({prefix}\w+)\(([^)]*)\)\s*\{{",
-                                        block, re.M):
-        types = []
-        for p in params.split(","):
-            words = " ".join(p.split())
-            types.append(re.sub(r"\s*\b\w+$", "", words).replace(" *", "*"))
-        out[name] = (ret.strip().replace(" *", "*"), types)
-    return out
-
-
-SOURCES = {"jpeg_entropy": (jpeg_gpu.ENTROPY_SOURCE, "jpe_", jpeg_gpu.SIGNATURES),
-           "idct_islow": (islow.SOURCE, "idct_islow_", islow.SIGNATURES)}
-
-
-@pytest.mark.parametrize("name", sorted([*jpeg_gpu.SIGNATURES, *islow.SIGNATURES]))
-def test_ctypes_signatures_match_the_source(name):
-    """Each function's restype and argtypes are its C declaration's."""
-    path, prefix, signatures = next(v for v in SOURCES.values() if name in v[2])
-    decl = _declarations(path, prefix)
-    assert set(decl) == set(signatures)
-    ret, params = decl[name]
-    restype, argtypes = signatures[name]
-    assert C_TYPES[ret] is restype, (ret, restype)
-    assert [C_TYPES[p] for p in params] == argtypes, params

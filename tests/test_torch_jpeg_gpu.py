@@ -312,7 +312,7 @@ def test_without_cuda_the_route_raises_and_auto_is_unchanged(split, monkeypatch)
     # no placer, or a CPU one: the pool where it builds, else Pillow
     builds = True
     try:
-        bindings._lib()
+        bindings.POOL.load()
     except RuntimeError:
         builds = False
     want = "native" if builds else "pil"
@@ -335,13 +335,13 @@ def test_ycc_canvas_cpu_is_the_plain_version_and_refuses_bad_input(libjpeg, file
     sampling = [(1, 1), (2, 2), (2, 2)]
     H, W = planes[0].shape
     windows = np.array([[3, 5, 40, 30], [0, 0, 0, 0]])
-    got = jpeg_gpu.ycc_canvas([planes, ()], [sampling, ()], windows, (32, 48))
+    got = ycc.ycc_canvas([planes, ()], [sampling, ()], windows, (32, 48))
     assert got.shape == (2, 32, 48, 3) and not got[1].any()
     np.testing.assert_array_equal(
         got[0].numpy(), ycc.window_canvas(planes, sampling, windows[0], (32, 48)).numpy())
-    assert counter(jpeg_gpu.YCC_LAUNCHES) == 0  # the plain version launches nothing
+    assert counter(ycc.YCC_LAUNCHES) == 0  # the plain version launches nothing
     with pytest.raises(ValueError, match="CUDA"):
-        jpeg_gpu.ycc_canvas_cuda([planes], [sampling], windows[:1], (32, 48))
+        ycc.ycc_canvas_cuda([planes], [sampling], windows[:1], (32, 48))
 
 
 # every component layout the kernel takes: the luma's (1, 1), then each
@@ -403,12 +403,12 @@ def test_descriptors_are_the_documented_words():
     planes: an all-zero row)."""
     planes, samplings, windows = _random_batch(np.random.RandomState(3), "cpu", (121, 530),
                                                misaligned=True)
-    desc = jpeg_gpu._descriptors(planes, samplings, windows, (121, 530), torch.device("cpu"))
-    assert desc.dtype == np.int64 and desc.shape == (len(planes), jpeg_gpu.DESC_WORDS)
+    desc = ycc.descriptors(planes, samplings, windows, (121, 530), torch.device("cpu"))
+    assert desc.dtype == np.int64 and desc.shape == (len(planes), ycc.DESC_WORDS)
     assert {len(pl) for pl in planes} == {0, 1, 3}
     assert any(w[0] % 2 and w[1] % 2 for w in windows)
     for d, pl, samp, win in zip(desc, planes, samplings, windows):
-        want = [0] * jpeg_gpu.DESC_WORDS
+        want = [0] * ycc.DESC_WORDS
         if win[2] > 0:
             for c, (p, (hf, vf)) in enumerate(zip(pl, samp)):
                 want[c], want[3 + c] = p.data_ptr(), p.stride(0)
@@ -428,9 +428,9 @@ def test_ycc_canvas_refuses_what_the_kernel_does_not_take():
 
     def refused(match, pl=pl, samp=samp, win=win, device=cpu):
         with pytest.raises(ValueError, match=match):
-            jpeg_gpu._descriptors([tuple(pl)], [samp], win, (40, 48), device)
+            ycc.descriptors([tuple(pl)], [samp], win, (40, 48), device)
 
-    jpeg_gpu._descriptors([tuple(pl)], [samp], win, (40, 48), cpu)  # the unchanged inputs pass
+    ycc.descriptors([tuple(pl)], [samp], win, (40, 48), cpu)  # the unchanged inputs pass
     refused("bad planes/sampling", pl=pl[:2], samp=samp[:2])
     refused("bad planes/sampling", samp=samp[:2])
     refused("bad planes/sampling", samp=[(2, 1)] + samp[1:])
@@ -444,16 +444,16 @@ def test_ycc_canvas_refuses_what_the_kernel_does_not_take():
         refused("outside", win=np.array([bad]))
     # a window inside its image but wider than the canvas
     wide = [torch.zeros(9, 60, dtype=torch.uint8), *(torch.zeros(5, 30, dtype=torch.uint8),) * 2]
-    jpeg_gpu._descriptors([tuple(wide)], [samp], np.array([[0, 0, 48, 9]]), (40, 48), cpu)
+    ycc.descriptors([tuple(wide)], [samp], np.array([[0, 0, 48, 9]]), (40, 48), cpu)
     refused("outside", pl=wide, win=np.array([[0, 0, 49, 9]]))
     # a (0, 0) window's planes are not read, so not checked
-    jpeg_gpu._descriptors([(torch.zeros(3, dtype=torch.int16),)], [()], np.zeros((1, 4)), (4, 4), cpu)
+    ycc.descriptors([(torch.zeros(3, dtype=torch.int16),)], [()], np.zeros((1, 4)), (4, 4), cpu)
     with pytest.raises(ValueError, match="CUDA"):
-        jpeg_gpu.ycc_canvas_cuda([tuple(pl)], [samp], win, (40, 48))
+        ycc.ycc_canvas_cuda([tuple(pl)], [samp], win, (40, 48))
     for out in (torch.zeros(1, 40, 48, 3), torch.zeros(1, 40, 47, 3, dtype=torch.uint8),
                 torch.zeros(1, 48, 40, 3, dtype=torch.uint8).transpose(1, 2)):
         with pytest.raises(ValueError, match="out must be"):
-            jpeg_gpu._canvas_out(out, (1, 40, 48, 3), cpu)
+            ycc.canvas_out(out, (1, 40, 48, 3), cpu)
 
 
 def _cuda():
@@ -472,10 +472,10 @@ def test_cuda_kernel_equals_the_plain_version_on_every_layout_and_alignment(pad_
     rng = np.random.RandomState(pad_hw[1])
     for misaligned in (False, True):
         planes, samplings, windows = _random_batch(rng, "cuda", pad_hw, misaligned)
-        before = counter(jpeg_gpu.YCC_LAUNCHES)
-        got = jpeg_gpu.ycc_canvas(planes, samplings, windows, pad_hw)
+        before = counter(ycc.YCC_LAUNCHES)
+        got = ycc.ycc_canvas(planes, samplings, windows, pad_hw)
         torch.cuda.synchronize()
-        assert counter(jpeg_gpu.YCC_LAUNCHES) == before + 1
+        assert counter(ycc.YCC_LAUNCHES) == before + 1
         for i, (pl, samp, win) in enumerate(zip(planes, samplings, windows)):
             want = ycc.window_canvas(pl, samp, win, pad_hw) if pl else torch.zeros_like(got[i])
             assert torch.equal(got[i], want), (i, samp, win.tolist(), misaligned)
@@ -507,7 +507,7 @@ def test_cuda_wrapper_reuses_its_pinned_descriptors_safely():
     stream = torch.cuda.Stream()
     with torch.cuda.stream(stream):
         torch.cuda._sleep(50_000_000)
-        outs = [jpeg_gpu.ycc_canvas(planes, samplings, w, pad) for w in calls]
+        outs = [ycc.ycc_canvas(planes, samplings, w, pad) for w in calls]
     stream.synchronize()
     for w, got in zip(calls, outs):
         assert torch.equal(got, want(w))
@@ -517,7 +517,7 @@ def test_cuda_wrapper_reuses_its_pinned_descriptors_safely():
     def worker(k):
         s = torch.cuda.Stream()
         with torch.cuda.stream(s):
-            results[k] = [jpeg_gpu.ycc_canvas(planes, samplings, w, pad) for w in calls[k::2]]
+            results[k] = [ycc.ycc_canvas(planes, samplings, w, pad) for w in calls[k::2]]
         s.synchronize()
 
     threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
@@ -542,10 +542,10 @@ def test_cuda_kernel_equals_the_plain_version_on_the_routes_planes(files):
         centers = _centers(files, k=pad_hw[0])
         windows = np.array([ycc.crop_window(pl[0].shape[1], pl[0].shape[0], c, pad_hw)
                             for pl, c in zip(planes, centers)])
-        before = counter(jpeg_gpu.YCC_LAUNCHES)
-        got = jpeg_gpu.ycc_canvas(planes, samplings, windows, pad_hw)
+        before = counter(ycc.YCC_LAUNCHES)
+        got = ycc.ycc_canvas(planes, samplings, windows, pad_hw)
         torch.cuda.synchronize()
-        assert got.is_cuda and counter(jpeg_gpu.YCC_LAUNCHES) == before + 1
+        assert got.is_cuda and counter(ycc.YCC_LAUNCHES) == before + 1
         want = torch.stack([ycc.planes_to_canvas(pl, s, pad_hw, c)[0]
                             for pl, s, c in zip(planes, samplings, centers)])
         assert torch.equal(got, want)

@@ -52,12 +52,12 @@ def test_opcode_drops_predicate_and_modifiers():
 
 
 def test_default_sources_are_every_kernel_of_the_port():
-    """With no arguments the report covers the rasterizer and the decode
-    route's idct_islow and ycc_canvas kernels (nothing is built to answer
-    this)."""
+    """With no arguments the report covers every CUDA library of the port:
+    the rasterizer, the conv bias and the decode route's idct_islow and
+    ycc_canvas kernels (nothing is built to answer this)."""
     sources = sass_report.parser().parse_args([]).sources
-    assert sorted(os.path.basename(s) for s in sources) == ["idct_islow.cu", "rasterize.cu",
-                                                             "ycc_canvas.cu"]
+    assert sorted(os.path.basename(s) for s in sources) == ["conv_bias.cu", "idct_islow.cu",
+                                                             "rasterize.cu", "ycc_canvas.cu"]
     assert all(os.path.isfile(s) for s in sources)
 
 

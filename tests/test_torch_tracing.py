@@ -249,11 +249,11 @@ def test_counters_stay_exact_under_threads():
 def test_counted_as_replays_and_add_replay_behave_as_before():
     raster = cuda_kernels.RASTERIZE_LAUNCHES
     count(raster, 5)  # launches that ran
-    with cuda_kernels.counted_as_replays() as captured:
+    with profiling.counted_as_replays((raster,)) as captured:
         count(raster, 3)  # recorded into a graph: nothing ran
     assert counter(raster) == 5 and captured == {raster: 3}
     for _ in range(2):
-        cuda_kernels.add_replay(captured)
+        profiling.add_replay(captured)
     assert counter(raster) == 11
 
 
