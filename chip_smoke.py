@@ -25,6 +25,17 @@ Phases, each printing one JSON line:
              on every main path below: 378 adds a forward (a serving or
              validation batch, a train step; two forwards a joint step) and
              378 gradients a backward, counted once a replay
+  bn_relu    the hourglass's fused BatchNorm-ReLU kernels at every norm
+             shape of hg8_mpii at batch 32, channels-last: the train
+             forward's statistics within float32 summation error of float64
+             and its output bit for bit torch's transform and ReLU given
+             them, the eval forward bit for bit torch's eval pair (its
+             differing elements counted), the backward as close to float64
+             as torch's own pair (the bf16 ratio rule); each timed beside
+             its plain version, torch's pair and its bytes bound.  Their
+             launches are checked on every main path below with the conv
+             bias's: 354 forwards a forward pass (a joint step's reward
+             forward in eval mode among them) and 354 backwards a backward
   bench      every mode of python -m posetpu_torch.bench at full width with
              fewer steps and trials (the default K steps a graph,
              --scan-stacks, --serve and --serve --pipeline 2, --joint,
@@ -289,7 +300,7 @@ from posetpu_torch.eval.export import load_preds
 from posetpu_torch.infer import MPII_MEAN, PosePredictor
 from posetpu_torch.libraries import LIBRARIES
 from posetpu_torch.native import GpuJpegDecoder, bindings, islow, jpeg_gpu, ycc
-from posetpu_torch.models import conv_bias, hg
+from posetpu_torch.models import bn_relu, conv_bias, hg
 from posetpu_torch.models.batchnorm import BatchNorm2d, convert_cross_replica_
 from posetpu_torch.parallel import (
     RankPool,
@@ -611,17 +622,27 @@ def _hg8_conv_outputs():
 HG8_CONVS = 378
 
 
-def _conv_bias_launches():
+# norms of an hg8 network, each with its ReLU: one bn_relu forward each a
+# forward pass, one backward each a backward
+HG8_NORMS = 354
+# the counters of the hourglass's hand ops, reset around each main path
+HAND_OP_COUNTERS = (*conv_bias.COUNTERS, *bn_relu.COUNTERS)
+
+
+def _hand_op_launches():
     return {"conv_bias": counter(conv_bias.ADD_LAUNCHES),
-            "conv_bias_grad": counter(conv_bias.GRAD_LAUNCHES)}
+            "conv_bias_grad": counter(conv_bias.GRAD_LAUNCHES),
+            "bn_relu": counter(bn_relu.LAUNCHES),
+            "bn_relu_grad": counter(bn_relu.GRAD_LAUNCHES)}
 
 
-def _check_conv_bias(label, launches, forwards, backwards):
-    """``launches`` holds HG8_CONVS conv-bias adds a forward and gradients
-    a backward."""
-    want = {"conv_bias": HG8_CONVS * forwards, "conv_bias_grad": HG8_CONVS * backwards}
+def _check_hand_ops(label, launches, forwards, backwards):
+    """``launches`` holds HG8_CONVS conv-bias adds and HG8_NORMS bn_relu
+    forwards a forward pass, and as many gradients a backward."""
+    want = {"conv_bias": HG8_CONVS * forwards, "conv_bias_grad": HG8_CONVS * backwards,
+            "bn_relu": HG8_NORMS * forwards, "bn_relu_grad": HG8_NORMS * backwards}
     got = {k: launches[k] for k in want}
-    check(got == want, f"{label}: conv-bias launches {got}, want {want} "
+    check(got == want, f"{label}: hand-op launches {got}, want {want} "
                        f"({forwards} forwards, {backwards} backwards)")
 
 
@@ -650,7 +671,7 @@ def phase_conv_bias():
     timed beside its plain version and its bytes bound, and the shapes'
     times summed over the convolutions of one train step.  Returns the two
     kernels' summaries; their launches come from the main paths' phases."""
-    sms = conv_bias.sm_count("cuda")
+    sms = cuda_build.sm_count("cuda")
     shapes, totals = [], dict.fromkeys(
         ("add_ms", "add_plain_ms", "add_bound_ms", "grad_ms", "grad_plain_ms",
          "grad_bound_ms"), 0.0)
@@ -708,6 +729,188 @@ def phase_conv_bias():
              "ms": totals["grad_ms"], "plain_ms": totals["grad_plain_ms"],
              "bound_ms": totals["grad_bound_ms"], "bound_by": "bytes",
              "library_ms": totals["grad_plain_ms"], **common}]
+
+
+def _hg8_norm_inputs():
+    """{(C, H, W, dtype): norms an image} of hg8_mpii's forward at 256² on
+    the card, from hooks on its norms."""
+    model = hg().cuda().eval()
+    seen = {}
+
+    def hook(mod, inp, out):
+        key = (*inp[0].shape[1:], inp[0].dtype)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, bn_relu.BatchNormReLU)]
+    with torch.no_grad():
+        model(torch.zeros(1, 256, 256, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def _mean_abs_gap(a, b):
+    return float((a.double() - b.double()).abs().mean())
+
+
+def _float64_norm_grads(x, w, b, dz, momentum, eps):
+    """Gradients of the train-mode norm alone in float64 for the gradient
+    ``dz`` of its output (a ReLU's mask applied to it first)."""
+    x6, w6, b6 = (t.detach().double().requires_grad_() for t in (x, w, b))
+    y = torch.nn.functional.batch_norm(x6, None, None, w6, b6, True, momentum, eps)
+    return torch.autograd.grad(y, (x6, w6, b6), dz.double())
+
+
+def _grid_route_ms(x, dr, w, b, rm, rv, nbt, mean, invstd, momentum, eps):
+    """The train forward and backward of a norm that runs as one cluster,
+    timed as they would run on the blocks-and-ticket route: the two routes
+    side by side where the wrapper picks the cluster."""
+    cluster_grid = bn_relu.grid
+    bn_relu.grid = lambda rows, C, size, sms: (bn_relu.row_blocks(rows, C, size, sms), False)
+    try:
+        return {"fwd_grid_ms": cuda_ms(lambda: bn_relu.forward_cuda(x, w, b, rm, rv, nbt,
+                                                                   momentum, eps)),
+                "grad_grid_ms": cuda_ms(lambda: bn_relu.backward_cuda(dr, x, w, b, mean,
+                                                                      invstd))}
+    finally:
+        bn_relu.grid = cluster_grid
+
+
+def phase_bn_relu():
+    """The fused BatchNorm-ReLU kernels at hg8_mpii's norm inputs, batch 32,
+    channels-last as the main path runs them (eps 1e-5, momentum 0.1):
+
+    - the train forward's mean and invstd within 1e-5 (of the channel's
+      spread, of invstd) of float64, and its output bit for bit
+      ``F.relu(torch.batch_norm_elemt(...))`` given its statistics, torch's
+      channels-last transform; the elements where torch's own pair differs
+      counted (torch's statistics round otherwise);
+    - the eval forward against ``F.relu(F.batch_norm(..., False))``: no
+      element differs;
+    - dx, dw and db as close to float64 as torch's own pair (the bf16 ratio
+      rule: a mean error within 2x torch's, beside float32's rounding of
+      the largest value).
+
+    Each pass is timed beside its plain version, torch's pair (the
+    library path it replaced), at the norms that run as one cluster the
+    same passes on the blocks-and-ticket route (``fwd_grid_ms``,
+    ``grad_grid_ms``), and two byte counts at 3.35 TB/s:
+    ``bound_ms``, each input read once and each output written once (the
+    train forward 2 B an element in bf16 and back, the backward 3x), and
+    ``passes_ms``, what the kernels' passes move (the forward reads x
+    twice, the backward x and dr twice).  Summed over a train step's
+    norms (and a serving batch's eval forwards at batch 32).  Returns the
+    three summaries; their launches come from the main paths' phases."""
+    eps, momentum = 1e-5, 0.1
+    shapes = []
+    totals = dict.fromkeys(
+        ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms", "fwd_passes_ms",
+         "eval_ms", "eval_plain_ms", "eval_library_ms", "eval_bound_ms",
+         "grad_ms", "grad_plain_ms", "grad_library_ms", "grad_bound_ms", "grad_passes_ms"),
+        0.0)
+    for (C, H, W, dtype), n in sorted(_hg8_norm_inputs().items(), key=str):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3 * C + H)
+        x, dr = (torch.randn(BATCH, C, H, W, device="cuda", generator=gen).mul(2).add(0.3)
+                 .to(dtype).contiguous(memory_format=torch.channels_last) for _ in range(2))
+        w = torch.randn(C, device="cuda", generator=gen) + 1
+        b = torch.randn(C, device="cuda", generator=gen) * 0.5
+        rm = torch.randn(C, device="cuda", generator=gen) * 0.1
+        rv = torch.rand(C, device="cuda", generator=gen) + 0.5
+        nbt = torch.zeros((), dtype=torch.int64, device="cuda")
+        label = f"bn_relu ({BATCH}, {C}, {H}, {W}) {dtype}"
+        before = counter(bn_relu.LAUNCHES)
+        out, mean, invstd = bn_relu.forward_cuda(x, w, b, rm.clone(), rv.clone(), nbt,
+                                                 momentum, eps)
+        check(counter(bn_relu.LAUNCHES) == before + 1 and int(nbt) == 1,
+              f"{label}: no forward launch or batch count")
+        x64 = x.double()
+        var64 = x64.var((0, 2, 3), unbiased=False)
+        mean_err = float(((mean.double() - x64.mean((0, 2, 3))).abs() / var64.sqrt()).max())
+        inv64 = (var64 + eps).rsqrt()
+        inv_err = float(((invstd.double() - inv64).abs() / inv64).max())
+        check(mean_err <= 1e-5 and inv_err <= 1e-5,
+              f"{label}: statistics {mean_err}, {inv_err} from float64")
+        check(torch.equal(out, torch.relu(torch.batch_norm_elemt(x, w, b, mean, invstd, eps))),
+              f"{label}: forward is not torch's transform and ReLU on its statistics")
+        t_out = bn_relu.bn_relu_plain(x, w, b, rm.clone(), rv.clone(), True, momentum, eps)
+        ev = bn_relu.eval_cuda(x, w, b, rm, rv, eps)
+        eval_differ = int((ev != bn_relu.bn_relu_plain(x, w, b, rm, rv, False, momentum,
+                                                       eps)).sum())
+        check(eval_differ == 0, f"{label}: {eval_differ} eval elements differ from torch's")
+        got = bn_relu.backward_cuda(dr, x, w, b, mean, invstd)
+        xt, wt, bt = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        yt = bn_relu.bn_relu_plain(xt, wt, bt, None, None, True, momentum, eps)
+        library = torch.autograd.grad(yt, (xt, wt, bt), dr, retain_graph=True)
+        grad_gaps = {}
+        # each held to the float64 backward of the norm under its own ReLU
+        # mask: an element whose z lies within rounding of 0 may fall either
+        # way, and moves dw by |dr * (x - mean)|
+        refs = [_float64_norm_grads(x, w, b, dr * (r > 0), momentum, eps)
+                for r in (out, yt.detach())]
+        for i, name in enumerate(("dx", "dw", "db")):
+            r, rt = refs[0][i], refs[1][i]
+            gap, torch_gap = _mean_abs_gap(got[i], r), _mean_abs_gap(library[i], rt)
+            grad_gaps[name] = [gap, torch_gap]
+            check(gap <= 2 * torch_gap + 2.0**-24 * float(r.abs().max()),
+                  f"{label}: {name} {gap} from float64, torch's {torch_gap}")
+        nbytes = x.numel() * x.element_size()
+        mean_p, inv_p = mean.clone(), invstd.clone()
+        row = {"shape": [BATCH, C, H, W], "dtype": str(dtype).split(".")[1],
+               "norms_an_image": n,
+               "cluster": bn_relu.grid(BATCH * H * W, C, x.element_size(),
+                                       cuda_build.sm_count("cuda"))[1],
+               "mean_err": mean_err, "invstd_err": inv_err,
+               "torch_pair_differ": int((out != t_out).sum()), "eval_differ": eval_differ,
+               "grad_gaps": grad_gaps,
+               "fwd_ms": cuda_ms(lambda: bn_relu.forward_cuda(x, w, b, rm, rv, nbt, momentum,
+                                                              eps)),
+               "fwd_plain_ms": cuda_ms(lambda: bn_relu.forward_plain(x, w, b, rm, rv, nbt,
+                                                                     momentum, eps)),
+               "fwd_library_ms": cuda_ms(lambda: bn_relu.bn_relu_plain(x, w, b, rm, rv, True,
+                                                                       momentum, eps)),
+               "fwd_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+               "fwd_passes_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+               "eval_ms": cuda_ms(lambda: bn_relu.eval_cuda(x, w, b, rm, rv, eps)),
+               "eval_plain_ms": cuda_ms(lambda: bn_relu.eval_plain(x, w, b, rm, rv, eps)),
+               "eval_library_ms": cuda_ms(lambda: bn_relu.bn_relu_plain(x, w, b, rm, rv, False,
+                                                                        momentum, eps)),
+               "eval_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+               "grad_ms": cuda_ms(lambda: bn_relu.backward_cuda(dr, x, w, b, mean_p, inv_p)),
+               "grad_plain_ms": cuda_ms(lambda: bn_relu.backward_plain(dr, x, w, b, mean_p,
+                                                                       inv_p)),
+               "grad_library_ms": cuda_ms(lambda: torch.autograd.grad(
+                   yt, (xt, wt, bt), dr, retain_graph=True)),
+               "grad_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+               "grad_passes_ms": 5 * nbytes / HBM_BYTES_PER_S * 1e3}
+        if row["cluster"]:
+            row.update(_grid_route_ms(x, dr, w, b, rm, rv, nbt, mean_p, inv_p, momentum, eps))
+        shapes.append(row)
+        for k in totals:
+            totals[k] += n * row[k]
+    norms = sum(r["norms_an_image"] for r in shapes)
+    check(norms == HG8_NORMS, f"hg8_mpii has {norms} norms, not {HG8_NORMS}")
+    emit("bn_relu", norms=norms, step_ms=totals, shapes=shapes)
+    common = {"route": "cuda", "source": "posetpu_torch/models/kernels/bn_relu.cu",
+              "bound_by": "bytes", "shapes": shapes}
+    return [{"name": "bn_relu", "counter": "bn_relu",
+             "replaces": "torch's batch_norm_collect_statistics and batch_norm_transform_input "
+                         "(channels-last) and the ReLU's clamp",
+             "ms": totals["fwd_ms"], "plain_ms": totals["fwd_plain_ms"],
+             "library_ms": totals["fwd_library_ms"], "bound_ms": totals["fwd_bound_ms"],
+             "passes_ms": totals["fwd_passes_ms"], **common},
+            {"name": "bn_relu_eval", "counter": "bn_relu",
+             "replaces": "torch's eval batch_norm_transform_input (channels-last) and the "
+                         "ReLU's clamp",
+             "ms": totals["eval_ms"], "plain_ms": totals["eval_plain_ms"],
+             "library_ms": totals["eval_library_ms"], "bound_ms": totals["eval_bound_ms"],
+             **common},
+            {"name": "bn_relu_grad", "counter": "bn_relu_grad",
+             "replaces": "torch's batch_norm_backward_reduce and batch_norm_backward_elemt "
+                         "(channels-last) and threshold_backward",
+             "ms": totals["grad_ms"], "plain_ms": totals["grad_plain_ms"],
+             "library_ms": totals["grad_library_ms"], "bound_ms": totals["grad_bound_ms"],
+             "passes_ms": totals["grad_passes_ms"], **common}]
 
 
 # bench: every mode of python -m posetpu_torch.bench at full width, with
@@ -1582,12 +1785,12 @@ def phase_serve(cfg):
     torch.cuda.synchronize()
     check(predictor.graphs.captures == 1, f"captures {predictor.graphs.captures}")
 
-    reset_counters(RASTER, *conv_bias.COUNTERS)
+    reset_counters(RASTER, *HAND_OP_COUNTERS)
     t0 = time.perf_counter()
     outs = list(predictor.predict_iter(iter(batches), depth=2))
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
-    _check_conv_bias("serve graph", launches, NUM_BATCHES, 0)
+    launches = {"rasterize_gaussians": counter(RASTER), **_hand_op_launches()}
+    _check_hand_ops("serve graph", launches, NUM_BATCHES, 0)
     t0 = time.perf_counter()
     eager = list(_serve_eager_iter(predictor, iter(batches), depth=2))
     eager_s = time.perf_counter() - t0
@@ -1687,24 +1890,24 @@ def phase_validate(cfg, predictor):
     eager(batches[0])  # the eager step's cuDNN set-up
     torch.cuda.synchronize()
 
-    reset_counters(RASTER, *conv_bias.COUNTERS)
+    reset_counters(RASTER, *HAND_OP_COUNTERS)
     t0 = time.perf_counter()
     results = [graphed(b) for b in batches]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
+    launches = {"rasterize_gaussians": counter(RASTER), **_hand_op_launches()}
     check(launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in graphed validation: {launches}")
-    _check_conv_bias("graphed validation", launches, NUM_BATCHES, 0)
-    reset_counters(RASTER, *conv_bias.COUNTERS)
+    _check_hand_ops("graphed validation", launches, NUM_BATCHES, 0)
+    reset_counters(RASTER, *HAND_OP_COUNTERS)
     t0 = time.perf_counter()
     refs = [eager(b) for b in batches]
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    eager_launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
+    eager_launches = {"rasterize_gaussians": counter(RASTER), **_hand_op_launches()}
     check(eager_launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in eager validation: {eager_launches}")
-    _check_conv_bias("eager validation", eager_launches, NUM_BATCHES, 0)
+    _check_hand_ops("eager validation", eager_launches, NUM_BATCHES, 0)
     check(graphed.graphs.captures == 1, f"captures {graphed.graphs.captures}")
 
     losses, accs, cnt = [], [], 0
@@ -1834,17 +2037,17 @@ def phase_train(cfg):
     step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
     torch.cuda.synchronize()
 
-    reset_counters(RASTER, *conv_bias.COUNTERS)
+    reset_counters(RASTER, *HAND_OP_COUNTERS)
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
+    launches = {"rasterize_gaussians": counter(RASTER), **_hand_op_launches()}
     peak = torch.cuda.max_memory_allocated()
 
     check(launches["rasterize_gaussians"] == NUM_BATCHES,
           f"rasterizer launches in training: {launches}")
-    _check_conv_bias("training", launches, NUM_BATCHES, NUM_BATCHES)
+    _check_hand_ops("training", launches, NUM_BATCHES, NUM_BATCHES)
     losses = [m["loss"].item() for m in metrics]
     accs = [m["acc"].item() for m in metrics]
     for loss, acc in zip(losses, accs):
@@ -2056,17 +2259,17 @@ def phase_joint(cfg):
     step(state, batches[0])  # warm-up: cuDNN and cuBLAS set-up, not timed
     torch.cuda.synchronize()
 
-    reset_counters(RASTER, *conv_bias.COUNTERS)
+    reset_counters(RASTER, *HAND_OP_COUNTERS)
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
+    launches = {"rasterize_gaussians": counter(RASTER), **_hand_op_launches()}
     peak = torch.cuda.max_memory_allocated()
 
     check(launches["rasterize_gaussians"] == JOINT_RASTER_LAUNCHES * steps,
           f"rasterizer launches in the joint steps: {launches}")
-    _check_conv_bias(f"{cfg.name} joint steps", launches, _pose_forwards(kw) * steps, steps)
+    _check_hand_ops(f"{cfg.name} joint steps", launches, _pose_forwards(kw) * steps, steps)
     values = {k: [m[k].item() for m in metrics] for k in metrics[0]}
     for k, vs in values.items():
         check(all(math.isfinite(v) for v in vs), f"joint {k} {vs}")
@@ -2873,12 +3076,12 @@ def phase_dispatch(cfg):
     check(first == WARMUP_STEPS + K, f"first dispatch: {first} launches, want "
           f"{WARMUP_STEPS} warm-up + {K} replayed")
 
-    reset_counters(RASTER, *conv_bias.COUNTERS)
+    reset_counters(RASTER, *HAND_OP_COUNTERS)
     t0 = time.perf_counter()
     metrics = [dispatch(state, sb) for sb in supers[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
+    launches = {"rasterize_gaussians": counter(RASTER), **_hand_op_launches()}
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
@@ -2903,7 +3106,7 @@ def phase_dispatch(cfg):
     check(dispatch.captures == 1, f"captures {dispatch.captures}")
     check(launches["rasterize_gaussians"] == K * DISPATCH_TIMED,
           f"rasterizer launches over {DISPATCH_TIMED} dispatches: {launches}")
-    _check_conv_bias("train dispatches", launches, K * DISPATCH_TIMED, K * DISPATCH_TIMED)
+    _check_hand_ops("train dispatches", launches, K * DISPATCH_TIMED, K * DISPATCH_TIMED)
     steps = K * (2 + DISPATCH_TIMED) + 1
     check(state.step == opt.count == steps, f"step {state.step}, count {opt.count}")
     check(all(math.isfinite(x) for ls in losses for x in ls), f"dispatch losses {losses}")
@@ -3188,12 +3391,12 @@ def phase_joint_dispatch():
           f"first joint dispatch: {first} launches, want {JOINT_RASTER_LAUNCHES} x "
           f"({WARMUP_STEPS} warm-up + {K} replayed)")
 
-    reset_counters(RASTER, *conv_bias.COUNTERS)
+    reset_counters(RASTER, *HAND_OP_COUNTERS)
     t0 = time.perf_counter()
     metrics = [dispatch(state, sb) for sb in supers[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rasterize_gaussians": counter(RASTER), **_conv_bias_launches()}
+    launches = {"rasterize_gaussians": counter(RASTER), **_hand_op_launches()}
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: dispatch(state, supers[1]))
     replay_ms = cuda_ms(_graph_replay(dispatch), reps=1, samples=5)
@@ -3217,7 +3420,7 @@ def phase_joint_dispatch():
     check(dispatch.captures == 1, f"captures {dispatch.captures}")
     check(launches["rasterize_gaussians"] == JOINT_RASTER_LAUNCHES * K * DISPATCH_TIMED,
           f"rasterizer launches over {DISPATCH_TIMED} joint dispatches: {launches}")
-    _check_conv_bias("joint dispatches", launches, _pose_forwards(kw) * K * DISPATCH_TIMED,
+    _check_hand_ops("joint dispatches", launches, _pose_forwards(kw) * K * DISPATCH_TIMED,
                      K * DISPATCH_TIMED)
     steps = K * (2 + DISPATCH_TIMED) + 1
     check((state.step, state.pose.step, state.pose.optimizer.count, state.agent.step,
@@ -4616,6 +4819,7 @@ def _run_phases(smi):
     phase_build()
     raster = phase_kernels()
     conv_bias_summaries = phase_conv_bias()
+    bn_relu_summaries = phase_bn_relu()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         bench_launches = phase_bench(smi, workdir)
@@ -4703,7 +4907,7 @@ def _run_phases(smi):
                   "joint": joint_launches, "joint_lsp": lsp_launches,
                   "joint_dispatch": joint_dispatch_launches, "serve_graph": serve_launches,
                   "validate_graph": launches, "validate": eager_launches}
-    for summary in conv_bias_summaries:
+    for summary in (*conv_bias_summaries, *bn_relu_summaries):
         name = summary.pop("counter")
         summary["launches"] = dispatch_launches[name]
         summary["launches_by_path"] = {path: n[name] for path, n in conv_paths.items()}
@@ -4717,7 +4921,7 @@ def _run_phases(smi):
                                        **{f"bench_{mode}": n[name]
                                           for mode, n in bench_launches.items()
                                           if mode.startswith("loader_host")}}
-    return [raster, ycc_summary, idct_summary, *conv_bias_summaries]
+    return [raster, ycc_summary, idct_summary, *conv_bias_summaries, *bn_relu_summaries]
 
 
 if __name__ == "__main__":

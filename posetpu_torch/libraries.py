@@ -9,10 +9,11 @@ module builds nothing.
 """
 
 from posetpu_torch.aug.cuda_kernels import RASTERIZE
+from posetpu_torch.models.bn_relu import BN_RELU
 from posetpu_torch.models.conv_bias import CONV_BIAS
 from posetpu_torch.native.bindings import POOL
 from posetpu_torch.native.islow import IDCT
 from posetpu_torch.native.jpeg_gpu import ENTROPY
 from posetpu_torch.native.ycc import YCC
 
-LIBRARIES = (RASTERIZE, CONV_BIAS, IDCT, YCC, ENTROPY, POOL)
+LIBRARIES = (RASTERIZE, CONV_BIAS, BN_RELU, IDCT, YCC, ENTROPY, POOL)

@@ -60,6 +60,11 @@ def recomputing():
         _recompute.on = prev
 
 
+def is_recomputing():
+    """Whether this thread runs inside :func:`recomputing`."""
+    return getattr(_recompute, "on", False)
+
+
 def _recompute_context():
     return contextlib.nullcontext(), recomputing()
 
@@ -99,7 +104,7 @@ class BatchNorm2d(nn.BatchNorm2d):
             # accurately: 1.3e-4 from float64 against 6.1e-7 contiguous at
             # (6, 64, 32, 32); a bfloat16 input's own rounding is far wider
             x = x.contiguous()
-        if getattr(_recompute, "on", False):
+        if is_recomputing():
             # the first forward's op on copies of the running statistics:
             # the same values, and the same tensors saved for the backward
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
@@ -118,7 +123,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         moments = all_reduce_sum(moments, self.group) / group_size(self.group)
         mu, mu2 = moments[0], moments[1]
         var = torch.clamp(mu2 - mu * mu, min=0.0)
-        if not getattr(_recompute, "on", False):
+        if not is_recomputing():
             self._update_running(mu, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mu[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]

@@ -41,7 +41,6 @@ here runs at import.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 import os
 
@@ -67,9 +66,8 @@ COUNTERS = (ADD_LAUNCHES, GRAD_LAUNCHES)
 # the kernels' element types, by their dtype code
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
-# the gradient kernel's block, its ticket slots and its cluster (conv_bias.cu)
+# the gradient kernel's block and its cluster (conv_bias.cu)
 SUM_THREADS = 1024
-TICKET_SLOTS = 64
 CLUSTER = 8
 # channels-last gradients whose threads sum at most this many rows in one
 # cluster of CLUSTER blocks take the cluster kernel
@@ -198,28 +196,6 @@ def gradient_misses(got, g, sms, torch_sum=None):
     return (got - want).abs() > room
 
 
-def sm_count(device):
-    """The SMs of CUDA ``device``."""
-    return _sms(torch.device(device).index)
-
-
-@functools.cache
-def _sms(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-_slots: dict[tuple[int, int], int] = {}
-
-
-def _ticket_slot(index, stream):
-    """The gradient kernel's ticket slot for ``stream`` on device ``index``:
-    one a stream, so that launches on two streams never share one."""
-    key = (index, stream)
-    if key not in _slots:
-        _slots[key] = len(_slots) % TICKET_SLOTS
-    return _slots[key]
-
-
 def _check_cuda(*ts):
     if not all(t.is_cuda and t.device == ts[0].device for t in ts):
         raise ValueError("the conv bias kernels take CUDA tensors on one device")
@@ -234,7 +210,7 @@ def bias_add_cuda_(out, bias):
     dev = out.device
     with torch.cuda.device(dev):
         err = CONV_BIAS.conv_bias_add_launch(out.data_ptr(), bias.data_ptr(), numel, C, code,
-                                             vec, sm_count(dev),
+                                             vec, cuda_build.sm_count(dev),
                                              torch.cuda.current_stream().cuda_stream)
     cuda_build.count_launch(err, "conv_bias_add", ADD_LAUNCHES)
     return out
@@ -247,7 +223,7 @@ def bias_grad_cuda(grad):
     code = _dtype_code(grad)
     rows, C, vec = rows_of(grad), grad.shape[1], _width(grad)
     dev = grad.device
-    gx, tile, cluster = grad_grid(rows, C, vec, sm_count(dev))
+    gx, tile, cluster = grad_grid(rows, C, vec, cuda_build.sm_count(dev))
     # a cluster adds its blocks' sums in shared memory: no partial rows
     partial = None if cluster else torch.empty(gx * C, dtype=torch.float32, device=dev)
     out = torch.empty(C, dtype=grad.dtype, device=dev)
@@ -256,8 +232,8 @@ def bias_grad_cuda(grad):
         err = CONV_BIAS.conv_bias_grad_launch(grad.data_ptr(), rows, C, code, vec, gx, tile,
                                               int(cluster),
                                               None if cluster else partial.data_ptr(),
-                                              out.data_ptr(), _ticket_slot(dev.index, stream),
-                                              stream)
+                                              out.data_ptr(),
+                                              cuda_build.ticket_slot(dev.index, stream), stream)
     cuda_build.count_launch(err, "conv_bias_grad", GRAD_LAUNCHES)
     return out
 

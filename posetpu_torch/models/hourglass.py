@@ -29,6 +29,10 @@ BatchNorm: eps 1e-5; flax ``momentum=0.9`` is torch ``momentum=0.1``.
 Every convolution is :class:`posetpu_torch.models.conv_bias.Conv2d`:
 torch's module, whose bias on CUDA in bf16 or float32 is the hand-written
 op of :mod:`posetpu_torch.models.conv_bias` (the same output bit for bit).
+Every norm is followed by a ReLU, and the pair is one
+:class:`posetpu_torch.models.bn_relu.BatchNormReLU`: a ``BatchNorm2d``
+whose forward on CUDA in bf16 or float32 is the hand-written op of
+:mod:`posetpu_torch.models.bn_relu`, and elsewhere ``F.relu`` of the norm.
 
 In train mode the running variances follow flax, which averages in the
 *biased* batch variance where torch takes the unbiased one
@@ -45,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from posetpu_torch.models.batchnorm import BatchNorm2d, flax_train_forward, remat
+from posetpu_torch.models.bn_relu import BatchNormReLU
 from posetpu_torch.models.conv_bias import Conv2d
 
 
@@ -56,18 +61,18 @@ class Bottleneck(nn.Module):
     def __init__(self, cin, planes):
         super().__init__()
         cout = 2 * planes
-        self.bn1 = BatchNorm2d(cin)
+        self.bn1 = BatchNormReLU(cin)
         self.conv1 = Conv2d(cin, planes, 1)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = BatchNormReLU(planes)
         self.conv2 = Conv2d(planes, planes, 3, padding=1)
-        self.bn3 = BatchNorm2d(planes)
+        self.bn3 = BatchNormReLU(planes)
         self.conv3 = Conv2d(planes, cout, 1)
         self.proj = Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x):
-        y = self.conv1(F.relu(self.bn1(x)))
-        y = self.conv2(F.relu(self.bn2(y)))
-        y = self.conv3(F.relu(self.bn3(y)))
+        y = self.conv1(self.bn1(x))
+        y = self.conv2(self.bn2(y))
+        y = self.conv3(self.bn3(y))
         return y + (x if self.proj is None else self.proj(x))
 
 
@@ -139,10 +144,12 @@ class HourglassNet(nn.Module):
         self.remat = remat
         self.scan_stacks = scan_stacks
         ch = 2 * num_feats
+        # each norm's ReLU is its own (BatchNormReLU); the Identity keeps
+        # the Sequentials' indices, and so the state-dict names
         self.stem = nn.Sequential(
             Conv2d(3, 64, 7, 2, 3),
-            BatchNorm2d(64),
-            nn.ReLU(inplace=True),
+            BatchNormReLU(64),
+            nn.Identity(),
             Bottleneck(64, 64),
             nn.MaxPool2d(2),
             Bottleneck(128, num_feats),
@@ -156,9 +163,7 @@ class HourglassNet(nn.Module):
         )
         self.fc = nn.ModuleList(
             [
-                nn.Sequential(
-                    Conv2d(ch, ch, 1), BatchNorm2d(ch), nn.ReLU(inplace=True)
-                )
+                nn.Sequential(Conv2d(ch, ch, 1), BatchNormReLU(ch), nn.Identity())
                 for _ in range(num_stacks)
             ]
         )

@@ -13,17 +13,23 @@ each load a whole library.  A failed build raises; nothing falls back to a
 plain version.  The registry (:mod:`posetpu_torch.utils.profiling`) counts
 the libraries compiled as ``build.compiles``, and :meth:`Library.load` is
 the span ``build.<library>`` (its build, where one is due, and its load).
-:mod:`posetpu_torch.libraries` lists every library of the port.
+:mod:`posetpu_torch.libraries` lists every library of the port.  What the
+wrappers' launches share lives here too: :func:`sm_count`,
+:func:`ticket_slot` (for kernels whose last block finishes the work) and
+:func:`count_launch`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 from posetpu_torch.utils import profiling
 
@@ -169,6 +175,32 @@ def build(libraries) -> dict[str, str]:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return paths
+
+
+# the ticket slots of a kernel that finishes in its last block to arrive:
+# each such library declares this many (kTicketSlots)
+TICKET_SLOTS = 64
+_slots: dict[tuple[int, int], int] = {}
+
+
+def ticket_slot(index, stream):
+    """A ticket slot for ``stream`` on device ``index``: one a stream, so
+    that launches on two streams never share one.  Each library keeps its
+    own tickets, so one numbering serves them all."""
+    key = (index, stream)
+    if key not in _slots:
+        _slots[key] = len(_slots) % TICKET_SLOTS
+    return _slots[key]
+
+
+def sm_count(device):
+    """The SMs of CUDA ``device``."""
+    return _sms(torch.device(device).index)
+
+
+@functools.cache
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def count_launch(err, kernel, counter):

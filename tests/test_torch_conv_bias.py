@@ -50,6 +50,7 @@ from posetpu_torch.models.conv_bias import (
     rows_of,
     sum_depth,
 )
+from posetpu_torch.utils import cuda_build
 from posetpu_torch.utils.profiling import counter, reset_counters
 
 DTYPES = (torch.bfloat16, torch.float32, torch.float64)
@@ -411,7 +412,7 @@ def test_cuda_gradient_against_float64_and_torch():
     bf16 within one bf16 ulp of torch's sum beside the float sums' error;
     a zero result and a lost partial row fail the same bound."""
     _need_cuda()
-    sms = conv_bias.sm_count("cuda")
+    sms = cuda_build.sm_count("cuda")
     for dtype, (C, H, W) in _cases():
         g = _tensor((32, C, H, W), dtype, CL, C * H, "cuda")
         reset_counters(GRAD_LAUNCHES)
@@ -434,7 +435,7 @@ def test_cuda_replays_give_identical_gradients(shape):
     _need_cuda()
     g = _tensor(shape, torch.bfloat16, CL, 11, "cuda")
     N, C, H, W = shape
-    assert grad_grid(N * H * W, C, 8, conv_bias.sm_count("cuda"))[2] == (H == 8)
+    assert grad_grid(N * H * W, C, 8, cuda_build.sm_count("cuda"))[2] == (H == 8)
     want = conv_bias.bias_grad_cuda(g)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())

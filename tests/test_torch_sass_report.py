@@ -53,11 +53,13 @@ def test_opcode_drops_predicate_and_modifiers():
 
 def test_default_sources_are_every_kernel_of_the_port():
     """With no arguments the report covers every CUDA library of the port:
-    the rasterizer, the conv bias and the decode route's idct_islow and
-    ycc_canvas kernels (nothing is built to answer this)."""
+    the rasterizer, the conv bias, the fused norm and ReLU and the decode
+    route's idct_islow and ycc_canvas kernels (nothing is built to answer
+    this)."""
     sources = sass_report.parser().parse_args([]).sources
-    assert sorted(os.path.basename(s) for s in sources) == ["conv_bias.cu", "idct_islow.cu",
-                                                             "rasterize.cu", "ycc_canvas.cu"]
+    assert sorted(os.path.basename(s) for s in sources) == ["bn_relu.cu", "conv_bias.cu",
+                                                             "idct_islow.cu", "rasterize.cu",
+                                                             "ycc_canvas.cu"]
     assert all(os.path.isfile(s) for s in sources)
 
 
